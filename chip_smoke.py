@@ -4,21 +4,36 @@
     python3 chip_smoke.py
 
 Phases, each fatal on failure:
-  1. device: print the card and its power limit; build the CUDA kernel from
-     segsplat_tpu_torch/csrc with nvcc.
-  2. kernel vs plain on small scenes, the cases of tests/_torch_port.py:
-     K = 128, 256 and 384 (one 128-row block, one 256-row block, three 128-row
-     blocks with the transmittance carry), an opaque scene that takes the block
-     early-out, and a pair_cap truncation.
-  3. kernel vs plain at full scale: 1920×1080, 200 000 Gaussians, 32 channels,
-     the headline scene (seed 0, m=3, K=256, pair_cap 1.5M) and the hostile one
+  1. device: print the card and its power limit; build both CUDA kernels from
+     segsplat_tpu_torch/csrc with nvcc, one process per source, in parallel.
+  2. kernels vs plain on small scenes, the cases of tests/_torch_port.py, at
+     19 and 32 channels: K = 128, 256 and 384 (one 128-row block, one 256-row
+     block, three 128-row blocks with the transmittance carry), an opaque scene
+     that takes the forward's block early-out, and a pair_cap truncation. K1
+     (forward) at 1e-4; K2 (backward) at rtol 5e-3, atol 2e-4·max|ref|, with the
+     rows no tile owns exactly 0.
+  3. K1 vs plain at full scale: 1920×1080, 200 000 Gaussians, 32 channels, the
+     headline scene (seed 0, m=3, K=256, pair_cap 1.5M) and the hostile one
      (seed 7, m=6, K=512, pair_cap 6M), built as bench.py builds them; times the
      kernel, its plain version and the whole rasterize with CUDA events, and
      reckons the kernel's bound from the rows and pair-pixels this data needs.
-  4. the main path through its entry point: the CLI twin
+  4. the semantic render path through its entry point: the CLI twin
      segsplat_tpu_torch/render_semantics_logits.py renders 4 views at 1080p of a
-     model dir written here; the kernel's launch count must rise, and view 0's
-     logits must match the plain blend on the same inputs.
+     model dir written here; K1's launch count must rise, and view 0's logits
+     must match the plain blend on the same inputs.
+  5. the full-width train step of scripts/perf_train.py's configuration
+     (876×584, capacity 262 144, 200 000 Gaussians from its seed, m=3, K=256,
+     256 classes): step 1's loss terms and gradients with K1 + K2 against the
+     same step with both plain versions on the card; K1 (19 channels) and K2 vs
+     their plain versions on that step's own blend inputs and cotangents, timed,
+     with their bounds; then 10 steps timed with CUDA events, split into forward
+     render, losses, the host LAP, backward and optimizers.
+  6. the training path through its entry point: the CLI twin
+     ``python -m segsplat_tpu_torch.train`` for 20 iterations on a Blender-style
+     scene written here (3 views at 876×584, a 200 000-point cloud, capacity
+     262 144), with a densify step and an opacity reset, then eval and save; K1
+     and K2 must launch at least once per iteration, the losses must be finite
+     and the saved PLY must reload through the port's load_gaussian_table.
 Prints a ``{"kernels": [...]}`` line, then as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when CUDA
 is unavailable or the package is missing.
@@ -26,6 +41,7 @@ is unavailable or the package is missing.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -35,8 +51,11 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
-ATOL = RTOL = 1e-4
+ATOL = RTOL = 1e-4          # K1 against its plain version
+GRAD_RTOL, GRAD_ATOL_REL = 5e-3, 2e-4   # gradients: rtol, atol as a share of max|ref|
+KERNELS = ("blend_fwd", "blend_bwd")
 PEAK_FP32_FLOPS = 67e12     # H100 SXM, fp32 outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12    # H100 SXM HBM3
 
@@ -69,6 +88,21 @@ def cuda_time_ms(fn, reps: int, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def compare_grad(name: str, got, ref) -> float:
+    """Max abs diff; raises beyond rtol 5e-3, atol 2e-4·max|ref| (the tolerance
+    of tests/test_blend_vjp.py) or on a non-finite value."""
+    import torch
+
+    got, ref = got.float(), ref.float()
+    diff = (got - ref).abs()
+    worst = float(diff.max()) if diff.numel() else 0.0
+    atol = GRAD_ATOL_REL * float(ref.abs().max()) if ref.numel() else 0.0
+    if not torch.isfinite(got).all() or float((diff - (atol + GRAD_RTOL * ref.abs())).max()) > 0:
+        raise AssertionError(f"{name}: differs from its reference (max abs diff {worst:.3g}, "
+                             f"atol {atol:.3g})")
+    return worst
 
 
 def compare(name: str, got, ref) -> float:
@@ -156,31 +190,84 @@ def phase_small(results):
     import numpy as np
     import torch
 
-    from segsplat_tpu_torch.ops.blend import blend_tiles, blend_tiles_plain_with_work
+    from segsplat_tpu_torch.ops import blend as B
 
     # the case table and scenes of tests/test_torch_blend_cuda.py
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
-    from _torch_port import BLEND_CASES, assert_case_exercised, blend_case_args
+    from _torch_port import BLEND_CASES, assert_case_exercised, blend_case_args, owned_rows
 
-    for name in sorted(BLEND_CASES):
-        args = blend_case_args(name, "cuda")
-        offsets, K = args[0], args[-1]
-        got = blend_tiles(*args)
-        ref_img, ref_alpha, rows, hits = blend_tiles_plain_with_work(*args)
-        torch.cuda.synchronize()
-        err = compare(name, got, (ref_img, ref_alpha))
-        counts = np.minimum(np.diff(offsets.cpu().numpy()), K)
-        assert_case_exercised(name, offsets.cpu().numpy(), K, rows)
-        log(f"[small] {name}: K={K} pairs={int(offsets[-1])} deepest={int(counts.max())} "
-            f"rows_read={rows}/{int(counts.sum())} pixels_hit={hits} max_abs_err={err:.3g}")
-        results["max_abs_err"] = max(results["max_abs_err"], err)
+    gen = torch.Generator("cuda").manual_seed(0)
+    for ch in B.KERNEL_CHANNELS:
+        for name in sorted(BLEND_CASES):
+            args = blend_case_args(name, "cuda", ch=ch)
+            offsets, payload, K = args[0], args[1], args[-1]
+            got = B.blend_tiles(*args)
+            ref_img, ref_alpha, rows, hits = B.blend_tiles_plain_with_work(*args)
+            torch.cuda.synchronize()
+            err = compare(f"{name} CH={ch}", got, (ref_img, ref_alpha))
+            counts = np.minimum(np.diff(offsets.cpu().numpy()), K)
+            assert_case_exercised(name, offsets.cpu().numpy(), K, rows)
+            results["fwd_err"] = max(results["fwd_err"], err)
+
+            g_img = torch.randn(ref_img.shape, generator=gen, device="cuda")
+            g_alpha = torch.randn(ref_alpha.shape, generator=gen, device="cuda")
+            bargs = (offsets, payload, args[2], ref_img, ref_alpha, g_img, g_alpha) + args[3:]
+            d_pay, d_bg = B.blend_tiles_bwd(*bargs)
+            ref_pay, ref_bg, brows, bhits = B.blend_tiles_bwd_plain_with_work(*bargs)
+            torch.cuda.synchronize()
+            berr = max(compare_grad(f"{name} CH={ch} d_payload", d_pay, ref_pay),
+                       compare_grad(f"{name} CH={ch} d_bg", d_bg, ref_bg))
+            owned = torch.as_tensor(owned_rows(offsets.cpu().numpy(), K, payload.shape[0]),
+                                    device="cuda")
+            if bool((d_pay[~owned] != 0).any()):
+                raise AssertionError(f"{name} CH={ch}: K2 wrote a row no tile owns")
+            results["bwd_err"] = max(results["bwd_err"], berr)
+            log(f"[small] {name} CH={ch}: K={K} pairs={int(offsets[-1])} "
+                f"deepest={int(counts.max())} fwd rows_read={rows}/{int(counts.sum())} "
+                f"pixels_hit={hits} max_abs_err={err:.3g}; bwd rows_read={brows} "
+                f"pixels_hit={bhits} max_abs_err={berr:.3g}")
+
+
+def _bound(ops: float, bytes_: float):
+    """(bound ms, what bounds it): the larger of fp32 operations over 67 TFLOP/s
+    and bytes over 3.35 TB/s."""
+    t_ops, t_bytes = ops / PEAK_FP32_FLOPS, bytes_ / PEAK_HBM_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def k1_bound(offsets, rows: int, hits: int, ch: int, num_tiles: int):
+    """K1's bound on this data: every pair-pixel of a row read costs dx, dy,
+    sigma, exp, alpha and the cut (15 ops); one that passes the cut CH fmas, the
+    weight and T's update (2·CH + 3). Bytes: the rows read, offsets, bg, image
+    and alpha written."""
+    from segsplat_tpu_torch.ops.blend import payload_width
+
+    ops = rows * 256 * 15 + hits * (2 * ch + 3)
+    bytes_ = (rows * payload_width(ch) * 4 + offsets.numel() * 4 + ch * 4
+              + num_tiles * 256 * (ch + 1) * 4)
+    return _bound(ops, bytes_) + (ops, bytes_)
+
+
+def k2_bound(offsets, payload_rows: int, rows: int, hits: int, ch: int, num_tiles: int):
+    """K2's bound on this data: 15 ops per pair-pixel of every row up to count
+    (recomputing alpha, no early-out), and per pair-pixel that passes the cut
+    the <g, c> dot product (2·CH), the CH colour terms, the 6 + CH sums over the
+    tile's pixels and about 30 more for the transmittance, prefix and geometry
+    terms (4·CH + 36). Bytes: the rows read, the whole d_payload written, img,
+    g_img, alpha, g_alpha, offsets and bg read."""
+    from segsplat_tpu_torch.ops.blend import payload_width
+
+    w = payload_width(ch) * 4
+    ops = rows * 256 * 15 + hits * (4 * ch + 36)
+    bytes_ = (rows * w + payload_rows * w + num_tiles * 256 * (2 * ch + 2) * 4
+              + offsets.numel() * 4 + ch * 4)
+    return _bound(ops, bytes_) + (ops, bytes_)
 
 
 def phase_full(results):
     import torch
 
-    from segsplat_tpu_torch.ops.blend import (blend_tiles, blend_tiles_plain_with_work,
-                                              payload_width)
+    from segsplat_tpu_torch.ops.blend import blend_tiles, blend_tiles_plain_with_work
     from segsplat_tpu_torch.ops.rasterize import (build_blend_inputs, project_gaussians,
                                                   rasterize)
 
@@ -197,7 +284,7 @@ def phase_full(results):
             bi.offsets, bi.sorted_payload, bg, bi.tx_n, bi.ty_n, K)
         torch.cuda.synchronize()
         err = compare(name, got, (ref_img, ref_alpha))
-        results["max_abs_err"] = max(results["max_abs_err"], err)
+        results["fwd_err"] = max(results["fwd_err"], err)
         del got, ref_img, ref_alpha
 
         blend = lambda: blend_tiles(bi.offsets, bi.sorted_payload, bg, bi.tx_n, bi.ty_n, K)
@@ -212,21 +299,13 @@ def phase_full(results):
         proj = project()
         binning = lambda: build_blend_inputs(proj, t["colors"], t["opac"], W, H, m, K,
                                              pair_cap=cap)
-        ms = cuda_time_ms(blend, reps=20)
-        plain_ms = cuda_time_ms(plain, reps=5, warmup=1)
-        raster_ms = cuda_time_ms(raster, reps=7)
-        project_ms = cuda_time_ms(project, reps=7)
-        bin_ms = cuda_time_ms(binning, reps=7)
-
-        ch = 32
-        px_total = bi.tx_n * bi.ty_n * 256
-        # every pair-pixel of a row read: dx, dy, sigma, exp, alpha and the cut;
-        # a pair-pixel that passes the cut: CH fmas, the weight and T's update
-        ops = rows * 256 * 15 + hits * (2 * ch + 3)
-        bytes_ = (rows * payload_width(ch) * 4 + bi.offsets.numel() * 4 + ch * 4
-                  + px_total * (ch + 1) * 4)
-        bound_ms = max(ops / PEAK_FP32_FLOPS, bytes_ / PEAK_HBM_BYTES) * 1e3
-        bound_by = "operations" if ops / PEAK_FP32_FLOPS >= bytes_ / PEAK_HBM_BYTES else "bytes"
+        ms = cuda_time_ms(blend, reps=10)
+        plain_ms = cuda_time_ms(plain, reps=3, warmup=1)
+        raster_ms = cuda_time_ms(raster, reps=5)
+        project_ms = cuda_time_ms(project, reps=5)
+        bin_ms = cuda_time_ms(binning, reps=5)
+        bound_ms, bound_by, ops, bytes_ = k1_bound(bi.offsets, rows, hits, 32,
+                                                    bi.tx_n * bi.ty_n)
         scene = dict(num_pairs=int(bi.num_pairs), pair_cap=cap,
                      tile_overflow=int(bi.tile_overflow), rows_read=rows,
                      pixels_hit=hits, K=K, m=m,
@@ -287,11 +366,12 @@ def write_model_dir(root: str, n_views: int = 4):
 
 
 def phase_main_path(results, root: str):
+    """The semantic render path through its CLI twin."""
     import numpy as np
     import torch
 
     from segsplat_tpu_torch import render_semantics_logits as cli
-    from segsplat_tpu_torch.ops.blend import blend_tiles, blend_tiles_plain
+    from segsplat_tpu_torch.ops.blend import blend_tiles, blend_tiles_bwd, blend_tiles_plain
     from segsplat_tpu_torch.ops.rasterize import build_blend_inputs, project_gaussians
     from segsplat_tpu_torch.pipeline.render_semantics import attach_logits_for_table
     from segsplat_tpu_torch.scene import Scene, to_device_camera
@@ -301,7 +381,7 @@ def phase_main_path(results, root: str):
     argv = ["--model_path", model, "--iteration", "1", "--semantics", sem,
             "--skip_test", "--resolution", "1", "--device", "cuda"]
     stdout = sys.stdout         # the CLI's safe_state timestamps stdout lines
-    blend_tiles.launches = 0
+    blend_tiles.launches = blend_tiles_bwd.launches = 0
     t0 = time.perf_counter()
     try:
         cli.main(argv)
@@ -309,7 +389,8 @@ def phase_main_path(results, root: str):
     finally:
         sys.stdout = stdout
     launches = blend_tiles.launches
-    results["launches"] = launches
+    results["launches"]["render_semantics"] = {"blend_fwd": launches,
+                                               "blend_bwd": blend_tiles_bwd.launches}
     results["cli_s"] = time.perf_counter() - t0
     if launches < n_views:
         raise AssertionError(f"main path launched the blend kernel {launches} "
@@ -358,6 +439,326 @@ def phase_main_path(results, root: str):
         f"{int(clear.sum())} px with top1-top2 > 1e-2")
 
 
+# ───────────────────────────── training (phases 5–6) ───────────────────────────
+
+TRAIN_W, TRAIN_H, TRAIN_CAP, TRAIN_N = 876, 584, 262_144, 200_000
+DEV = "cuda"
+TRAIN_ITERS = 20
+
+
+def train_scene():
+    """scripts/perf_train.py:37-63, seed 0: the point cloud and its colours, a
+    GT image and 32 mask ids, drawn in that script's order."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    pts = (rng.random((TRAIN_N, 3)) * np.array([4.0, 3.0, 4.0])
+           + np.array([-2.0, -1.5, 2.0])).astype(np.float32)
+    cols = rng.random((TRAIN_N, 3)).astype(np.float32)
+    gt = rng.random((3, TRAIN_H, TRAIN_W)).astype(np.float32)
+    gto = rng.integers(0, 32, (TRAIN_H, TRAIN_W)).astype(np.int32)
+    return pts, cols, gt, gto
+
+
+def train_camera(yaw: float):
+    """scripts/perf_train.py's cam_of: a yaw about the origin, fov 1.2 × 0.75."""
+    import numpy as np
+    import torch
+
+    from segsplat_tpu_torch.core.types import Camera
+
+    R = np.array([[math.cos(yaw), 0, math.sin(yaw)], [0, 1, 0],
+                  [-math.sin(yaw), 0, math.cos(yaw)]], np.float32)
+    f32 = dict(dtype=torch.float32, device=DEV)
+    return Camera(R=torch.as_tensor(R, **f32), T=torch.zeros(3, **f32),
+                  fov_x=torch.tensor(1.2, **f32), fov_y=torch.tensor(0.75, **f32),
+                  width=TRAIN_W, height=TRAIN_H)
+
+
+@contextlib.contextmanager
+def swapped(module, **replacements):
+    """Replace module attributes for the duration (timing wrappers, or the
+    plain blend for a reference step); restores them after."""
+    old = {k: getattr(module, k) for k in replacements}
+    for k, v in replacements.items():
+        setattr(module, k, v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            setattr(module, k, v)
+
+
+def blend_node(total):
+    """The blend's autograd node in the graph of ``total``."""
+    seen, stack = set(), [total.grad_fn]
+    while stack:
+        node = stack.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        if type(node).__name__ == "_BlendBackward":
+            return node
+        stack.extend(f for f, _ in node.next_functions)
+    raise AssertionError("the step's graph has no blend node")
+
+
+def phase_train_step(results):
+    import torch
+
+    from segsplat_tpu_torch.ops import blend as B
+    from segsplat_tpu_torch.train import losses as L
+    from segsplat_tpu_torch.train import trainer as T
+    from segsplat_tpu_torch.train.densify import PARAM_FIELDS
+
+    pts, cols, gt_np, gto_np = train_scene()
+    t0 = time.perf_counter()
+    table = T.init_table_from_pcd(pts, cols, TRAIN_CAP, max_sh_degree=3, seed=0,
+                                  device=DEV)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cfg = T.OptimizationConfig(num_classes=256)
+    state = T.init_state(table, cfg, spatial_lr_scale=3.0, seed=0)
+    raster_kw = dict(max_tiles_per_axis=3, max_per_tile=256)
+    gt = torch.as_tensor(gt_np, device=DEV)
+    gto = torch.as_tensor(gto_np, device=DEV)
+    bg = torch.zeros(3, device=DEV)
+    gen = torch.Generator(DEV).manual_seed(0)
+    idx = torch.randint(0, TRAIN_W * TRAIN_H, (32768,), generator=gen, device=DEV)
+    tensors = [getattr(state.table, f) for f in PARAM_FIELDS] + [state.code_book]
+
+    def step1(plain: bool):
+        """Step 1's losses and gradients, and the blend's inputs and cotangents."""
+        for t in tensors:
+            t.grad = None
+        offset = torch.zeros((TRAIN_CAP, 2), device=DEV, requires_grad=True)
+        captured = {}
+        ctx = (swapped(B, blend_tiles=B.blend_tiles_plain,
+                       blend_tiles_bwd=B.blend_tiles_bwd_plain)
+               if plain else contextlib.nullcontext())
+        with ctx:
+            total, aux = T.compute_losses(state.table, state.code_book, train_camera(0.0),
+                                          gt, gto, bg, cfg, offset, raster_kw, idx=idx)
+            node = blend_node(total)
+            node.register_prehook(lambda g: captured.update(
+                saved=node.saved_tensors, dims=node.dims, grads=g))
+            total.backward()
+        torch.cuda.synchronize()
+        grads = {f: getattr(state.table, f).grad.clone() for f in PARAM_FIELDS}
+        grads["code_book"] = state.code_book.grad.clone()
+        grads["means2d_offset"] = offset.grad.clone()
+        terms = {k: float(aux[k].detach()) for k in T.METRIC_KEYS}
+        return grads, terms, captured
+
+    got, got_terms, cap = step1(plain=False)
+    ref, ref_terms, _ = step1(plain=True)
+    for k, v in ref_terms.items():
+        if not (math.isfinite(got_terms[k]) and
+                abs(got_terms[k] - v) <= 1e-4 * abs(v) + 1e-9):
+            raise AssertionError(f"step 1 {k}: kernels {got_terms[k]} vs plain {v}")
+    grad_err = {k: compare_grad(f"step 1 grad {k}", got[k], ref[k]) for k in ref}
+    # at SH degree 0 the higher bands get no gradient; with the initial
+    # isotropic scales the covariance does not depend on the rotation; and
+    # perf_train's mask ids are per-pixel noise, so no pixel is confident and the
+    # codebook's two losses are 0
+    for k, g in got.items():
+        if k not in ("features_rest", "rotation", "code_book") and not bool((g != 0).any()):
+            raise AssertionError(f"step 1 grad {k} is identically zero")
+    del got, ref
+    log(f"[train] step 1, kernels vs plain: loss terms {json.dumps(got_terms)}; "
+        f"grad max abs diff {json.dumps(grad_err)}")
+
+    # K1 (19 channels) and K2 on the step's own blend inputs and cotangents
+    offsets, payload, bg19, img, alpha = (t.detach() for t in cap["saved"])
+    tx_n, ty_n, K = cap["dims"]
+    # the training losses do not read alpha: autograd hands the blend zeros there
+    g_img, g_alpha = (torch.zeros_like(x) if g is None else g.detach().contiguous()
+                      for g, x in zip(cap["grads"], (img, alpha)))
+    fargs = (offsets, payload, bg19, tx_n, ty_n, K)
+    f_got = B.blend_tiles(*fargs)
+    f_img, f_alpha, f_rows, f_hits = B.blend_tiles_plain_with_work(*fargs)
+    fwd_err = compare("train K1 CH=19", f_got, (f_img, f_alpha))
+    results["fwd_err"] = max(results["fwd_err"], fwd_err)
+    del f_got, f_img, f_alpha
+    bargs = (offsets, payload, bg19, img, alpha, g_img, g_alpha, tx_n, ty_n, K)
+    b_pay, b_bg = B.blend_tiles_bwd(*bargs)
+    r_pay, r_bg, b_rows, b_hits = B.blend_tiles_bwd_plain_with_work(*bargs)
+    bwd_err = max(compare_grad("train K2 d_payload", b_pay, r_pay),
+                  compare_grad("train K2 d_bg", b_bg, r_bg))
+    results["bwd_err"] = max(results["bwd_err"], bwd_err)
+    del b_pay, r_pay
+    num_tiles = tx_n * ty_n
+    fwd = dict(ms=cuda_time_ms(lambda: B.blend_tiles(*fargs), reps=10),
+               plain_ms=cuda_time_ms(lambda: B.blend_tiles_plain(*fargs), reps=3, warmup=1),
+               rows_read=f_rows, pixels_hit=f_hits, max_abs_err=fwd_err)
+    fwd["bound_ms"], fwd["bound_by"], fwd["ops"], fwd["bytes"] = k1_bound(
+        offsets, f_rows, f_hits, 19, num_tiles)
+    bwd = dict(ms=cuda_time_ms(lambda: B.blend_tiles_bwd(*bargs), reps=10),
+               plain_ms=cuda_time_ms(lambda: B.blend_tiles_bwd_plain(*bargs), reps=3,
+                                     warmup=1),
+               rows_read=b_rows, pixels_hit=b_hits, payload_rows=int(payload.shape[0]),
+               max_abs_err=bwd_err)
+    bwd["bound_ms"], bwd["bound_by"], bwd["ops"], bwd["bytes"] = k2_bound(
+        offsets, payload.shape[0], b_rows, b_hits, 19, num_tiles)
+    results["train_fwd"], results["train_bwd"] = fwd, bwd
+    log(f"[train] K1 CH=19 at {TRAIN_W}x{TRAIN_H}: " + json.dumps(fwd))
+    log(f"[train] K2 CH=19 at {TRAIN_W}x{TRAIN_H}: " + json.dumps(bwd))
+    del cap, bargs, fargs, offsets, payload, img, alpha, g_img, g_alpha
+
+    # the step, timed part by part: CUDA events around the render, the losses
+    # (compute_losses less the render) and the optimizers; the backward is the
+    # rest of the step; the LAP on the host clock
+    spans, lap_ms = {}, []
+
+    def timed(name, fn):
+        def run(*a, **k):
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = fn(*a, **k)
+            ev[1].record()
+            spans.setdefault(name, []).append(ev)
+            return out
+        return run
+
+    host_lap = L.linear_sum_assignment
+
+    def lap(*a, **k):
+        t = time.perf_counter()
+        out = host_lap(*a, **k)
+        lap_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    step_fn = T.make_train_step(cfg, raster_kw)
+    warm, timed_steps = 2, 10
+    rows, wall = [], []
+    with swapped(T, render=timed("render", T.render),
+                 compute_losses=timed("compute_losses", T.compute_losses),
+                 apply_updates=timed("optimizers", T.apply_updates)), \
+            swapped(L, linear_sum_assignment=lap):
+        for i in range(warm + timed_steps):
+            spans.clear()
+            lap_ms.clear()
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            t0 = time.perf_counter()
+            ev[0].record()
+            m = step_fn(state, train_camera(0.01 * i), gt, gto, bg, generator=gen)
+            ev[1].record()
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+            if not all(math.isfinite(float(v)) for v in m.values()):
+                raise AssertionError(f"train step {i}: non-finite metrics {m}")
+            span = {k: v[0][0].elapsed_time(v[0][1]) for k, v in spans.items()}
+            step = ev[0].elapsed_time(ev[1])
+            rows.append(dict(step=step, render=span["render"],
+                             losses=span["compute_losses"] - span["render"],
+                             lap_host=sum(lap_ms), optimizers=span["optimizers"],
+                             backward=step - span["compute_losses"] - span["optimizers"]))
+    med = {k: statistics.median(r[k] for r in rows[warm:]) for k in rows[0]}
+    med["wall"] = statistics.median(wall[warm:])
+    results["train_step"] = dict(
+        median_ms=med, steps=timed_steps, init_table_s=init_s,
+        num_pairs=int(m["num_pairs"]), tile_overflow=int(m["tile_overflow"]),
+        total=float(m["total"]), peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"[train] step at {TRAIN_W}x{TRAIN_H}, capacity {TRAIN_CAP}, {TRAIN_N} Gaussians, "
+        f"m=3, K=256: " + json.dumps(results["train_step"]))
+    del state, table
+    torch.cuda.empty_cache()
+
+
+def write_train_scene(root: str, n_views: int = 3) -> str:
+    """A Blender-style scene of perf_train's point cloud seen from the origin:
+    ``n_views`` noise images at 876×584 and the 200 000-point ``points3d.ply``."""
+    import numpy as np
+    from PIL import Image
+
+    from segsplat_tpu_torch.io.dataset import store_point_cloud_ply
+
+    pts, cols, _, _ = train_scene()
+    rng = np.random.default_rng(1)
+    os.makedirs(root)
+    frames = []
+    for i in range(n_views):
+        a = 0.01 * i
+        c2w = np.eye(4)
+        c2w[:3, :3] = [[math.cos(a), 0, math.sin(a)], [0, 1, 0],
+                       [-math.sin(a), 0, math.cos(a)]]
+        c2w[:3, 1:3] *= -1      # COLMAP → Blender camera axes
+        img = (rng.random((TRAIN_H, TRAIN_W, 3)) * 255).astype(np.uint8)
+        Image.fromarray(img).save(os.path.join(root, f"r_{i}.png"))
+        frames.append({"file_path": f"r_{i}", "transform_matrix": c2w.tolist()})
+    with open(os.path.join(root, "transforms_train.json"), "w") as f:
+        json.dump({"camera_angle_x": 1.2, "frames": frames}, f)
+    store_point_cloud_ply(os.path.join(root, "points3d.ply"), pts,
+                          (cols * 255).astype(np.uint8))
+    return root
+
+
+def phase_train_cli(results, root: str):
+    import numpy as np
+    import torch
+
+    from segsplat_tpu_torch.ops.blend import blend_tiles, blend_tiles_bwd
+    from segsplat_tpu_torch.scene import load_gaussian_table
+    from segsplat_tpu_torch.train import cli
+
+    src = write_train_scene(os.path.join(root, "train_scene"))
+    model = os.path.join(root, "train_model")
+    # a densify step at 10 (inside (5, 20)), an opacity reset at 15, then eval,
+    # save and a checkpoint at 20
+    argv = ["-s", src, "-m", model, "--iterations", str(TRAIN_ITERS),
+            "--capacity", str(TRAIN_CAP), "--densify_from_iter", "5",
+            "--densification_interval", "10", "--densify_until_iter", str(TRAIN_ITERS),
+            "--opacity_reset_interval", "15", "--test_iterations", str(TRAIN_ITERS),
+            "--checkpoint_iterations", str(TRAIN_ITERS), "--device", DEV]
+    stdout = sys.stdout         # the CLI's safe_state timestamps stdout lines
+    blend_tiles.launches = blend_tiles_bwd.launches = 0
+    t0 = time.perf_counter()
+    try:
+        state = cli.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        sys.stdout = stdout
+    launches = {"blend_fwd": blend_tiles.launches, "blend_bwd": blend_tiles_bwd.launches}
+    results["launches"]["train"] = launches
+    cli_s = time.perf_counter() - t0
+    if min(launches.values()) < TRAIN_ITERS:
+        raise AssertionError(f"{TRAIN_ITERS} training iterations launched {launches}")
+
+    metrics = [json.loads(line) for line in open(os.path.join(model, "metrics.jsonl"))]
+    steps = [m for m in metrics if "total" in m]
+    evals = [m for m in metrics if "eval_psnr" in m]
+    if len(steps) != TRAIN_ITERS // 10 or not evals:
+        raise AssertionError(f"metrics.jsonl holds {len(steps)} step and {len(evals)} "
+                             f"eval records")
+    bad = [(m["iter"], k) for m in steps + evals for k, v in m.items()
+           if isinstance(v, float) and not math.isfinite(v)]
+    if bad:
+        raise AssertionError(f"non-finite training metrics: {bad}")
+    ply = os.path.join(model, "point_cloud", f"iteration_{TRAIN_ITERS}", "point_cloud.ply")
+    reloaded = load_gaussian_table(ply, capacity=TRAIN_CAP, device=DEV)
+    active = state.table.active
+    if int(reloaded.active.sum()) != int(active.sum()) or not torch.equal(
+            reloaded.xyz[:int(active.sum())], state.table.xyz.detach()[active]):
+        raise AssertionError("the saved PLY does not reload into the trained table")
+    ckpt = os.path.join(model, "chkpnts", f"chkpnt{TRAIN_ITERS}.pt")
+    if not os.path.exists(ckpt):
+        raise AssertionError(f"no checkpoint {ckpt}")
+    results["train_cli"] = dict(
+        seconds=cli_s, launches=launches, last=steps[-1], eval=evals[-1],
+        num_gaussians=int(active.sum()))
+    log(f"[train-cli] {TRAIN_ITERS} iterations at {TRAIN_W}x{TRAIN_H} through "
+        f"segsplat_tpu_torch.train in {cli_s:.1f} s: launches {launches}; last "
+        f"{json.dumps(steps[-1])}; eval {json.dumps(evals[-1])}; PLY reloads with "
+        f"{int(active.sum())} active rows")
+
+
+def kernel_entry(name, ch, source, replaces, launches, max_abs_err, t, **extra):
+    return dict(name=name, ch=ch, route="cuda", source=source, replaces=replaces,
+                launches=launches, max_abs_err=max_abs_err, ms=t["ms"],
+                plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+                library_ms=None, **extra)
+
+
 def main() -> int:
     import torch
 
@@ -375,43 +776,45 @@ def main() -> int:
     log(smi)
 
     t0 = time.perf_counter()
-    lib = cuda_build.build_library("blend_fwd")
+    with ThreadPoolExecutor(len(KERNELS)) as ex:     # one nvcc per source, together
+        libs = list(ex.map(cuda_build.build_library, KERNELS))
     log(f"[build] {time.perf_counter() - t0:.1f} s: "
-        f"{lib.relative_to(cuda_build.BUILD_DIR.parents[1])}")
-    log_path = lib.with_suffix(".log")
-    if log_path.exists():
-        for line in log_path.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[ptxas] {line.strip()}")
+        + ", ".join(str(lib.relative_to(cuda_build.BUILD_DIR.parents[1])) for lib in libs))
+    for lib in libs:
+        log_path = lib.with_suffix(".log")
+        if log_path.exists():
+            for line in log_path.read_text().splitlines():
+                if "registers" in line or "spill" in line or "Compiling entry" in line:
+                    log(f"[ptxas] {line.strip()}")
 
-    results = {"max_abs_err": 0.0, "scenes": {}, "launches": 0}
-    t0 = time.perf_counter()
-    phase_small(results)
-    log(f"[small] done in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    phase_full(results)
-    log(f"[full] done in {time.perf_counter() - t0:.1f} s")
+    results = {"fwd_err": 0.0, "bwd_err": 0.0, "scenes": {}, "launches": {}}
     root = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        phase_main_path(results, root)
+        for name, phase in (("small", lambda: phase_small(results)),
+                            ("full", lambda: phase_full(results)),
+                            ("main", lambda: phase_main_path(results, root)),
+                            ("train", lambda: phase_train_step(results)),
+                            ("train-cli", lambda: phase_train_cli(results, root))):
+            t0 = time.perf_counter()
+            phase()
+            log(f"[{name}] done in {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
-    head = results["scenes"]["headline"]
-    kernels = [{
-        "name": "blend_fwd",
-        "route": "cuda",
-        "source": "segsplat_tpu_torch/csrc/blend_fwd.cu",
-        "replaces": "segsplat_tpu/ops/blend_pallas.py:188",
-        "launches": results["launches"],
-        "max_abs_err": results["max_abs_err"],
-        "ms": head["ms"],
-        "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"],
-        "bound_by": head["bound_by"],
-        "library_ms": None,       # no single PyTorch call computes this blend
-        "scenes": results["scenes"],
-    }]
+    fwd_src, bwd_src = (f"segsplat_tpu_torch/csrc/{k}.cu" for k in KERNELS)
+    train_launches = results["launches"]["train"]
+    kernels = [
+        kernel_entry("blend_fwd", 32, fwd_src, "segsplat_tpu/ops/blend_pallas.py:188",
+                     results["launches"]["render_semantics"]["blend_fwd"],
+                     results["fwd_err"], results["scenes"]["headline"],
+                     path="render_semantics", scenes=results["scenes"]),
+        kernel_entry("blend_fwd", 19, fwd_src, "segsplat_tpu/ops/blend_pallas.py:188",
+                     train_launches["blend_fwd"], results["fwd_err"], results["train_fwd"],
+                     path="train"),
+        kernel_entry("blend_bwd", 19, bwd_src, "segsplat_tpu/ops/blend_pallas_vjp.py:195",
+                     train_launches["blend_bwd"], results["bwd_err"], results["train_bwd"],
+                     path="train", train_step=results["train_step"]),
+    ]
     log(f"[total] {time.perf_counter() - t_all:.1f} s on {smi}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,13 +1,15 @@
 """segsplat_tpu_torch — the PyTorch/CUDA port of segsplat_tpu for NVIDIA Hopper.
 
 The JAX package ``segsplat_tpu`` stays the reference; this package mirrors its
-layout (core/, io/, ops/, pipeline/, utils/, scene.py, render.py) so each
-counterpart sits at the same path. It imports torch and never jax, nor anything
-of ``segsplat_tpu``.
+layout (core/, eval/, io/, ops/, pipeline/, train/, utils/, scene.py, render.py)
+so each counterpart sits at the same path. It imports torch and never jax, nor
+anything of ``segsplat_tpu``.
 
 Ported so far: semantic novel-view rendering of a trained scene (the CLI twin
-``segsplat_tpu_torch/render_semantics_logits.py``), whose forward tile blend is a
-hand-written CUDA kernel (``csrc/blend_fwd.cu``, bound in ``ops/blend.py``).
+``segsplat_tpu_torch/render_semantics_logits.py``) and Unified-Lift training
+(``python -m segsplat_tpu_torch.train``, the twin of the root train.py). The tile
+blend is two hand-written CUDA kernels, forward and backward
+(``csrc/blend_fwd.cu``, ``csrc/blend_bwd.cu``, bound in ``ops/blend.py``).
 
 Entry points run on the card (``device="cuda"``) unless the caller asks for the
 CPU; they raise when CUDA is missing instead of falling back.

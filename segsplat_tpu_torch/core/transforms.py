@@ -1,12 +1,13 @@
-"""Numpy camera helpers (the reference's utils/graphics_utils.py:38-77 and
-scene/colmap_loader.py:43-53 conventions), shared by the dataset readers and
-the scene facade."""
+"""Camera and geometry helpers (the reference's utils/graphics_utils.py:38-77,
+utils/general_utils.py:29-99 and scene/colmap_loader.py:43-53 conventions):
+numpy for the dataset readers and the scene facade, torch for the trainer."""
 
 from __future__ import annotations
 
 import math
 
 import numpy as np
+import torch
 
 
 def get_world2view(R: np.ndarray, t: np.ndarray, translate=None,
@@ -43,3 +44,43 @@ def qvec2rotmat(qvec: np.ndarray) -> np.ndarray:
             [2 * x * z - 2 * y * w, 2 * y * z + 2 * x * w, 1 - 2 * x**2 - 2 * y**2],
         ]
     )
+
+
+def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
+    """[..., 4] (w, x, y, z) quaternion, normalised first → [..., 3, 3]
+    rotation (the reference's build_rotation)."""
+    q = q / (torch.linalg.norm(q, dim=-1, keepdim=True) + 1e-12)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    R = torch.stack([
+        1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y),
+        2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x),
+        2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y),
+    ], dim=-1)
+    return R.reshape(q.shape[:-1] + (3, 3))
+
+
+def inverse_sigmoid(x):
+    return torch.log(x / (1 - x))
+
+
+def get_expon_lr_func(lr_init: float, lr_final: float, lr_delay_steps: int = 0,
+                      lr_delay_mult: float = 1.0, max_steps: int = 1_000_000):
+    """Plenoxels exponential learning-rate decay (the reference's
+    utils/general_utils.py:29-62): step → lr, in float32 as the JAX package
+    computes it."""
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32)
+
+    def helper(step: int) -> float:
+        s = f32(step)
+        t = torch.clamp(s / max_steps, 0.0, 1.0)
+        log_lerp = torch.exp(torch.log(f32(lr_init)) * (1 - t) + torch.log(f32(lr_final)) * t)
+        if lr_delay_steps > 0:
+            delay_rate = lr_delay_mult + (1 - lr_delay_mult) * torch.sin(
+                0.5 * math.pi * torch.clamp(s / lr_delay_steps, 0.0, 1.0))
+        else:
+            delay_rate = 1.0
+        if step < 0 or (lr_init == 0.0 and lr_final == 0.0):
+            return 0.0
+        return float(delay_rate * log_lerp)
+
+    return helper

@@ -48,8 +48,8 @@ blend_fwd_kernel(const int32_t* __restrict__ offsets,
                  float* __restrict__ img,
                  float* __restrict__ alpha_out,
                  int tx_n, int k_max, int g_block) {
-  static_assert(CH % 4 == 0, "colour channels come in float4s");
-  constexpr int kW4 = kGeom4 + CH / 4;  // float4s per payload row
+  constexpr int CHP = (CH + 3) / 4 * 4;  // colours padded to whole float4s
+  constexpr int kW4 = kGeom4 + CHP / 4;  // float4s per payload row
   __shared__ float4 rows[kChunk * kW4];
 
   const int tile = blockIdx.x;
@@ -61,9 +61,9 @@ blend_fwd_kernel(const int32_t* __restrict__ offsets,
   const int start = offsets[tile];
   const int count = min(offsets[tile + 1] - start, k_max);
 
-  float acc[CH];
+  float acc[CHP];
 #pragma unroll
-  for (int c = 0; c < CH; ++c) acc[c] = 0.f;
+  for (int c = 0; c < CHP; ++c) acc[c] = 0.f;
   float T = 1.f;
 
   for (int b0 = 0; b0 < count; b0 += g_block) {
@@ -87,7 +87,7 @@ blend_fwd_kernel(const int32_t* __restrict__ offsets,
         if (!(sigma >= 0.f && a >= kAlphaMin)) continue;
         const float w = __fmul_rn(a, T);
 #pragma unroll
-        for (int c4 = 0; c4 < CH / 4; ++c4) {
+        for (int c4 = 0; c4 < CHP / 4; ++c4) {
           const float4 col = rows[r * kW4 + kGeom4 + c4];
           acc[4 * c4 + 0] = fmaf(w, col.x, acc[4 * c4 + 0]);
           acc[4 * c4 + 1] = fmaf(w, col.y, acc[4 * c4 + 1]);
@@ -103,13 +103,19 @@ blend_fwd_kernel(const int32_t* __restrict__ offsets,
 
   // image layout [16 ty_n, 16 tx_n, CH]: a warp writes two 16-pixel row runs
   const size_t pix = static_cast<size_t>(y) * (tx_n * kTile) + x;
-  float4* out = reinterpret_cast<float4*>(img + pix * CH);
+  if constexpr (CH % 4 == 0) {
+    float4* out = reinterpret_cast<float4*>(img + pix * CH);
 #pragma unroll
-  for (int c4 = 0; c4 < CH / 4; ++c4) {
-    out[c4] = make_float4(__fadd_rn(acc[4 * c4 + 0], __fmul_rn(T, bg[4 * c4 + 0])),
-                          __fadd_rn(acc[4 * c4 + 1], __fmul_rn(T, bg[4 * c4 + 1])),
-                          __fadd_rn(acc[4 * c4 + 2], __fmul_rn(T, bg[4 * c4 + 2])),
-                          __fadd_rn(acc[4 * c4 + 3], __fmul_rn(T, bg[4 * c4 + 3])));
+    for (int c4 = 0; c4 < CH / 4; ++c4) {
+      out[c4] = make_float4(__fadd_rn(acc[4 * c4 + 0], __fmul_rn(T, bg[4 * c4 + 0])),
+                            __fadd_rn(acc[4 * c4 + 1], __fmul_rn(T, bg[4 * c4 + 1])),
+                            __fadd_rn(acc[4 * c4 + 2], __fmul_rn(T, bg[4 * c4 + 2])),
+                            __fadd_rn(acc[4 * c4 + 3], __fmul_rn(T, bg[4 * c4 + 3])));
+    }
+  } else {
+    float* out = img + pix * CH;
+#pragma unroll
+    for (int c = 0; c < CH; ++c) out[c] = __fadd_rn(acc[c], __fmul_rn(T, bg[c]));
   }
   alpha_out[pix] = 1.f - T;
 }
@@ -133,7 +139,10 @@ extern "C" int segsplat_blend_fwd(const void* offsets, const void* payload,
                                   int tx_n, int ty_n, int k_max, int g_block,
                                   int ch, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (ch) {  // the semantic path's 32 channels; other widths come with their paths
+  switch (ch) {  // training renders 19 channels, the semantic path 32
+    case 19:
+      launch<19>(offsets, payload, bg, img, alpha, tx_n, ty_n, k_max, g_block, s);
+      break;
     case 32:
       launch<32>(offsets, payload, bg, img, alpha, tx_n, ty_n, k_max, g_block, s);
       break;

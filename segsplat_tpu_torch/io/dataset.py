@@ -33,6 +33,24 @@ class CameraInfo:
     height: int
     object_path: Optional[str] = None  # per-view object mask
 
+    def load_image(self, resolution_scale: float = 1.0) -> np.ndarray:
+        """[H, W, 3] float32 in [0, 1], resized to the loaded resolution."""
+        img = Image.open(self.image_path)
+        w, h = round(self.width / resolution_scale), round(self.height / resolution_scale)
+        if (w, h) != img.size:
+            img = img.resize((w, h))
+        return np.asarray(img.convert("RGB"), np.float32) / 255.0
+
+    def load_objects(self, resolution_scale: float = 1.0) -> Optional[np.ndarray]:
+        """[H, W] int32 object-id mask (nearest resize), or None."""
+        if self.object_path is None or not os.path.exists(self.object_path):
+            return None
+        img = Image.open(self.object_path)
+        w, h = round(self.width / resolution_scale), round(self.height / resolution_scale)
+        if (w, h) != img.size:
+            img = img.resize((w, h), Image.NEAREST)
+        return np.asarray(img, np.int32)
+
 
 @dataclasses.dataclass
 class SceneInfo:

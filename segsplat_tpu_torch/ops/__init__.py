@@ -1,1 +1,2 @@
-"""Ops: EWA projection, tile binning, and the tile blend (kernel K1)."""
+"""Ops: EWA projection, tile binning, the tile blend (kernels K1 and K2), kNN
+and the linear sum assignment."""

@@ -1,7 +1,10 @@
 """N-channel tile rasterizer for 3D Gaussians: project → bin → blend.
 
 Counterpart of segsplat_tpu/ops/rasterize.py (its Pallas path). Projection and
-binning are ordinary torch ops; the blend is kernel K1 (ops/blend.py).
+binning are ordinary torch ops; the blend is kernel K1 forward and kernel K2
+backward (ops/blend.py), so ``rasterize`` is differentiable in the means,
+scales, rotations, opacities, colours, ``means2d_offset`` and bg. Binning
+(tile membership, depth order, the K cap) is discrete and carries no gradient.
 
   1. project: EWA splatting — camera-space means, 2D covariance
      J W Σ Wᵀ Jᵀ + 0.3·I, conic, 3σ radius, in planar [N] components.
@@ -10,7 +13,8 @@ binning are ordinary torch ops; the blend is kernel K1 (ops/blend.py).
      sort of unique int64 keys ``tile << rank_bits | rank`` yields per-tile runs
      in front-to-back order.
   3. blend: the pairs' payload rows, gathered into per-tile runs, are
-     composited per 16×16 tile by ``blend_tiles``.
+     composited per 16×16 tile by ``blend``. The pair→Gaussian gradient
+     reduction is the autograd of that gather.
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from segsplat_tpu_torch.ops.blend import blend_tiles, make_payload
+from segsplat_tpu_torch.ops.blend import blend, make_payload
 
 TILE = 16
 
@@ -218,11 +222,11 @@ def build_blend_inputs(proj: Projected, colors, opacities, width: int, height: i
     pairs sort to the tail, so any cap ≥ the frame's real pair count is exact.
     On overflow the deepest runs of the highest tile ids are dropped (offsets
     are clamped, so reads stay in bounds). The payload keeps K zero rows past
-    the end."""
+    the end. Binning sees detached values; the gather carries gradients."""
     K = max_per_tile
     order, rank_sorted, offsets, (tx_n, ty_n) = bin_gaussian_ranks(
-        proj, width, height, max_tiles_per_axis,
-        opacities=opacities if opacity_cull else None)
+        Projected(*(x.detach() for x in proj)), width, height, max_tiles_per_axis,
+        opacities=opacities.detach() if opacity_cull else None)
     num_pairs = offsets[-1]
     tile_overflow = torch.clamp_min(offsets[1:] - offsets[:-1] - K, 0).sum()
     if pair_cap is not None and pair_cap < rank_sorted.shape[0]:
@@ -235,13 +239,16 @@ def build_blend_inputs(proj: Projected, colors, opacities, width: int, height: i
 
 def rasterize(means3d, scales, quats, opacities, colors, viewmat, fx, fy, cx, cy,
               width: int, height: int, bg: Optional[torch.Tensor] = None,
+              means2d_offset: Optional[torch.Tensor] = None,
               max_tiles_per_axis: int = 8, max_per_tile: int = 512,
               pair_cap: Optional[int] = None, opacity_cull: bool = False) -> dict:
-    """Forward rasterization on the inputs' device: project → bin → blend.
+    """Differentiable rasterization on the inputs' device: project → bin → blend.
 
-    colors: [N, CH] per-Gaussian channels. max_per_tile (K) must be a multiple
-    of 128. pair_cap: see ``build_blend_inputs``. opacity_cull: exact
-    opacity-aware tile culling in binning.
+    colors: [N, CH] per-Gaussian channels. means2d_offset: [N, 2] zeros added to
+    the projected means before binning; its gradient is the screen-space mean
+    gradient densification consumes. max_per_tile (K) must be a multiple of 128.
+    pair_cap: see ``build_blend_inputs``. opacity_cull: exact opacity-aware tile
+    culling in binning.
 
     Returns dict: image [H,W,CH], alpha [H,W], radii [N], visible [N] bool,
     depths [N], tile_overflow (pairs dropped past the per-tile cap K) and
@@ -250,11 +257,13 @@ def rasterize(means3d, scales, quats, opacities, colors, viewmat, fx, fy, cx, cy
         bg = torch.zeros((colors.shape[1],), dtype=colors.dtype, device=colors.device)
     proj = project_gaussians(means3d, scales, quats, viewmat, fx, fy, cx, cy,
                              width, height)
+    if means2d_offset is not None:
+        proj = proj._replace(means2d=proj.means2d + means2d_offset)
     inputs = build_blend_inputs(proj, colors, opacities, width, height,
                                 max_tiles_per_axis, max_per_tile,
                                 pair_cap=pair_cap, opacity_cull=opacity_cull)
-    img, alpha = blend_tiles(inputs.offsets, inputs.sorted_payload, bg,
-                             inputs.tx_n, inputs.ty_n, max_per_tile)
+    img, alpha = blend(inputs.offsets, inputs.sorted_payload, bg,
+                       inputs.tx_n, inputs.ty_n, max_per_tile)
     return {
         "image": img[:height, :width],
         "alpha": alpha[:height, :width],

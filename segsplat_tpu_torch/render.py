@@ -1,8 +1,15 @@
-"""Semantic rendering front-end: the gsplat call in the reference's FPS-metric
-loop (render_semantics_logits.py:92-105), on the port's rasterizer.
+"""Rendering front-end on the port's rasterizer (the counterpart of
+segsplat_tpu/render.py):
 
-The RGB/identity ``render`` with SH colours (render.py:27-98 of the JAX
-package) belongs to the training slice and is not here yet.
+  * ``render``: RGB from SH plus the 16 identity channels in one 19-channel
+    pass, differentiable — what the trainer renders (the reference's
+    gaussian_renderer/__init__.py:18-120);
+  * ``render_semantics`` / ``render_semantics_many``: 32 logit channels, the
+    gsplat call in the reference's FPS-metric loop
+    (render_semantics_logits.py:92-105).
+
+``render`` has no ``semantic_logits`` pass yet: that 51-channel payload needs
+a kernel build the blend does not have (ROADMAP).
 """
 
 from __future__ import annotations
@@ -11,6 +18,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from segsplat_tpu_torch.core.sh import eval_sh
 from segsplat_tpu_torch.core.types import NUM_SEMANTIC_CHANNELS, Camera, GaussianTable
 from segsplat_tpu_torch.ops.rasterize import pad_logits_to_channels, rasterize
 
@@ -20,6 +28,55 @@ BACKENDS = ("cuda",)   # the kernel path: blend_tiles (its plain version on CPU 
 def _check_backend(backend: str) -> None:
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+
+
+def sh_colors(table: GaussianTable, campos: torch.Tensor) -> torch.Tensor:
+    """View-dependent RGB [C, 3] from SH, with the coefficient bands above the
+    table's active_sh_degree zeroed, as the JAX package does."""
+    sh = table.get_features()                       # [C, K, 3]
+    coeff_ids = torch.arange(sh.shape[1], device=sh.device)
+    band = torch.floor(torch.sqrt(coeff_ids.float())).long()
+    mask = (band <= table.active_sh_degree).to(sh.dtype)
+    sh = sh * mask[None, :, None]
+    dirs = table.xyz - campos
+    dirs = dirs / (torch.linalg.norm(dirs, dim=-1, keepdim=True) + 1e-12)
+    return torch.clamp_min(eval_sh(table.max_sh_degree, sh, dirs) + 0.5, 0.0)
+
+
+def render(table: GaussianTable, camera: Camera, bg_color: torch.Tensor,
+           means2d_offset: Optional[torch.Tensor] = None,
+           max_tiles_per_axis: int = 8, max_per_tile: int = 512,
+           pair_cap: Optional[int] = None) -> dict:
+    """RGB + identity in one differentiable rasterizer pass.
+
+    bg_color [3]; the identity channels composite on 0. Returns ``render``
+    [3, H, W], ``render_object`` [16, H, W], ``radii``, ``visibility_filter``,
+    ``alpha``, ``depths``, ``num_pairs`` and ``tile_overflow``."""
+    campos = camera.camera_center()
+    K = camera.intrinsics()
+    rgb = sh_colors(table, campos)
+    identity = table.objects_dc[:, 0, :]                      # [C, 16]
+    colors = torch.cat([rgb, identity], dim=1)
+    bg = torch.cat([bg_color.to(rgb.dtype),
+                    torch.zeros((identity.shape[1],), dtype=rgb.dtype, device=rgb.device)])
+    opac = table.get_opacity()[:, 0] * table.active.to(rgb.dtype)
+    out = rasterize(table.xyz, table.get_scaling(), table.get_rotation(), opac, colors,
+                    camera.world_view_transform(), K[0, 0], K[1, 1], K[0, 2], K[1, 2],
+                    camera.width, camera.height,
+                    bg=bg, means2d_offset=means2d_offset,
+                    max_tiles_per_axis=max_tiles_per_axis, max_per_tile=max_per_tile,
+                    pair_cap=pair_cap)
+    img = out["image"]
+    return {
+        "render": img[..., 0:3].permute(2, 0, 1),
+        "render_object": img[..., 3:3 + identity.shape[1]].permute(2, 0, 1),
+        "radii": out["radii"],
+        "visibility_filter": out["radii"] > 0,
+        "alpha": out["alpha"],
+        "depths": out["depths"],
+        "num_pairs": out["num_pairs"],
+        "tile_overflow": out["tile_overflow"],
+    }
 
 
 def _semantic_inputs(table: GaussianTable, logits: torch.Tensor, bg_value: float):

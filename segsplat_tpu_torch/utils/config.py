@@ -1,7 +1,7 @@
 """Config / flag system: reflection-based argparse groups and the persisted
-``cfg_args`` namespace of the reference (arguments/__init__.py:16-120), read
-with ast.literal_eval instead of eval() — same on-disk format, no code
-execution."""
+``cfg_args`` namespace of the reference (arguments/__init__.py:16-120,
+train_unified_lift.py:502-514), read with ast.literal_eval instead of eval() —
+same on-disk format, no code execution."""
 
 from __future__ import annotations
 
@@ -36,6 +36,15 @@ class ParamGroup:
             else:
                 group.add_argument(*names, default=value, type=t)
 
+    def extract(self, args) -> Namespace:
+        """This group's values out of the parsed ``args``."""
+        out = Namespace()
+        for key in vars(self):
+            k = key.lstrip("_")
+            if hasattr(args, k):
+                setattr(out, k, getattr(args, k))
+        return out
+
 
 class ModelParams(ParamGroup):
     """Scene/model CLI group (reference arguments/__init__.py:44-64)."""
@@ -56,6 +65,11 @@ class ModelParams(ParamGroup):
         self.train_test_exp = False
         super().__init__(parser, "Loading Parameters", sentinel)
 
+    def extract(self, args) -> Namespace:
+        g = super().extract(args)
+        g.source_path = os.path.abspath(g.source_path) if g.source_path else ""
+        return g
+
 
 class PipelineParams(ParamGroup):
     """(reference arguments/__init__.py:66-71)"""
@@ -65,6 +79,42 @@ class PipelineParams(ParamGroup):
         self.compute_cov3D_python = False
         self.debug = False
         super().__init__(parser, "Pipeline Parameters")
+
+
+class OptimizationParams(ParamGroup):
+    """(reference arguments/__init__.py:73-98)"""
+
+    def __init__(self, parser: ArgumentParser):
+        self.iterations = 30_000
+        self.position_lr_init = 0.00016
+        self.position_lr_final = 0.0000016
+        self.position_lr_delay_mult = 0.01
+        self.position_lr_max_steps = 30_000
+        self.feature_lr = 0.0025
+        self.opacity_lr = 0.05
+        self.scaling_lr = 0.005
+        self.rotation_lr = 0.001
+        self.percent_dense = 0.01
+        self.lambda_dssim = 0.2
+        self.densification_interval = 100
+        self.opacity_reset_interval = 3000
+        self.densify_from_iter = 500
+        self.densify_until_iter = 15_000
+        self.densify_grad_threshold = 0.0002
+        self.reg3d_interval = 2
+        self.reg3d_k = 5
+        self.reg3d_lambda_val = 2
+        self.reg3d_max_points = 300_000
+        self.reg3d_sample_size = 1000
+        super().__init__(parser, "Optimization Parameters")
+
+
+def save_cfg_args(model_path: str, args: Namespace) -> None:
+    """Persist the run config as the reference does: ``cfg_args`` holding the
+    Namespace repr."""
+    os.makedirs(model_path, exist_ok=True)
+    with open(os.path.join(model_path, "cfg_args"), "w") as f:
+        f.write(repr(args))
 
 
 def _parse_namespace_repr(text: str) -> Namespace:

@@ -84,3 +84,12 @@ def assert_case_exercised(case: str, offsets: np.ndarray, k_max: int, rows_read:
         assert counts.max() > g and rows_read < counts.sum(), f"{case}: no tile stops early"
     else:
         assert rows_read == counts.sum(), f"{case}: read {rows_read} of {counts.sum()} rows"
+
+
+def owned_rows(offsets: np.ndarray, k_max: int, n_rows: int) -> np.ndarray:
+    """[n_rows] bool: the payload rows some tile blends, its first
+    min(count, K). The backward leaves every other row at exactly 0."""
+    owned = np.zeros(n_rows, bool)
+    for s, e in zip(offsets[:-1], offsets[1:]):
+        owned[s:s + min(e - s, k_max)] = True
+    return owned

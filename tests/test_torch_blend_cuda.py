@@ -1,26 +1,33 @@
-"""Kernel K1 (segsplat_tpu_torch/csrc/blend_fwd.cu) against its plain version on
-the card. Imports no JAX, so it runs where the card is:
+"""Kernels K1 (segsplat_tpu_torch/csrc/blend_fwd.cu) and K2 (csrc/blend_bwd.cu)
+against their plain versions on the card, at the training raster's 19 channels
+and the semantic path's 32. Imports no JAX, so it runs where the card is:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_blend_cuda.py
 
 (tests/conftest.py imports JAX, which that machine does not have.) Without a
 card every case skips."""
 
+import numpy as np
 import pytest
 import torch
 
 from segsplat_tpu_torch.ops import blend as B
 # by its bare name: pytest puts tests/ on sys.path, and a machine may have an
 # installed package named `tests` that hides this directory's
-from _torch_port import BLEND_CASES, assert_case_exercised, blend_case_args
+from _torch_port import BLEND_CASES, assert_case_exercised, blend_case_args, owned_rows
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("ch", B.KERNEL_CHANNELS)
 @pytest.mark.parametrize("case", sorted(BLEND_CASES))
-def test_kernel_matches_plain_version_on_card(case):
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU")
-    args = blend_case_args(case, "cuda")
+def test_kernel_matches_plain_version_on_card(case, ch):
+    _need_card()
+    args = blend_case_args(case, "cuda", ch=ch)
     before = B.blend_tiles.launches
     got = B.blend_tiles(*args)
     ref_img, ref_alpha, rows_read, _ = B.blend_tiles_plain_with_work(*args)
@@ -29,3 +36,27 @@ def test_kernel_matches_plain_version_on_card(case):
     for g, r in zip(got, (ref_img, ref_alpha)):
         torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4)
     assert_case_exercised(case, args[0].cpu().numpy(), args[-1], rows_read)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ch", B.KERNEL_CHANNELS)
+@pytest.mark.parametrize("case", sorted(BLEND_CASES))
+def test_backward_kernel_matches_plain_version_on_card(case, ch):
+    _need_card()
+    offsets, payload, bg, tx_n, ty_n, K = blend_case_args(case, "cuda", ch=ch)
+    img, alpha = B.blend_tiles_plain(offsets, payload, bg, tx_n, ty_n, K)
+    gen = torch.Generator("cuda").manual_seed(ch)
+    g_img = torch.randn(img.shape, generator=gen, device="cuda")
+    g_alpha = torch.randn(alpha.shape, generator=gen, device="cuda")
+    args = (offsets, payload, bg, img, alpha, g_img, g_alpha, tx_n, ty_n, K)
+    before = B.blend_tiles_bwd.launches
+    got = B.blend_tiles_bwd(*args)
+    ref = B.blend_tiles_bwd_plain(*args)
+    torch.cuda.synchronize()
+    assert B.blend_tiles_bwd.launches == before + 1
+    for g, r in zip(got, ref):
+        r = r.cpu().numpy()
+        np.testing.assert_allclose(g.cpu().numpy(), r, rtol=5e-3,
+                                   atol=2e-4 * (np.abs(r).max() + 1e-6))
+    owned = owned_rows(offsets.cpu().numpy(), K, payload.shape[0])
+    assert not got[0].cpu().numpy()[~owned].any(), "rows no tile owns must stay 0"
