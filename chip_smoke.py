@@ -4,19 +4,23 @@
     python3 chip_smoke.py
 
 Phases, each fatal on failure:
-  1. device: print the card and its power limit; build both CUDA kernels from
+  1. device: print the card and its power limit; build the three CUDA kernels from
      segsplat_tpu_torch/csrc with nvcc, one process per source, in parallel.
   2. kernels vs plain on small scenes, the cases of tests/_torch_port.py, at
-     19 and 32 channels: K = 128, 256 and 384 (one 128-row block, one 256-row
-     block, three 128-row blocks with the transmittance carry), an opaque scene
-     that takes the forward's block early-out, and a pair_cap truncation. K1
-     (forward) at 1e-4; K2 (backward) at rtol 5e-3, atol 2e-4·max|ref|, with the
-     rows no tile owns exactly 0.
+     19, 32 and 51 channels: K = 128, 256 and 384 (one 128-row block, one
+     256-row block, three 128-row blocks with the transmittance carry), an
+     opaque scene that takes the forward's block early-out, and a pair_cap
+     truncation. K1 (forward) at 1e-4; K2 (backward) at rtol 5e-3, atol
+     2e-4·max|ref|, with the rows no tile owns exactly 0; K3 (packed forward)
+     on the same cases and an opaque K = 256 one at 1e-4, and against K1.
   3. K1 vs plain at full scale: 1920×1080, 200 000 Gaussians, 32 channels, the
      headline scene (seed 0, m=3, K=256, pair_cap 1.5M) and the hostile one
      (seed 7, m=6, K=512, pair_cap 6M), built as bench.py builds them; times the
      kernel, its plain version and the whole rasterize with CUDA events, and
      reckons the kernel's bound from the rows and pair-pixels this data needs.
+     On the headline frame also the gradient of a seeded linear functional of
+     rasterize's image, which launches K2 at 32 channels, and K2 on that
+     frame's cotangent against its plain version, timed.
   4. the semantic render path through its entry point: the CLI twin
      segsplat_tpu_torch/render_semantics_logits.py renders 4 views at 1080p of a
      model dir written here; K1's launch count must rise, and view 0's logits
@@ -34,6 +38,19 @@ Phases, each fatal on failure:
      262 144), with a densify step and an opacity reset, then eval and save; K1
      and K2 must launch at least once per iteration, the losses must be finite
      and the saved PLY must reload through the port's load_gaussian_table.
+  7. the one-pass 51-channel render and the rasterizer's other blend paths:
+     (a) ``render(..., semantic_logits=...)`` of phase 5's table (876×584, m=3,
+     K=256, seeded [262 144, 32] logits): forward with K1 at 51 channels and the
+     gradient of a seeded linear functional of render, render_object and
+     semantic_logits with K2 at 51 channels, against the same calls with the
+     plain blends; K1 and K2 timed at 51 channels with their bounds;
+     (b) the packed kernel K3, turned on through ``rasterize``'s USE_PACKED in
+     this process only, on the headline and hostile 1080p scenes (32 channels)
+     and on (a)'s 51-channel render: its launch count must rise; against its
+     plain version at 1e-4 and against K1 at 1e-4 + 2·SAT_EPS·max(|colour|,
+     |bg|), timed with its bound and with the whole packed rasterize;
+     (c) the dense backend (the JAX package's "xla") on the headline scene,
+     forward, against K1 at 1e-4, timed.
 Prints a ``{"kernels": [...]}`` line, then as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when CUDA
 is unavailable or the package is missing.
@@ -55,9 +72,10 @@ from concurrent.futures import ThreadPoolExecutor
 
 ATOL = RTOL = 1e-4          # K1 against its plain version
 GRAD_RTOL, GRAD_ATOL_REL = 5e-3, 2e-4   # gradients: rtol, atol as a share of max|ref|
-KERNELS = ("blend_fwd", "blend_bwd")
+KERNELS = ("blend_fwd", "blend_bwd", "blend_packed")
 PEAK_FP32_FLOPS = 67e12     # H100 SXM, fp32 outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12    # H100 SXM HBM3
+FRAME_W, FRAME_H = 1920, 1080   # the headline and hostile frames (bench.py)
 
 
 def log(msg: str) -> None:
@@ -105,7 +123,7 @@ def compare_grad(name: str, got, ref) -> float:
     return worst
 
 
-def compare(name: str, got, ref) -> float:
+def compare(name: str, got, ref, atol: float = ATOL) -> float:
     """Max abs diff of (img, alpha) pairs; raises beyond atol + rtol·|ref|."""
     import torch
 
@@ -113,7 +131,7 @@ def compare(name: str, got, ref) -> float:
     for g, r in zip(got, ref):
         diff = (g - r).abs()
         worst = max(worst, float(diff.max()))
-        excess = float((diff - (ATOL + RTOL * r.abs())).max())
+        excess = float((diff - (atol + RTOL * r.abs())).max())
         if not torch.isfinite(g).all() or excess > 0:
             raise AssertionError(f"{name}: kernel disagrees with plain version "
                                  f"(max abs diff {worst:.3g})")
@@ -171,7 +189,7 @@ def bench_camera(W: int = 1920, H: int = 1080):
 
 # ───────────────────────────────── phases ─────────────────────────────────────
 
-def blend_inputs_on_card(sc, W, H, cam, m, K, pair_cap=None):
+def blend_inputs_on_card(sc, W, H, cam, m, K, pair_cap=None, packed=False):
     import torch
 
     from segsplat_tpu_torch.ops.rasterize import build_blend_inputs, project_gaussians
@@ -183,7 +201,7 @@ def blend_inputs_on_card(sc, W, H, cam, m, K, pair_cap=None):
     proj = project_gaussians(t["xyz"], t["scales"], t["quats"],
                              torch.as_tensor(vm, device=dev), fx, fy, cx, cy, W, H)
     return t, build_blend_inputs(proj, t["colors"], t["opac"], W, H, m, K,
-                                 pair_cap=pair_cap)
+                                 pair_cap=pair_cap, packed=packed)
 
 
 def phase_small(results):
@@ -194,7 +212,8 @@ def phase_small(results):
 
     # the case table and scenes of tests/test_torch_blend_cuda.py
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
-    from _torch_port import BLEND_CASES, assert_case_exercised, blend_case_args, owned_rows
+    from _torch_port import (BLEND_CASES, PACKED_CASES, PACKED_G, assert_case_exercised,
+                             blend_case_args, owned_rows)
 
     gen = torch.Generator("cuda").manual_seed(0)
     for ch in B.KERNEL_CHANNELS:
@@ -202,7 +221,7 @@ def phase_small(results):
             args = blend_case_args(name, "cuda", ch=ch)
             offsets, payload, K = args[0], args[1], args[-1]
             got = B.blend_tiles(*args)
-            ref_img, ref_alpha, rows, hits = B.blend_tiles_plain_with_work(*args)
+            ref_img, ref_alpha, rows, hits, _ = B.blend_tiles_plain_with_work(*args)
             torch.cuda.synchronize()
             err = compare(f"{name} CH={ch}", got, (ref_img, ref_alpha))
             counts = np.minimum(np.diff(offsets.cpu().numpy()), K)
@@ -227,6 +246,31 @@ def phase_small(results):
                 f"pixels_hit={hits} max_abs_err={err:.3g}; bwd rows_read={brows} "
                 f"pixels_hit={bhits} max_abs_err={berr:.3g}")
 
+        for name in sorted(PACKED_CASES):
+            args = blend_case_args(name, "cuda", ch=ch, packed=True)
+            got = B.blend_tiles_packed(*args)
+            ref_img, ref_alpha, rows, hits, stopped = B.blend_tiles_packed_plain_with_work(*args)
+            torch.cuda.synchronize()
+            err = compare(f"{name} CH={ch} K3", got, (ref_img, ref_alpha))
+            assert_case_exercised(name, args[0].cpu().numpy(), args[-1], rows, g=PACKED_G)
+            dense = blend_case_args(name, "cuda", ch=ch)
+            k1_err = compare(f"{name} CH={ch} K3 vs K1", got, B.blend_tiles(*dense),
+                             atol=packed_atol(dense[1], dense[2]))
+            results["packed_err"] = max(results["packed_err"], err)
+            log(f"[small] {name} CH={ch} K3: rows_read={rows} pixels_hit={hits} "
+                f"tiles_stopped={stopped} max_abs_err={err:.3g}; vs K1 {k1_err:.3g}")
+
+
+def packed_atol(payload, bg) -> float:
+    """K3 against K1: 1e-4 + 2·SAT_EPS·max(|colour|, |bg|). K3's 128-pair
+    early-out may stop a saturated tile one block before K1's 256-row one; what
+    it leaves out is below SAT_EPS of transmittance times a colour."""
+    from segsplat_tpu_torch.ops.blend import GEOM, SAT_EPS
+
+    ch = bg.shape[0]
+    top = max(float(payload[:, GEOM:GEOM + ch].abs().max()), float(bg.abs().max()))
+    return ATOL + 2 * SAT_EPS * top
+
 
 def _bound(ops: float, bytes_: float):
     """(bound ms, what bounds it): the larger of fp32 operations over 67 TFLOP/s
@@ -235,17 +279,27 @@ def _bound(ops: float, bytes_: float):
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def k1_bound(offsets, rows: int, hits: int, ch: int, num_tiles: int):
+def k1_bound(offsets, rows: int, hits: int, ch: int, num_tiles: int,
+             row_bytes: int = 0):
     """K1's bound on this data: every pair-pixel of a row read costs dx, dy,
     sigma, exp, alpha and the cut (15 ops); one that passes the cut CH fmas, the
-    weight and T's update (2·CH + 3). Bytes: the rows read, offsets, bg, image
-    and alpha written."""
+    weight and T's update (2·CH + 3). Bytes: the rows read (``row_bytes`` each,
+    0: K1's payload_width(CH) floats; K3's in ``k3_row_bytes``), offsets, bg,
+    image and alpha written."""
     from segsplat_tpu_torch.ops.blend import payload_width
 
     ops = rows * 256 * 15 + hits * (2 * ch + 3)
-    bytes_ = (rows * payload_width(ch) * 4 + offsets.numel() * 4 + ch * 4
+    bytes_ = (rows * (row_bytes or payload_width(ch) * 4) + offsets.numel() * 4 + ch * 4
               + num_tiles * 256 * (ch + 1) * 4)
     return _bound(ops, bytes_) + (ops, bytes_)
+
+
+def k3_row_bytes(ch: int) -> int:
+    """Bytes K3 reads per pair: of the 256-byte packed pair it stages only the
+    2 + ceil(CH/4) float4s the blend uses (blend_packed.cu, kW4), from a
+    256-byte-aligned start, so whole 32-byte sectors: 128 / 160 / 256 B at
+    CH = 19 / 32 / 51."""
+    return -(-16 * (2 + -(-ch // 4)) // 32) * 32
 
 
 def k2_bound(offsets, payload_rows: int, rows: int, hits: int, ch: int, num_tiles: int):
@@ -267,11 +321,12 @@ def k2_bound(offsets, payload_rows: int, rows: int, hits: int, ch: int, num_tile
 def phase_full(results):
     import torch
 
-    from segsplat_tpu_torch.ops.blend import blend_tiles, blend_tiles_plain_with_work
+    from segsplat_tpu_torch.ops.blend import (blend_tiles, blend_tiles_plain,
+                                              blend_tiles_plain_with_work)
     from segsplat_tpu_torch.ops.rasterize import (build_blend_inputs, project_gaussians,
                                                   rasterize)
 
-    W, H = 1920, 1080
+    W, H = FRAME_W, FRAME_H
     cam = bench_camera(W, H)
     vm, fx, fy, cx, cy = cam
     for name, make in (("headline", headline_scene), ("hostile", hostile_scene)):
@@ -280,7 +335,7 @@ def phase_full(results):
         t, bi = blend_inputs_on_card(sc, W, H, cam, m, K, pair_cap=cap)
         bg = torch.zeros(32, device="cuda")
         got = blend_tiles(bi.offsets, bi.sorted_payload, bg, bi.tx_n, bi.ty_n, K)
-        ref_img, ref_alpha, rows, hits = blend_tiles_plain_with_work(
+        ref_img, ref_alpha, rows, hits, stopped = blend_tiles_plain_with_work(
             bi.offsets, bi.sorted_payload, bg, bi.tx_n, bi.ty_n, K)
         torch.cuda.synchronize()
         err = compare(name, got, (ref_img, ref_alpha))
@@ -288,8 +343,8 @@ def phase_full(results):
         del got, ref_img, ref_alpha
 
         blend = lambda: blend_tiles(bi.offsets, bi.sorted_payload, bg, bi.tx_n, bi.ty_n, K)
-        plain = lambda: blend_tiles_plain_with_work(bi.offsets, bi.sorted_payload, bg,
-                                                    bi.tx_n, bi.ty_n, K)
+        plain = lambda: blend_tiles_plain(bi.offsets, bi.sorted_payload, bg,
+                                          bi.tx_n, bi.ty_n, K)
         vm_t = torch.as_tensor(vm, device="cuda")
         raster = lambda: rasterize(t["xyz"], t["scales"], t["quats"], t["opac"],
                                    t["colors"], vm_t, fx, fy, cx, cy, W, H, bg=bg,
@@ -308,14 +363,62 @@ def phase_full(results):
                                                     bi.tx_n * bi.ty_n)
         scene = dict(num_pairs=int(bi.num_pairs), pair_cap=cap,
                      tile_overflow=int(bi.tile_overflow), rows_read=rows,
-                     pixels_hit=hits, K=K, m=m,
+                     pixels_hit=hits, tiles_stopped=stopped, K=K, m=m,
                      max_abs_err=err, ms=ms, plain_ms=plain_ms, rasterize_ms=raster_ms,
                      project_ms=project_ms, bin_gather_ms=bin_ms,
                      bound_ms=bound_ms, bound_by=bound_by, ops=ops, bytes=bytes_)
         results["scenes"][name] = scene
         log(f"[full] {name}: " + json.dumps(scene))
+        if name == "headline":
+            results["k2_32"] = k2_on_frame(results, t, bi, bg, cam, W, H, m, K, cap)
+            log("[full] headline K2 CH=32: " + json.dumps(results["k2_32"]))
         del t, bi
         torch.cuda.empty_cache()
+
+
+def k2_on_frame(results, t, bi, bg, cam, W, H, m, K, cap):
+    """K2 at 32 channels on a 1080p frame: the gradient of a seeded linear
+    functional of rasterize's image, whose backward launches K2 (counted), then
+    K2 on the frame's blend inputs and that cotangent against its plain
+    version, timed, with its bound."""
+    import torch
+
+    from segsplat_tpu_torch.ops import blend as B
+    from segsplat_tpu_torch.ops.rasterize import rasterize
+
+    vm, fx, fy, cx, cy = cam
+    gen = torch.Generator(DEV).manual_seed(3)
+    w = torch.randn((H, W, 32), generator=gen, device=DEV)
+    colors = t["colors"].detach().requires_grad_(True)
+    B.blend_tiles_bwd.launches = 0
+    out = rasterize(t["xyz"], t["scales"], t["quats"], t["opac"], colors,
+                    torch.as_tensor(vm, device=DEV), fx, fy, cx, cy, W, H, bg=bg,
+                    max_tiles_per_axis=m, max_per_tile=K, pair_cap=cap)
+    (out["image"] * w).sum().backward()
+    torch.cuda.synchronize()
+    launches = B.blend_tiles_bwd.launches
+    if launches < 1 or not bool(colors.grad.abs().max() > 0):
+        raise AssertionError(f"the frame's gradient launched K2 {launches} times")
+    del out, colors
+
+    img, alpha = B.blend_tiles_plain(bi.offsets, bi.sorted_payload, bg, bi.tx_n, bi.ty_n, K)
+    g_img = torch.zeros_like(img)
+    g_img[:H, :W] = w                    # the cotangent rasterize hands the blend
+    bargs = (bi.offsets, bi.sorted_payload, bg, img, alpha, g_img, torch.zeros_like(alpha),
+             bi.tx_n, bi.ty_n, K)
+    d_pay, d_bg = B.blend_tiles_bwd(*bargs)
+    r_pay, r_bg, rows, hits = B.blend_tiles_bwd_plain_with_work(*bargs)
+    err = max(compare_grad("headline K2 d_payload", d_pay, r_pay),
+              compare_grad("headline K2 d_bg", d_bg, r_bg))
+    results["bwd_err"] = max(results["bwd_err"], err)
+    del d_pay, r_pay
+    stats = dict(launches=launches, max_abs_err=err, rows_read=rows, pixels_hit=hits,
+                 ms=cuda_time_ms(lambda: B.blend_tiles_bwd(*bargs), reps=10),
+                 plain_ms=cuda_time_ms(lambda: B.blend_tiles_bwd_plain(*bargs), reps=3,
+                                       warmup=1))
+    stats["bound_ms"], stats["bound_by"], stats["ops"], stats["bytes"] = k2_bound(
+        bi.offsets, bi.sorted_payload.shape[0], rows, hits, 32, bi.tx_n * bi.ty_n)
+    return stats
 
 
 def write_model_dir(root: str, n_views: int = 4):
@@ -503,6 +606,59 @@ def blend_node(total):
     raise AssertionError("the step's graph has no blend node")
 
 
+def kernels_on_captured(results, cap, label: str):
+    """K1 and K2 on a blend node's own inputs and cotangents (captured by a
+    prehook), against their plain versions, timed with CUDA events, with their
+    bounds. Returns (fwd, bwd) stats."""
+    import torch
+
+    from segsplat_tpu_torch.ops import blend as B
+
+    offsets, payload, bg, img, alpha = (t.detach() for t in cap["saved"])
+    tx_n, ty_n, K = cap["dims"]
+    ch = bg.shape[0]
+    # a loss that does not read alpha gets zeros there from autograd
+    g_img, g_alpha = (torch.zeros_like(x) if g is None else g.detach().contiguous()
+                      for g, x in zip(cap["grads"], (img, alpha)))
+    fargs = (offsets, payload, bg, tx_n, ty_n, K)
+    f_got = B.blend_tiles(*fargs)
+    f_img, f_alpha, f_rows, f_hits, _ = B.blend_tiles_plain_with_work(*fargs)
+    fwd_err = compare(f"{label} K1 CH={ch}", f_got, (f_img, f_alpha))
+    results["fwd_err"] = max(results["fwd_err"], fwd_err)
+    del f_got, f_img, f_alpha
+    bargs = (offsets, payload, bg, img, alpha, g_img, g_alpha, tx_n, ty_n, K)
+    b_pay, b_bg = B.blend_tiles_bwd(*bargs)
+    r_pay, r_bg, b_rows, b_hits = B.blend_tiles_bwd_plain_with_work(*bargs)
+    bwd_err = max(compare_grad(f"{label} K2 CH={ch} d_payload", b_pay, r_pay),
+                  compare_grad(f"{label} K2 CH={ch} d_bg", b_bg, r_bg))
+    results["bwd_err"] = max(results["bwd_err"], bwd_err)
+    del b_pay, r_pay
+    num_tiles = tx_n * ty_n
+    fwd = dict(ms=cuda_time_ms(lambda: B.blend_tiles(*fargs), reps=10),
+               plain_ms=cuda_time_ms(lambda: B.blend_tiles_plain(*fargs), reps=3, warmup=1),
+               rows_read=f_rows, pixels_hit=f_hits, max_abs_err=fwd_err)
+    fwd["bound_ms"], fwd["bound_by"], fwd["ops"], fwd["bytes"] = k1_bound(
+        offsets, f_rows, f_hits, ch, num_tiles)
+    bwd = dict(ms=cuda_time_ms(lambda: B.blend_tiles_bwd(*bargs), reps=10),
+               plain_ms=cuda_time_ms(lambda: B.blend_tiles_bwd_plain(*bargs), reps=3,
+                                     warmup=1),
+               rows_read=b_rows, pixels_hit=b_hits, payload_rows=int(payload.shape[0]),
+               max_abs_err=bwd_err)
+    bwd["bound_ms"], bwd["bound_by"], bwd["ops"], bwd["bytes"] = k2_bound(
+        offsets, payload.shape[0], b_rows, b_hits, ch, num_tiles)
+    log(f"[{label}] K1 CH={ch} at {TRAIN_W}x{TRAIN_H}: " + json.dumps(fwd))
+    log(f"[{label}] K2 CH={ch} at {TRAIN_W}x{TRAIN_H}: " + json.dumps(bwd))
+    return fwd, bwd
+
+
+def capture_blend(total, cap: dict):
+    """Have ``total``'s backward record its blend node's residuals, dims and
+    incoming cotangents into ``cap``."""
+    node = blend_node(total)
+    node.register_prehook(lambda g: cap.update(saved=node.saved_tensors, dims=node.dims,
+                                               grads=g))
+
+
 def phase_train_step(results):
     import torch
 
@@ -539,9 +695,7 @@ def phase_train_step(results):
         with ctx:
             total, aux = T.compute_losses(state.table, state.code_book, train_camera(0.0),
                                           gt, gto, bg, cfg, offset, raster_kw, idx=idx)
-            node = blend_node(total)
-            node.register_prehook(lambda g: captured.update(
-                saved=node.saved_tensors, dims=node.dims, grads=g))
+            capture_blend(total, captured)
             total.backward()
         torch.cuda.synchronize()
         grads = {f: getattr(state.table, f).grad.clone() for f in PARAM_FIELDS}
@@ -569,41 +723,8 @@ def phase_train_step(results):
         f"grad max abs diff {json.dumps(grad_err)}")
 
     # K1 (19 channels) and K2 on the step's own blend inputs and cotangents
-    offsets, payload, bg19, img, alpha = (t.detach() for t in cap["saved"])
-    tx_n, ty_n, K = cap["dims"]
-    # the training losses do not read alpha: autograd hands the blend zeros there
-    g_img, g_alpha = (torch.zeros_like(x) if g is None else g.detach().contiguous()
-                      for g, x in zip(cap["grads"], (img, alpha)))
-    fargs = (offsets, payload, bg19, tx_n, ty_n, K)
-    f_got = B.blend_tiles(*fargs)
-    f_img, f_alpha, f_rows, f_hits = B.blend_tiles_plain_with_work(*fargs)
-    fwd_err = compare("train K1 CH=19", f_got, (f_img, f_alpha))
-    results["fwd_err"] = max(results["fwd_err"], fwd_err)
-    del f_got, f_img, f_alpha
-    bargs = (offsets, payload, bg19, img, alpha, g_img, g_alpha, tx_n, ty_n, K)
-    b_pay, b_bg = B.blend_tiles_bwd(*bargs)
-    r_pay, r_bg, b_rows, b_hits = B.blend_tiles_bwd_plain_with_work(*bargs)
-    bwd_err = max(compare_grad("train K2 d_payload", b_pay, r_pay),
-                  compare_grad("train K2 d_bg", b_bg, r_bg))
-    results["bwd_err"] = max(results["bwd_err"], bwd_err)
-    del b_pay, r_pay
-    num_tiles = tx_n * ty_n
-    fwd = dict(ms=cuda_time_ms(lambda: B.blend_tiles(*fargs), reps=10),
-               plain_ms=cuda_time_ms(lambda: B.blend_tiles_plain(*fargs), reps=3, warmup=1),
-               rows_read=f_rows, pixels_hit=f_hits, max_abs_err=fwd_err)
-    fwd["bound_ms"], fwd["bound_by"], fwd["ops"], fwd["bytes"] = k1_bound(
-        offsets, f_rows, f_hits, 19, num_tiles)
-    bwd = dict(ms=cuda_time_ms(lambda: B.blend_tiles_bwd(*bargs), reps=10),
-               plain_ms=cuda_time_ms(lambda: B.blend_tiles_bwd_plain(*bargs), reps=3,
-                                     warmup=1),
-               rows_read=b_rows, pixels_hit=b_hits, payload_rows=int(payload.shape[0]),
-               max_abs_err=bwd_err)
-    bwd["bound_ms"], bwd["bound_by"], bwd["ops"], bwd["bytes"] = k2_bound(
-        offsets, payload.shape[0], b_rows, b_hits, 19, num_tiles)
-    results["train_fwd"], results["train_bwd"] = fwd, bwd
-    log(f"[train] K1 CH=19 at {TRAIN_W}x{TRAIN_H}: " + json.dumps(fwd))
-    log(f"[train] K2 CH=19 at {TRAIN_W}x{TRAIN_H}: " + json.dumps(bwd))
-    del cap, bargs, fargs, offsets, payload, img, alpha, g_img, g_alpha
+    results["train_fwd"], results["train_bwd"] = kernels_on_captured(results, cap, "train")
+    del cap
 
     # the step, timed part by part: CUDA events around the render, the losses
     # (compute_losses less the render) and the optimizers; the backward is the
@@ -752,6 +873,178 @@ def phase_train_cli(results, root: str):
         f"{int(active.sum())} active rows")
 
 
+# ──────────────── phase 7: the 51-channel render, K3, the dense blend ────────────────
+
+LOGIT_OUTPUTS = (("render", 3), ("render_object", 16), ("semantic_logits", 32))
+
+
+def phase_logits_render(results):
+    """(a) ``render(..., semantic_logits=...)`` of phase 5's table: forward and
+    the gradient of a seeded linear functional with K1 and K2 at 51 channels
+    against the same calls with the plain blends; K1 and K2 timed on the blend
+    node's own inputs and cotangents."""
+    import numpy as np
+    import torch
+
+    from segsplat_tpu_torch import render as R
+    from segsplat_tpu_torch.ops import blend as B
+    from segsplat_tpu_torch.train import trainer as T
+    from segsplat_tpu_torch.train.densify import PARAM_FIELDS
+
+    pts, cols, _, _ = train_scene()
+    table = T.init_table_from_pcd(pts, cols, TRAIN_CAP, max_sh_degree=3, seed=0,
+                                  device=DEV)
+    rng = np.random.default_rng(5)
+    logits = torch.as_tensor(rng.standard_normal((TRAIN_CAP, 32), dtype=np.float32),
+                             device=DEV).requires_grad_(True)
+    weights = {k: torch.as_tensor(rng.standard_normal((c, TRAIN_H, TRAIN_W),
+                                                      dtype=np.float32), device=DEV)
+               for k, c in LOGIT_OUTPUTS}
+    leaves = {f: getattr(table, f).requires_grad_(True) for f in PARAM_FIELDS}
+    leaves["logits"] = logits
+    cam, bg = train_camera(0.0), torch.zeros(3, device=DEV)
+    k1, k2 = B.blend_tiles, B.blend_tiles_bwd
+
+    def run(plain: bool):
+        for t in leaves.values():
+            t.grad = None
+        cap = {}
+        ctx = (swapped(B, blend_tiles=B.blend_tiles_plain,
+                       blend_tiles_bwd=B.blend_tiles_bwd_plain)
+               if plain else contextlib.nullcontext())
+        k1.launches = k2.launches = 0
+        with ctx:
+            out = R.render(table, cam, bg, semantic_logits=logits,
+                           max_tiles_per_axis=3, max_per_tile=256)
+            total = sum((weights[k] * out[k]).sum() for k, _ in LOGIT_OUTPUTS)
+            capture_blend(total, cap)
+            total.backward()
+        torch.cuda.synchronize()
+        launches = {"blend_fwd": k1.launches, "blend_bwd": k2.launches}
+        fwd = [out[k].detach() for k, _ in LOGIT_OUTPUTS] + [out["alpha"].detach()]
+        grads = {k: t.grad.clone() for k, t in leaves.items()}
+        return fwd, grads, cap, launches
+
+    got, got_grads, cap, launches = run(plain=False)
+    ref, ref_grads, _, plain_launches = run(plain=True)
+    if min(launches.values()) < 1 or max(plain_launches.values()) > 0:
+        raise AssertionError(f"the 51-channel render launched {launches} with the "
+                             f"kernels and {plain_launches} with the plain blends")
+    if got[2].shape != (32, TRAIN_H, TRAIN_W):
+        raise AssertionError(f"semantic_logits has shape {tuple(got[2].shape)}")
+    fwd_err = compare("render(semantic_logits) forward", got, ref)
+    grad_err = {k: compare_grad(f"render(semantic_logits) grad {k}", got_grads[k],
+                                ref_grads[k]) for k in ref_grads}
+    for k in ("xyz", "features_dc", "scaling", "opacity", "objects_dc", "logits"):
+        if not bool((got_grads[k] != 0).any()):
+            raise AssertionError(f"render(semantic_logits) grad {k} is identically zero")
+    del got, ref, got_grads, ref_grads
+    log(f"[logits] render(semantic_logits) at {TRAIN_W}x{TRAIN_H}: launches "
+        f"{json.dumps(launches)}; forward vs plain max abs diff {fwd_err:.3g}; grad "
+        f"max abs diff {json.dumps(grad_err)}")
+    fwd, bwd = kernels_on_captured(results, cap, "logits")
+    results["logits_render"] = dict(launches=launches, forward_err=fwd_err,
+                                    grad_err=grad_err, fwd=fwd, bwd=bwd)
+    # (b) K3 on this render's 51-channel payload: pack the captured K1 rows
+    offsets, payload = (t.detach() for t in cap["saved"][:2])
+    tx_n, ty_n, K = cap["dims"]
+    packed = B.pack_payload(payload[:-K], K)
+    with torch.no_grad():
+        results["packed"]["logits51"] = packed_stats(
+            "logits51", lambda: R.render(table, cam, bg, semantic_logits=logits,
+                                         max_tiles_per_axis=3, max_per_tile=256),
+            (offsets, packed, torch.zeros(51, device=DEV), tx_n, ty_n, K),
+            (offsets, payload, torch.zeros(51, device=DEV), tx_n, ty_n, K))
+    del cap, table, leaves, logits
+    torch.cuda.empty_cache()
+
+
+def packed_stats(name, raster, pargs, dargs):
+    """K3 through ``rasterize`` with USE_PACKED on (``raster()`` renders; its
+    count is the launches), then on the same frame's packed payload ``pargs``
+    against its plain version at 1e-4 and against K1 on the K1 payload
+    ``dargs`` at ``packed_atol``; timed with its bound."""
+    import torch
+
+    from segsplat_tpu_torch.ops import blend as B
+    from segsplat_tpu_torch.ops import rasterize as Rz
+
+    with swapped(Rz, USE_PACKED=True):
+        B.blend_tiles_packed.launches = 0
+        out = raster()
+        torch.cuda.synchronize()
+        launches = B.blend_tiles_packed.launches
+        raster_ms = cuda_time_ms(raster, reps=5)
+    if launches < 1:
+        raise AssertionError(f"{name}: rasterize with USE_PACKED launched K3 {launches} times")
+    img = out["image"] if "image" in out else torch.cat(
+        [out[k].permute(1, 2, 0) for k, _ in LOGIT_OUTPUTS], dim=2)
+    h, w = img.shape[:2]
+    del out
+
+    got = B.blend_tiles_packed(*pargs)
+    ref_img, ref_alpha, rows, hits, stopped = B.blend_tiles_packed_plain_with_work(*pargs)
+    torch.cuda.synchronize()
+    err = compare(f"{name} K3", got, (ref_img, ref_alpha))
+    compare(f"{name} rasterize(USE_PACKED) image", [img], [got[0][:h, :w]])
+    k1_img, k1_alpha, _, _, k1_stopped = B.blend_tiles_plain_with_work(*dargs)
+    k1_err = compare(f"{name} K3 vs K1", got, (k1_img, k1_alpha),
+                     atol=packed_atol(dargs[1], dargs[2]))
+    del got, ref_img, ref_alpha, k1_img, k1_alpha, img
+    offsets, ch, num_tiles = pargs[0], pargs[2].shape[0], pargs[3] * pargs[4]
+    stats = dict(launches=launches, max_abs_err=err, vs_k1_max_abs_err=k1_err, ch=ch,
+                 rows_read=rows, pixels_hit=hits, tiles_stopped=stopped,
+                 k1_tiles_stopped=k1_stopped,
+                 ms=cuda_time_ms(lambda: B.blend_tiles_packed(*pargs), reps=10),
+                 plain_ms=cuda_time_ms(lambda: B.blend_tiles_packed_plain(*pargs), reps=3,
+                                       warmup=1),
+                 rasterize_ms=raster_ms)
+    stats["bound_ms"], stats["bound_by"], stats["ops"], stats["bytes"] = k1_bound(
+        offsets, rows, hits, ch, num_tiles, row_bytes=k3_row_bytes(ch))
+    log(f"[packed] {name}: " + json.dumps(stats))
+    return stats
+
+
+def phase_other_blends(results):
+    """(b) K3 through rasterize's packed branch on the 1080p headline and
+    hostile scenes; (c) the dense backend on the headline scene against K1."""
+    import torch
+
+    from segsplat_tpu_torch.ops.rasterize import rasterize
+
+    W, H = FRAME_W, FRAME_H
+    cam = bench_camera(W, H)
+    vm, fx, fy, cx, cy = cam
+    vm_t = torch.as_tensor(vm, device=DEV)
+    bg = torch.zeros(32, device=DEV)
+    for name, make in (("headline", headline_scene), ("hostile", hostile_scene)):
+        sc = make()
+        m, K, cap = sc["m"], sc["K"], sc["pair_cap"]
+        t, bi = blend_inputs_on_card(sc, W, H, cam, m, K, pair_cap=cap)
+        _, pbi = blend_inputs_on_card(sc, W, H, cam, m, K, pair_cap=cap, packed=True)
+        raster = lambda backend="cuda": rasterize(
+            t["xyz"], t["scales"], t["quats"], t["opac"], t["colors"], vm_t, fx, fy, cx,
+            cy, W, H, bg=bg, max_tiles_per_axis=m, max_per_tile=K, pair_cap=cap,
+            backend=backend)
+        with torch.no_grad():
+            results["packed"][name] = packed_stats(
+                name, raster, (pbi.offsets, pbi.sorted_payload, bg, pbi.tx_n, pbi.ty_n, K),
+                (bi.offsets, bi.sorted_payload, bg, bi.tx_n, bi.ty_n, K))
+            if name == "headline":
+                # K = 256 is one 256-row block: K1 never skips work, as the dense
+                # blend does not
+                dense, kern = raster("dense"), raster("cuda")
+                err = compare("headline dense vs K1", [dense["image"], dense["alpha"]],
+                              [kern["image"], kern["alpha"]])
+                results["dense"] = dict(max_abs_err=err, ms=cuda_time_ms(
+                    lambda: raster("dense"), reps=3, warmup=1), kernel_ms=cuda_time_ms(
+                    raster, reps=5))
+                log("[dense] headline: " + json.dumps(results["dense"]))
+                del dense, kern
+        del t, bi, pbi
+        torch.cuda.empty_cache()
+
+
 def kernel_entry(name, ch, source, replaces, launches, max_abs_err, t, **extra):
     return dict(name=name, ch=ch, route="cuda", source=source, replaces=replaces,
                 launches=launches, max_abs_err=max_abs_err, ms=t["ms"],
@@ -787,33 +1080,58 @@ def main() -> int:
                 if "registers" in line or "spill" in line or "Compiling entry" in line:
                     log(f"[ptxas] {line.strip()}")
 
-    results = {"fwd_err": 0.0, "bwd_err": 0.0, "scenes": {}, "launches": {}}
+    results = {"fwd_err": 0.0, "bwd_err": 0.0, "packed_err": 0.0, "scenes": {},
+               "launches": {}, "packed": {}}
     root = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         for name, phase in (("small", lambda: phase_small(results)),
                             ("full", lambda: phase_full(results)),
                             ("main", lambda: phase_main_path(results, root)),
                             ("train", lambda: phase_train_step(results)),
-                            ("train-cli", lambda: phase_train_cli(results, root))):
+                            ("train-cli", lambda: phase_train_cli(results, root)),
+                            ("logits", lambda: phase_logits_render(results)),
+                            ("other-blends", lambda: phase_other_blends(results))):
             t0 = time.perf_counter()
             phase()
             log(f"[{name}] done in {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
-    fwd_src, bwd_src = (f"segsplat_tpu_torch/csrc/{k}.cu" for k in KERNELS)
+    fwd_src, bwd_src, packed_src = (f"segsplat_tpu_torch/csrc/{k}.cu" for k in KERNELS)
+    k1_tpu, k2_tpu = ("segsplat_tpu/ops/blend_pallas.py:188",
+                      "segsplat_tpu/ops/blend_pallas_vjp.py:195")
+    k3_tpu = "segsplat_tpu/ops/blend_pallas2.py:141"
     train_launches = results["launches"]["train"]
+    logits, packed = results["logits_render"], results["packed"]
+    headline = results["scenes"]["headline"]
     kernels = [
-        kernel_entry("blend_fwd", 32, fwd_src, "segsplat_tpu/ops/blend_pallas.py:188",
+        kernel_entry("blend_fwd", 32, fwd_src, k1_tpu,
                      results["launches"]["render_semantics"]["blend_fwd"],
-                     results["fwd_err"], results["scenes"]["headline"],
+                     headline["max_abs_err"], headline,
                      path="render_semantics", scenes=results["scenes"]),
-        kernel_entry("blend_fwd", 19, fwd_src, "segsplat_tpu/ops/blend_pallas.py:188",
-                     train_launches["blend_fwd"], results["fwd_err"], results["train_fwd"],
+        kernel_entry("blend_fwd", 19, fwd_src, k1_tpu, train_launches["blend_fwd"],
+                     results["train_fwd"]["max_abs_err"], results["train_fwd"],
                      path="train"),
-        kernel_entry("blend_bwd", 19, bwd_src, "segsplat_tpu/ops/blend_pallas_vjp.py:195",
-                     train_launches["blend_bwd"], results["bwd_err"], results["train_bwd"],
+        kernel_entry("blend_fwd", 51, fwd_src, k1_tpu, logits["launches"]["blend_fwd"],
+                     logits["fwd"]["max_abs_err"], logits["fwd"],
+                     path="render(semantic_logits)"),
+        kernel_entry("blend_bwd", 19, bwd_src, k2_tpu, train_launches["blend_bwd"],
+                     results["train_bwd"]["max_abs_err"], results["train_bwd"],
                      path="train", train_step=results["train_step"]),
+        kernel_entry("blend_bwd", 32, bwd_src, k2_tpu, results["k2_32"]["launches"],
+                     results["k2_32"]["max_abs_err"], results["k2_32"],
+                     path="rasterize gradient, 1080p headline"),
+        kernel_entry("blend_bwd", 51, bwd_src, k2_tpu, logits["launches"]["blend_bwd"],
+                     logits["bwd"]["max_abs_err"], logits["bwd"],
+                     path="render(semantic_logits) gradient"),
+        kernel_entry("blend_packed", 32, packed_src, k3_tpu,
+                     packed["headline"]["launches"] + packed["hostile"]["launches"],
+                     max(packed["headline"]["max_abs_err"], packed["hostile"]["max_abs_err"]),
+                     packed["headline"], path="rasterize with USE_PACKED",
+                     hostile=packed["hostile"]),
+        kernel_entry("blend_packed", 51, packed_src, k3_tpu, packed["logits51"]["launches"],
+                     packed["logits51"]["max_abs_err"], packed["logits51"],
+                     path="render(semantic_logits) with USE_PACKED"),
     ]
     log(f"[total] {time.perf_counter() - t_all:.1f} s on {smi}")
     log(json.dumps({"kernels": kernels}))

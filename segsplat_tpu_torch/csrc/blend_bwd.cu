@@ -47,7 +47,6 @@ constexpr int kPx = kTile * kTile;  // pixels per tile = threads per block
 constexpr int kWarps = kPx / 32;
 constexpr int kGeom = 8;            // payload prefix: mu_x mu_y a b c op pad pad
 constexpr int kGeom4 = kGeom / 4;
-constexpr int kChunk = 32;          // payload rows staged in shared memory per pass
 constexpr float kAlphaMin = 1.0f / 255.0f;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -65,6 +64,11 @@ blend_bwd_kernel(const int32_t* __restrict__ offsets,
   constexpr int CHP = (CH + 3) / 4 * 4;  // colours padded to whole float4s
   constexpr int kW4 = kGeom4 + CHP / 4;  // float4s per payload row
   constexpr int kNV = 6 + CH;            // per-row sums: 6 geometry + CH colours
+  // Payload rows staged in shared memory per pass. The staged rows and the
+  // per-warp partials take kChunk (16 kW4 + 32 kNV) bytes of static shared
+  // memory, which may not exceed 48 KB: 32 rows need 44 032 B at CH = 32 but
+  // 66 048 B at CH = 51, so the 51-channel build stages 16 rows (33 024 B).
+  constexpr int kChunk = CH > 32 ? 16 : 32;
   __shared__ float4 rows[kChunk * kW4];
   __shared__ float part[kChunk][kWarps][kNV];
 
@@ -191,13 +195,18 @@ extern "C" int segsplat_blend_bwd(const void* offsets, const void* payload,
                                   void* d_payload, int tx_n, int ty_n, int k_max,
                                   int ch, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (ch) {  // training renders 19 channels, the semantic path 32
+  switch (ch) {  // training renders 19 channels, the semantic path 32,
+                 // render(semantic_logits=...) 51
     case 19:
       launch<19>(offsets, payload, bg, img, alpha, g_img, g_alpha, d_payload,
                  tx_n, ty_n, k_max, s);
       break;
     case 32:
       launch<32>(offsets, payload, bg, img, alpha, g_img, g_alpha, d_payload,
+                 tx_n, ty_n, k_max, s);
+      break;
+    case 51:
+      launch<51>(offsets, payload, bg, img, alpha, g_img, g_alpha, d_payload,
                  tx_n, ty_n, k_max, s);
       break;
     default:

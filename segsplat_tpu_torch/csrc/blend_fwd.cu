@@ -139,12 +139,16 @@ extern "C" int segsplat_blend_fwd(const void* offsets, const void* payload,
                                   int tx_n, int ty_n, int k_max, int g_block,
                                   int ch, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (ch) {  // training renders 19 channels, the semantic path 32
+  switch (ch) {  // training renders 19 channels, the semantic path 32,
+                 // render(semantic_logits=...) 51
     case 19:
       launch<19>(offsets, payload, bg, img, alpha, tx_n, ty_n, k_max, g_block, s);
       break;
     case 32:
       launch<32>(offsets, payload, bg, img, alpha, tx_n, ty_n, k_max, g_block, s);
+      break;
+    case 51:
+      launch<51>(offsets, payload, bg, img, alpha, tx_n, ty_n, k_max, g_block, s);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -1,5 +1,6 @@
-"""Tile blend: kernels K1 (forward) and K2 (backward) of the port, their plain
-PyTorch versions, and the autograd Function that joins them.
+"""Tile blend: kernels K1 (forward), K2 (backward) and K3 (packed forward) of
+the port, their plain PyTorch versions, and the autograd Function that joins
+K1 and K2.
 
 ``blend_tiles`` composites every 16×16 tile against its depth-sorted pair
 payload run. On a CUDA tensor it launches the hand-written kernel
@@ -25,11 +26,20 @@ a block where the forward stopped get the gradient of the exact compositing, as
 on the TPU. d_payload rows that no tile owns (past a tile's K cap, the K-row
 tail) are zero.
 
+K3 replaces ``segsplat_tpu/ops/blend_pallas2.py:141``
+``blend_tiles_pallas_packed``: K1's blend on a packed payload ``[R, 128]`` that
+holds two consecutive pairs of 64 floats per row (CH ≤ 56), composited in
+couples — T_couple = (1−αA)(1−αB), wA = αA·T, wB = αB·T·(1−αA) — with the
+early-out per ``g_block`` = 128 pairs whatever K is. ``blend_tiles_packed``
+launches ``csrc/blend_packed.cu`` on CUDA tensors and runs
+``blend_tiles_packed_plain`` on CPU tensors; it has no backward, as on the TPU.
+
 Bound on the card (K1): every pair-pixel of a row read costs about 15 fp32
 operations (one exp among them), and one that passes the cut another 2·CH + 3;
 the payload is read once per pair and the image written once. Which of the two
-bounds it depends on the share of pair-pixels that pass the cut. K2's bound is
-reckoned the same way (``blend_bwd.cu`` has its counts).
+bounds it depends on the share of pair-pixels that pass the cut. K2's and K3's
+bounds are reckoned the same way (``blend_bwd.cu`` and ``blend_packed.cu`` have
+their counts).
 """
 
 from __future__ import annotations
@@ -45,7 +55,9 @@ TILE = 16
 PX = TILE * TILE
 GEOM = 8              # payload prefix: mu_x, mu_y, conic a/b/c, opacity, 0, 0
 SAT_EPS = 1e-4        # a tile stops once every pixel's transmittance is below this
-KERNEL_CHANNELS = (19, 32)      # channel counts both kernels are built for
+KERNEL_CHANNELS = (19, 32, 51)  # channel counts the kernels are built for
+PACKED_HALF = 64      # floats per pair in K3's packed layout
+PACKED_MAX_CH = PACKED_HALF - GEOM   # colours a packed pair can hold: 56
 _PLAIN_CHUNK_ELEMS = 1 << 24    # [tiles, G, 256] elements per plain-version chunk
 
 
@@ -69,27 +81,47 @@ def make_payload(means2d: torch.Tensor, conics: torch.Tensor,
                       colors, z((n, pad))], dim=1)
 
 
-def _check(offsets, sorted_payload, bg, tx_n, ty_n, k_max):
-    ch = bg.shape[0] if bg.dim() == 1 else -1
-    if k_max <= 0 or k_max % 128:
-        raise ValueError(f"k_max must be a positive multiple of 128, got {k_max}")
+def _check_common(offsets, payload, bg, tx_n, ty_n, name):
     if offsets.dtype != torch.int32 or offsets.shape != (tx_n * ty_n + 1,):
         raise ValueError(f"offsets must be int32 [{tx_n * ty_n + 1}], got "
                          f"{offsets.dtype} {tuple(offsets.shape)}")
-    if bg.dtype != torch.float32 or ch < 1:
+    if bg.dtype != torch.float32 or bg.dim() != 1 or bg.shape[0] < 1:
         raise ValueError(f"bg must be float32 [CH], got {bg.dtype} {tuple(bg.shape)}")
-    if (sorted_payload.dtype != torch.float32 or sorted_payload.dim() != 2
-            or sorted_payload.shape[1] != payload_width(ch)
-            or sorted_payload.shape[0] < k_max):
-        raise ValueError(f"sorted_payload must be float32 [L+{k_max}, "
-                         f"{payload_width(ch)}], got {sorted_payload.dtype} "
-                         f"{tuple(sorted_payload.shape)}")
-    devices = {offsets.device, sorted_payload.device, bg.device}
+    devices = {offsets.device, payload.device, bg.device}
     if len(devices) != 1:
         raise ValueError(f"inputs on several devices: {devices}")
-    for name, t in (("offsets", offsets), ("sorted_payload", sorted_payload), ("bg", bg)):
+    for n, t in (("offsets", offsets), (name, payload), ("bg", bg)):
         if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+            raise ValueError(f"{n} must be contiguous")
+
+
+def _check(offsets, sorted_payload, bg, tx_n, ty_n, k_max):
+    if k_max <= 0 or k_max % 128:
+        raise ValueError(f"k_max must be a positive multiple of 128, got {k_max}")
+    _check_common(offsets, sorted_payload, bg, tx_n, ty_n, "sorted_payload")
+    w = payload_width(bg.shape[0])
+    if (sorted_payload.dtype != torch.float32 or sorted_payload.dim() != 2
+            or sorted_payload.shape[1] != w or sorted_payload.shape[0] < k_max):
+        raise ValueError(f"sorted_payload must be float32 [L+{k_max}, {w}], got "
+                         f"{sorted_payload.dtype} {tuple(sorted_payload.shape)}")
+
+
+def _check_packed(offsets, packed_payload, bg, tx_n, ty_n, k_max, g_block):
+    """K3's inputs, checked alike on every device (alignment included)."""
+    if g_block <= 0 or g_block % 2 or k_max <= 0 or k_max % g_block:
+        raise ValueError(f"g_block must be positive and even and divide k_max, got "
+                         f"g_block {g_block}, k_max {k_max}")
+    _check_common(offsets, packed_payload, bg, tx_n, ty_n, "packed_payload")
+    if bg.shape[0] > PACKED_MAX_CH:
+        raise ValueError(f"the packed payload holds at most {PACKED_MAX_CH} channels, "
+                         f"got {bg.shape[0]}")
+    rows = k_max // 2 + 2
+    if (packed_payload.dtype != torch.float32 or packed_payload.dim() != 2
+            or packed_payload.shape[1] != 2 * PACKED_HALF or packed_payload.shape[0] < rows):
+        raise ValueError(f"packed_payload must be float32 [R ≥ {rows}, {2 * PACKED_HALF}], "
+                         f"got {packed_payload.dtype} {tuple(packed_payload.shape)}")
+    if packed_payload.data_ptr() % 16:
+        raise ValueError("packed_payload must be 16-byte aligned for float4 loads")
 
 
 def _pixel_centres(tiles: torch.Tensor, tx_n: int):
@@ -103,7 +135,7 @@ def _pixel_centres(tiles: torch.Tensor, tx_n: int):
 
 def _block_alpha(win, px, py, live):
     """One G-row block of a chunk of tiles, as both kernels compute it: payload
-    rows win [C, G, W], pixel centres, and the rows the tile reads live [C, G].
+    rows win [C, G, W ≥ 6], pixel centres, and the rows the tile reads live [C, G].
     Returns (dx, dy, e^-sigma, raw = op·e^-sigma, alpha — clamped, and 0 where
     the cut fails — and the cut mask), each [C, G, PX]."""
     mu_x, mu_y = win[..., 0:1], win[..., 1:2]
@@ -119,17 +151,42 @@ def _block_alpha(win, px, py, live):
     return dx, dy, expnegs, raw, torch.where(valid, a, 0.0), valid
 
 
-def blend_tiles_plain_with_work(offsets, sorted_payload, bg, tx_n: int, ty_n: int,
-                                k_max: int):
-    """``blend_tiles_plain``, plus the work the kernel's bound counts on these
-    inputs: the payload rows the blend reads (early-out included), and the
-    pair-pixels of those rows that pass the sigma and alpha cut and so
-    accumulate colour. Returns (img, alpha, rows_read, pixels_hit)."""
-    _check(offsets, sorted_payload, bg, tx_n, ty_n, k_max)
-    dev = sorted_payload.device
+def _pair_weights(a, trans):
+    """K1's compositing of one block: a [C, G, PX] alphas in depth order, trans
+    [C, PX] the carried transmittance. Returns (weights [C, G, PX], the block's
+    transmittance product [C, PX])."""
+    cum = torch.cumprod(1.0 - a, dim=1)                            # T after row
+    cum_before = torch.cat([torch.ones_like(cum[:, :1]), cum[:, :-1]], dim=1)
+    return a * trans[:, None, :] * cum_before, cum[:, -1]
+
+
+def _couple_weights(a, trans):
+    """K3's compositing of one block, in couples (pairs 2c, 2c + 1):
+    T_couple = (1−αA)(1−αB), wA = αA·tA, wB = αB·tA·(1−αA) with tA the
+    transmittance before the couple (blend_pallas2.py:105-111)."""
+    c, g, px = a.shape
+    a_a, a_b = a[:, 0::2], a[:, 1::2]
+    cum = torch.cumprod((1.0 - a_a) * (1.0 - a_b), dim=1)
+    cum_before = torch.cat([torch.ones_like(cum[:, :1]), cum[:, :-1]], dim=1)
+    t_a = trans[:, None, :] * cum_before
+    w = torch.stack([a_a * t_a, a_b * t_a * (1.0 - a_a)], dim=2)  # [C, G/2, 2, PX]
+    return w.reshape(c, g, px), cum[:, -1]
+
+
+def _plain_forward(offsets, pairs, bg, tx_n: int, ty_n: int, k_max: int, G: int,
+                   weights):
+    """The forward blend of K1 and K3, chunked over tiles: per G-row block the
+    rows a tile reads, their alphas, ``weights`` (``_pair_weights`` or
+    ``_couple_weights``), the transmittance carried across blocks, and the
+    early-out once every pixel's transmittance is below SAT_EPS.
+
+    pairs [rows, W ≥ 8 + CH] holds one pair per row. Returns (img, alpha in
+    image layout, rows_read, pixels_hit, tiles_stopped): the rows the blend
+    reads, the pair-pixels of those rows that pass the cut, and the tiles that
+    stop before their last row."""
+    dev = pairs.device
     ch = bg.shape[0]
     num_tiles = tx_n * ty_n
-    G = g_block(k_max)
     chunk = max(1, _PLAIN_CHUNK_ELEMS // (G * PX))
     off = offsets.long()
     counts = torch.clamp_max(off[1:] - off[:-1], k_max)
@@ -138,6 +195,7 @@ def blend_tiles_plain_with_work(offsets, sorted_payload, bg, tx_n: int, ty_n: in
     alpha = torch.empty((num_tiles, PX), dtype=torch.float32, device=dev)
     rows_read = torch.zeros((), dtype=torch.int64, device=dev)
     pixels_hit = torch.zeros((), dtype=torch.int64, device=dev)
+    tiles_stopped = torch.zeros((), dtype=torch.int64, device=dev)
 
     for t0 in range(0, num_tiles, chunk):
         tiles = torch.arange(t0, min(t0 + chunk, num_tiles), device=dev)
@@ -147,27 +205,41 @@ def blend_tiles_plain_with_work(offsets, sorted_payload, bg, tx_n: int, ty_n: in
         acc = torch.zeros((c, PX, ch), dtype=torch.float32, device=dev)
         trans = torch.ones((c, PX), dtype=torch.float32, device=dev)
         done = torch.zeros((c,), dtype=torch.bool, device=dev)
+        tile_rows = torch.zeros((c,), dtype=torch.int64, device=dev)
         for b in range(k_max // G):
             if bool(done.all()):
                 break
             live = ((b * G + g)[None, :] < cnt[:, None]) & ~done[:, None]  # [C, G]
-            rows_read += live.sum()
-            win = sorted_payload[start[:, None] + b * G + g[None, :]]      # [C, G, W]
+            tile_rows += live.sum(1)
+            win = pairs[start[:, None] + b * G + g[None, :]]             # [C, G, W]
             _, _, _, _, a, valid = _block_alpha(win, px, py, live)
             pixels_hit += valid.sum()
-            cum = torch.cumprod(1.0 - a, dim=1)                            # T after row
-            cum_before = torch.cat([torch.ones_like(cum[:, :1]), cum[:, :-1]], dim=1)
-            w = a * trans[:, None, :] * cum_before
+            w, t_block = weights(a, trans)
             acc += torch.bmm(w.transpose(1, 2), win[..., GEOM:GEOM + ch])  # [C, PX, CH]
-            trans = trans * cum[:, -1]
+            trans = trans * t_block
             done |= ((b + 1) * G >= cnt) | (trans.amax(dim=1) < SAT_EPS)
         img[t0:t0 + c] = acc + trans[..., None] * bg
         alpha[t0:t0 + c] = 1.0 - trans
+        rows_read += tile_rows.sum()
+        tiles_stopped += (tile_rows < cnt).sum()
 
     img = img.reshape(ty_n, tx_n, TILE, TILE, ch).permute(0, 2, 1, 3, 4)
     alpha = alpha.reshape(ty_n, tx_n, TILE, TILE).permute(0, 2, 1, 3)
     return (img.reshape(ty_n * TILE, tx_n * TILE, ch),
-            alpha.reshape(ty_n * TILE, tx_n * TILE), int(rows_read), int(pixels_hit))
+            alpha.reshape(ty_n * TILE, tx_n * TILE),
+            int(rows_read), int(pixels_hit), int(tiles_stopped))
+
+
+def blend_tiles_plain_with_work(offsets, sorted_payload, bg, tx_n: int, ty_n: int,
+                                k_max: int):
+    """``blend_tiles_plain``, plus the work the kernel's bound counts on these
+    inputs: the payload rows the blend reads (early-out included), and the
+    pair-pixels of those rows that pass the sigma and alpha cut and so
+    accumulate colour; and the tiles that stop early. Returns (img, alpha,
+    rows_read, pixels_hit, tiles_stopped)."""
+    _check(offsets, sorted_payload, bg, tx_n, ty_n, k_max)
+    return _plain_forward(offsets, sorted_payload, bg, tx_n, ty_n, k_max,
+                          g_block(k_max), _pair_weights)
 
 
 def blend_tiles_plain(offsets, sorted_payload, bg, tx_n: int, ty_n: int, k_max: int):
@@ -179,17 +251,41 @@ def blend_tiles_plain(offsets, sorted_payload, bg, tx_n: int, ty_n: int, k_max: 
     offsets [T+1] int32 run starts; sorted_payload [L+K, payload_width(CH)]
     float32 with ≥ K zero rows past the last run; bg [CH] float32. Returns
     (img [16·ty_n, 16·tx_n, CH], alpha [16·ty_n, 16·tx_n])."""
-    img, alpha, _, _ = blend_tiles_plain_with_work(offsets, sorted_payload, bg,
-                                                   tx_n, ty_n, k_max)
-    return img, alpha
+    return blend_tiles_plain_with_work(offsets, sorted_payload, bg, tx_n, ty_n, k_max)[:2]
 
 
 @functools.cache
-def _kernel_fn():
-    fn = cuda_build.load_library("blend_fwd").segsplat_blend_fwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+def _kernel_fn(name: str, n_ptrs: int, n_ints: int):
+    """The C entry point ``segsplat_<name>`` of ``csrc/<name>.cu``: ``n_ptrs``
+    pointers, ``n_ints`` ints, then the stream; returns a cudaError_t."""
+    fn = getattr(cuda_build.load_library(name), f"segsplat_{name}")
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _launch_forward(name, offsets, payload, bg, tx_n, ty_n, k_max, g):
+    """Launch the forward kernel of ``csrc/<name>.cu`` (K1 or K3) on CUDA
+    tensors; returns (img, alpha). Raises on a channel count it is not built
+    for, a misaligned payload, or a launch that CUDA refuses."""
+    dev = payload.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu tensors, got {dev}")
+    ch = bg.shape[0]
+    if ch not in KERNEL_CHANNELS:
+        raise ValueError(f"the CUDA blend is built for CH in {KERNEL_CHANNELS}, got {ch}")
+    if payload.data_ptr() % 16:
+        raise ValueError("the payload must be 16-byte aligned for float4 loads")
+    fn = _kernel_fn(name, 5, 5)
+    img = torch.empty((ty_n * TILE, tx_n * TILE, ch), dtype=torch.float32, device=dev)
+    alpha = torch.empty((ty_n * TILE, tx_n * TILE), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = fn(offsets.data_ptr(), payload.data_ptr(), bg.data_ptr(),
+                 img.data_ptr(), alpha.data_ptr(), tx_n, ty_n, k_max, g, ch,
+                 torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+    return img, alpha
 
 
 def blend_tiles(offsets, sorted_payload, bg, tx_n: int, ty_n: int, k_max: int):
@@ -197,30 +293,71 @@ def blend_tiles(offsets, sorted_payload, bg, tx_n: int, ty_n: int, k_max: int):
     CUDA tensors launch the kernel, which counts in ``blend_tiles.launches``;
     CPU tensors run the plain version. Raises on anything else."""
     _check(offsets, sorted_payload, bg, tx_n, ty_n, k_max)
-    dev = sorted_payload.device
-    if dev.type == "cpu":
+    if sorted_payload.device.type == "cpu":
         return blend_tiles_plain(offsets, sorted_payload, bg, tx_n, ty_n, k_max)
-    if dev.type != "cuda":
-        raise ValueError(f"blend_tiles runs on cuda or cpu tensors, got {dev}")
-    ch = bg.shape[0]
-    if ch not in KERNEL_CHANNELS:
-        raise ValueError(f"the CUDA blend is built for CH in {KERNEL_CHANNELS}, got {ch}")
-    if sorted_payload.data_ptr() % 16:
-        raise ValueError("sorted_payload must be 16-byte aligned for float4 loads")
-    fn = _kernel_fn()
-    img = torch.empty((ty_n * TILE, tx_n * TILE, ch), dtype=torch.float32, device=dev)
-    alpha = torch.empty((ty_n * TILE, tx_n * TILE), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = fn(offsets.data_ptr(), sorted_payload.data_ptr(), bg.data_ptr(),
-                 img.data_ptr(), alpha.data_ptr(), tx_n, ty_n, k_max,
-                 g_block(k_max), ch, torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"blend_fwd kernel launch failed: cudaError {err}")
+    out = _launch_forward("blend_fwd", offsets, sorted_payload, bg, tx_n, ty_n, k_max,
+                          g_block(k_max))
     blend_tiles.launches += 1
-    return img, alpha
+    return out
 
 
 blend_tiles.launches = 0
+
+
+# ─────────────────────────── packed forward: kernel K3 ───────────────────────────
+
+def pack_payload(rows: torch.Tensor, k_max: int) -> torch.Tensor:
+    """K3's packed payload from depth-sorted pair rows [L, W ≤ 64] in
+    ``make_payload``'s layout, without K1's K-row tail: each row padded to 64
+    floats, K + 4 + (L + K + 4) % 2 zero rows appended (an even total, as
+    segsplat_tpu/ops/rasterize.py:431-439 pads), two consecutive pairs per
+    128-float row. Returns [R, 128]."""
+    n, w = rows.shape
+    if w > PACKED_HALF:
+        raise ValueError(f"the packed payload holds at most {PACKED_MAX_CH} channels "
+                         f"(rows of ≤ {PACKED_HALF} floats), got rows of {w}")
+    pad = k_max + 4 + (n + k_max + 4) % 2
+    packed = torch.nn.functional.pad(rows, (0, PACKED_HALF - w, 0, pad))
+    return packed.reshape(-1, 2 * PACKED_HALF)
+
+
+def blend_tiles_packed_plain_with_work(offsets, packed_payload, bg, tx_n: int,
+                                       ty_n: int, k_max: int, g_block: int = 128):
+    """Plain PyTorch version of kernel K3, on any device, with its work as
+    ``blend_tiles_plain_with_work`` counts it (pairs read, pair-pixels passing
+    the cut, tiles that stop early). The packed rows are read as [2R, 64] pair
+    rows, so the run start's parity needs no case. Returns (img, alpha,
+    rows_read, pixels_hit, tiles_stopped)."""
+    _check_packed(offsets, packed_payload, bg, tx_n, ty_n, k_max, g_block)
+    return _plain_forward(offsets, packed_payload.view(-1, PACKED_HALF), bg, tx_n, ty_n,
+                          k_max, g_block, _couple_weights)
+
+
+def blend_tiles_packed_plain(offsets, packed_payload, bg, tx_n: int, ty_n: int,
+                             k_max: int, g_block: int = 128):
+    """Plain PyTorch version of kernel K3. offsets [T+1] int32 pair offsets;
+    packed_payload [R, 128] float32 from ``pack_payload``; bg [CH ≤ 56].
+    Returns (img [16·ty_n, 16·tx_n, CH], alpha [16·ty_n, 16·tx_n])."""
+    return blend_tiles_packed_plain_with_work(offsets, packed_payload, bg, tx_n, ty_n,
+                                              k_max, g_block)[:2]
+
+
+def blend_tiles_packed(offsets, packed_payload, bg, tx_n: int, ty_n: int, k_max: int,
+                       g_block: int = 128):
+    """The packed blend (arguments as ``blend_tiles_packed_plain``). CUDA tensors
+    launch kernel K3, which counts in ``blend_tiles_packed.launches``; CPU
+    tensors run the plain version. Raises on anything else. No backward."""
+    _check_packed(offsets, packed_payload, bg, tx_n, ty_n, k_max, g_block)
+    if packed_payload.device.type == "cpu":
+        return blend_tiles_packed_plain(offsets, packed_payload, bg, tx_n, ty_n, k_max,
+                                        g_block)
+    out = _launch_forward("blend_packed", offsets, packed_payload, bg, tx_n, ty_n, k_max,
+                          g_block)
+    blend_tiles_packed.launches += 1
+    return out
+
+
+blend_tiles_packed.launches = 0
 
 
 # ───────────────────────────── backward: kernel K2 ─────────────────────────────
@@ -340,14 +477,6 @@ def blend_tiles_bwd_plain(offsets, sorted_payload, bg, img, alpha, g_img, g_alph
     return d_payload, d_bg
 
 
-@functools.cache
-def _bwd_kernel_fn():
-    fn = cuda_build.load_library("blend_bwd").segsplat_blend_bwd
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def blend_tiles_bwd(offsets, sorted_payload, bg, img, alpha, g_img, g_alpha,
                     tx_n: int, ty_n: int, k_max: int):
     """Backward of ``blend_tiles`` (arguments as ``blend_tiles_bwd_plain_with_work``).
@@ -367,7 +496,7 @@ def blend_tiles_bwd(offsets, sorted_payload, bg, img, alpha, g_img, g_alpha,
         raise ValueError(f"the CUDA blend is built for CH in {KERNEL_CHANNELS}, got {ch}")
     if sorted_payload.data_ptr() % 16:
         raise ValueError("sorted_payload must be 16-byte aligned for float4 loads")
-    fn = _bwd_kernel_fn()
+    fn = _kernel_fn("blend_bwd", 8, 4)
     d_payload = torch.zeros_like(sorted_payload)     # rows no tile owns stay 0
     with torch.cuda.device(dev):
         err = fn(offsets.data_ptr(), sorted_payload.data_ptr(), bg.data_ptr(),

@@ -1,10 +1,14 @@
 """N-channel tile rasterizer for 3D Gaussians: project → bin → blend.
 
-Counterpart of segsplat_tpu/ops/rasterize.py (its Pallas path). Projection and
-binning are ordinary torch ops; the blend is kernel K1 forward and kernel K2
-backward (ops/blend.py), so ``rasterize`` is differentiable in the means,
-scales, rotations, opacities, colours, ``means2d_offset`` and bg. Binning
-(tile membership, depth order, the K cap) is discrete and carries no gradient.
+Counterpart of segsplat_tpu/ops/rasterize.py. Projection and binning are
+ordinary torch ops. The blend has two backends: ``"cuda"``, the counterpart of
+the JAX package's ``"pallas"`` — kernel K1 forward and kernel K2 backward
+(ops/blend.py), or the packed kernel K3 where ``USE_PACKED`` turns it on — and
+``"dense"``, the counterpart of its ``"xla"`` — ``_blend_tiles`` in torch ops,
+differentiated by autograd. ``rasterize`` is differentiable in the means,
+scales, rotations, opacities, colours, ``means2d_offset`` and bg (except on the
+packed branch, which has no backward). Binning (tile membership, depth order,
+the K cap) is discrete and carries no gradient.
 
   1. project: EWA splatting — camera-space means, 2D covariance
      J W Σ Wᵀ Jᵀ + 0.3·I, conic, 3σ radius, in planar [N] components.
@@ -14,7 +18,9 @@ scales, rotations, opacities, colours, ``means2d_offset`` and bg. Binning
      in front-to-back order.
   3. blend: the pairs' payload rows, gathered into per-tile runs, are
      composited per 16×16 tile by ``blend``. The pair→Gaussian gradient
-     reduction is the autograd of that gather.
+     reduction is the autograd of that gather. The dense backend instead
+     gathers every tile's K slots and composites them with a cumulative
+     product, no early-out, ``tile_chunk`` tiles at a time.
 """
 
 from __future__ import annotations
@@ -23,10 +29,39 @@ import math
 from typing import NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from segsplat_tpu_torch.ops.blend import blend, make_payload
+from segsplat_tpu_torch.ops.blend import (PACKED_MAX_CH, _block_alpha, _pixel_centres, blend,
+                                          blend_tiles_packed, make_payload, pack_payload)
 
 TILE = 16
+BACKENDS = ("cuda", "dense")   # the JAX package's "pallas" and "xla"
+
+# The JAX package's packed blend branch (K3) is switched off by a local
+# ``use_packed = False`` (segsplat_tpu/ops/rasterize.py:423-427: on the TPU it
+# measured slower than the padded single-pair layout). The port keeps the same
+# gate; ``rasterize`` reads it at call time, so a caller may turn it on.
+USE_PACKED = False
+
+
+def map_tile_chunks(tile_fn, num_tiles: int, tile_chunk: int, device):
+    """Run ``tile_fn([chunk] tile ids) → tuple of [chunk, ...]`` over all tiles
+    in fixed-size chunks. The tail chunk pads by wrapping ids (% num_tiles), as
+    the JAX package's lax.map does; the duplicates are sliced off. Returns the
+    tuple with leading dim ``num_tiles``."""
+    pad = (-num_tiles) % tile_chunk
+    ids = torch.arange(num_tiles + pad, device=device) % num_tiles
+    outs = [tile_fn(chunk) for chunk in ids.split(tile_chunk)]
+    return tuple(torch.cat(parts)[:num_tiles] for parts in zip(*outs))
+
+
+def tiles_to_image(x: torch.Tensor, ty_n: int, tx_n: int, height: int,
+                   width: int) -> torch.Tensor:
+    """[ty_n·tx_n, TILE, TILE, ...] row-major tile stack → cropped
+    [height, width, ...] image."""
+    extra = x.shape[3:]
+    x = x.reshape((ty_n, tx_n, TILE, TILE) + extra).transpose(1, 2)
+    return x.reshape((ty_n * TILE, tx_n * TILE) + extra)[:height, :width]
 
 
 class Projected(NamedTuple):
@@ -212,66 +247,161 @@ def tile_depth_counts(means3d, scales, quats, viewmat, fx, fy, cx, cy,
     return torch.diff(offsets)
 
 
+def _bin_gaussians(proj: Projected, width: int, height: int, max_tiles_per_axis: int,
+                   opacities: Optional[torch.Tensor] = None):
+    """Binning resolved to Gaussian ids: (sorted_gid [N·m²] in per-tile runs,
+    offsets [T+1] int32, (tx_n, ty_n)). Binning sees detached values."""
+    order, rank_sorted, offsets, dims = bin_gaussian_ranks(
+        Projected(*(x.detach() for x in proj)), width, height, max_tiles_per_axis,
+        opacities=None if opacities is None else opacities.detach())
+    return order[rank_sorted], offsets, dims
+
+
 def build_blend_inputs(proj: Projected, colors, opacities, width: int, height: int,
                        max_tiles_per_axis: int, max_per_tile: int,
                        pair_cap: Optional[int] = None,
-                       opacity_cull: bool = False) -> BlendInputs:
+                       opacity_cull: bool = False, packed: bool = False) -> BlendInputs:
     """Bin, then gather the pairs' payload rows into per-tile runs.
 
     ``pair_cap`` truncates the sorted pair list before the gather: sentinel
     pairs sort to the tail, so any cap ≥ the frame's real pair count is exact.
     On overflow the deepest runs of the highest tile ids are dropped (offsets
     are clamped, so reads stay in bounds). The payload keeps K zero rows past
-    the end. Binning sees detached values; the gather carries gradients."""
+    the end; with ``packed`` it is K3's [R, 128] layout instead
+    (``pack_payload``). Binning sees detached values; the gather carries
+    gradients."""
     K = max_per_tile
-    order, rank_sorted, offsets, (tx_n, ty_n) = bin_gaussian_ranks(
-        Projected(*(x.detach() for x in proj)), width, height, max_tiles_per_axis,
-        opacities=opacities.detach() if opacity_cull else None)
+    sorted_gid, offsets, (tx_n, ty_n) = _bin_gaussians(
+        proj, width, height, max_tiles_per_axis,
+        opacities=opacities if opacity_cull else None)
     num_pairs = offsets[-1]
     tile_overflow = torch.clamp_min(offsets[1:] - offsets[:-1] - K, 0).sum()
-    if pair_cap is not None and pair_cap < rank_sorted.shape[0]:
-        rank_sorted = rank_sorted[:pair_cap]
+    if pair_cap is not None and pair_cap < sorted_gid.shape[0]:
+        sorted_gid = sorted_gid[:pair_cap]
         offsets = torch.clamp_max(offsets, pair_cap)
-    payload = make_payload(proj.means2d, proj.conics, opacities, colors)
-    sorted_payload = torch.nn.functional.pad(payload[order[rank_sorted]], (0, 0, 0, K))
+    rows = make_payload(proj.means2d, proj.conics, opacities, colors)[sorted_gid]
+    sorted_payload = (pack_payload(rows, K) if packed
+                      else torch.nn.functional.pad(rows, (0, 0, 0, K)))
     return BlendInputs(offsets, sorted_payload, tx_n, ty_n, num_pairs, tile_overflow)
+
+
+def _blend_tiles(sorted_gid, offsets, proj: Projected, colors, opacities, bg,
+                 tx_n: int, ty_n: int, max_per_tile: int, tile_chunk: int = 64):
+    """The dense blend (segsplat_tpu/ops/rasterize.py:207-267): every tile's K
+    slots gathered from the per-Gaussian arrays, alpha-composited by a
+    cumulative product over all K, with no early-out. Each chunk of
+    ``tile_chunk`` tiles is checkpointed, as ``jax.checkpoint`` does there, so
+    the backward holds one chunk's [C, K, 256] intermediates at a time.
+
+    Alpha deliberately follows the kernels' operation order (``_block_alpha``:
+    sigma from ``(a·dx)·dx``), not the JAX dense blend's ``a·(dx·dx)``. So this
+    backend matches K1 exactly, and differs from JAX ``backend="xla"`` by
+    rounding where a pair-pixel lies at the α ≥ 1/255 cut (2.2e-3 max abs on
+    the 1920×1080 headline frame of ``chip_smoke.py``).
+
+    Returns (image [16·ty_n, 16·tx_n, CH], alpha [16·ty_n, 16·tx_n])."""
+    K = max_per_tile
+    ch = colors.shape[1]
+    num_tiles = tx_n * ty_n
+    dev = colors.device
+    off = offsets.long()
+    counts = torch.clamp_max(off[1:] - off[:-1], K)
+    slot = torch.arange(K, device=dev)
+
+    def blend_chunk(tile_ids):                                     # [C] tile indices
+        start, cnt = off[tile_ids], counts[tile_ids]
+        gidx = sorted_gid[torch.clamp(start[:, None] + slot[None, :], 0,
+                                      sorted_gid.shape[0] - 1)]     # [C, K]
+        live = slot[None, :] < cnt[:, None]
+        # the slots' geometry as payload rows: alpha and its cut are then
+        # computed as on the kernel path, in the kernels' operation order
+        geom = torch.cat([proj.means2d[gidx], proj.conics[gidx],
+                          opacities[gidx][..., None]], dim=2)     # [C, K, 6]
+        px, py = _pixel_centres(tile_ids, tx_n)
+        alpha = _block_alpha(geom, px, py, live)[4]                # [C, K, 256]
+        trans = torch.cumprod(1.0 - alpha, dim=1)                  # T after slot
+        trans_before = torch.cat([torch.ones_like(trans[:, :1]), trans[:, :-1]], dim=1)
+        img = torch.einsum("ckp,ckh->cph", alpha * trans_before,
+                           colors[gidx])                           # [C, 256, CH]
+        t_final = trans[:, -1, :]
+        return img + t_final[..., None] * bg, 1.0 - t_final
+
+    def chunk_fn(tile_ids):
+        if torch.is_grad_enabled():
+            return checkpoint(blend_chunk, tile_ids, use_reentrant=False)
+        return blend_chunk(tile_ids)
+
+    img, alpha = map_tile_chunks(chunk_fn, num_tiles, tile_chunk, dev)
+    h, w = ty_n * TILE, tx_n * TILE
+    return (tiles_to_image(img.reshape(num_tiles, TILE, TILE, ch), ty_n, tx_n, h, w),
+            tiles_to_image(alpha.reshape(num_tiles, TILE, TILE), ty_n, tx_n, h, w))
 
 
 def rasterize(means3d, scales, quats, opacities, colors, viewmat, fx, fy, cx, cy,
               width: int, height: int, bg: Optional[torch.Tensor] = None,
               means2d_offset: Optional[torch.Tensor] = None,
               max_tiles_per_axis: int = 8, max_per_tile: int = 512,
+              tile_chunk: int = 64, backend: str = "cuda",
               pair_cap: Optional[int] = None, opacity_cull: bool = False) -> dict:
     """Differentiable rasterization on the inputs' device: project → bin → blend.
 
     colors: [N, CH] per-Gaussian channels. means2d_offset: [N, 2] zeros added to
     the projected means before binning; its gradient is the screen-space mean
-    gradient densification consumes. max_per_tile (K) must be a multiple of 128.
-    pair_cap: see ``build_blend_inputs``. opacity_cull: exact opacity-aware tile
-    culling in binning.
+    gradient densification consumes. max_per_tile (K) must be a multiple of 128
+    on the ``"cuda"`` backend. opacity_cull: exact opacity-aware tile culling in
+    binning (both backends).
+
+    backend: ``"cuda"`` (the JAX package's ``"pallas"``): kernels K1 forward and
+    K2 backward, their plain versions on CPU tensors; ``pair_cap`` (see
+    ``build_blend_inputs``) applies to it only. While the module constant
+    ``USE_PACKED`` is True and CH ≤ 56 it blends with the packed kernel K3
+    instead, which has no backward: that branch raises when grad mode is on and
+    an input requires grad. ``"dense"`` (the JAX package's ``"xla"``):
+    ``_blend_tiles`` in torch ops, ``tile_chunk`` tiles at a time.
 
     Returns dict: image [H,W,CH], alpha [H,W], radii [N], visible [N] bool,
     depths [N], tile_overflow (pairs dropped past the per-tile cap K) and
     num_pairs (real pair count before pair_cap), the last two 0-dim tensors."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
     if bg is None:
         bg = torch.zeros((colors.shape[1],), dtype=colors.dtype, device=colors.device)
     proj = project_gaussians(means3d, scales, quats, viewmat, fx, fy, cx, cy,
                              width, height)
     if means2d_offset is not None:
         proj = proj._replace(means2d=proj.means2d + means2d_offset)
-    inputs = build_blend_inputs(proj, colors, opacities, width, height,
-                                max_tiles_per_axis, max_per_tile,
-                                pair_cap=pair_cap, opacity_cull=opacity_cull)
-    img, alpha = blend(inputs.offsets, inputs.sorted_payload, bg,
-                       inputs.tx_n, inputs.ty_n, max_per_tile)
+    K = max_per_tile
+    if backend == "dense":
+        sorted_gid, offsets, (tx_n, ty_n) = _bin_gaussians(
+            proj, width, height, max_tiles_per_axis,
+            opacities=opacities if opacity_cull else None)
+        num_pairs = offsets[-1]
+        tile_overflow = torch.clamp_min(offsets[1:] - offsets[:-1] - K, 0).sum()
+        img, alpha = _blend_tiles(sorted_gid, offsets, proj, colors, opacities, bg,
+                                  tx_n, ty_n, K, tile_chunk)
+    else:
+        packed = USE_PACKED and colors.shape[1] <= PACKED_MAX_CH
+        if packed and torch.is_grad_enabled() and any(
+                isinstance(t, torch.Tensor) and t.requires_grad
+                for t in (means3d, scales, quats, opacities, colors, viewmat, bg,
+                          means2d_offset, fx, fy, cx, cy)):
+            raise RuntimeError("the packed blend (USE_PACKED) has no backward: render "
+                               "under torch.no_grad() or with inputs that need no grad")
+        inputs = build_blend_inputs(proj, colors, opacities, width, height,
+                                    max_tiles_per_axis, K, pair_cap=pair_cap,
+                                    opacity_cull=opacity_cull, packed=packed)
+        blend_fn = blend_tiles_packed if packed else blend
+        img, alpha = blend_fn(inputs.offsets, inputs.sorted_payload, bg,
+                              inputs.tx_n, inputs.ty_n, K)
+        num_pairs, tile_overflow = inputs.num_pairs, inputs.tile_overflow
     return {
         "image": img[:height, :width],
         "alpha": alpha[:height, :width],
         "radii": proj.radii,
         "visible": proj.valid,
         "depths": proj.depths,
-        "num_pairs": inputs.num_pairs,
-        "tile_overflow": inputs.tile_overflow,
+        "num_pairs": num_pairs,
+        "tile_overflow": tile_overflow,
     }
 
 

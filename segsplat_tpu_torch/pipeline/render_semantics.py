@@ -74,13 +74,16 @@ def render_semantic_views(table, cameras: Sequence, logits: np.ndarray,
 
     table: GaussianTable; cameras: list of Camera on the same device;
     logits: [capacity, P] per-Gaussian logits (attach_logits_for_table).
-    pair_cap: None picks min(capacity·m², 3M). Truncation is never silent:
-    views whose pair count exceeds the cap, or whose tiles exceed K, warn."""
+    backend: "cuda" (the kernels) or "dense" (torch ops; the JAX package's
+    "pallas" and "xla"). pair_cap: None picks min(capacity·m², 3M) for the
+    "cuda" backend, as the JAX package does for "pallas"; the dense backend
+    takes no cap. Truncation is never silent: views whose pair count exceeds
+    the cap, or whose tiles exceed K, warn."""
     mkdir_p(out_dir)
     n_prompts = logits.shape[1]
     pal = bit_shuffle_palette(max(n_prompts, 1))
     logits_t = torch.as_tensor(np.asarray(logits, np.float32), device=table.xyz.device)
-    if pair_cap is None:
+    if pair_cap is None and backend == "cuda":
         pair_cap = min(table.capacity * max_tiles_per_axis ** 2, PAIR_CAP_MAX)
 
     label_maps = []
@@ -89,7 +92,7 @@ def render_semantic_views(table, cameras: Sequence, logits: np.ndarray,
             max_tiles_per_axis=max_tiles_per_axis, max_per_tile=max_per_tile,
             backend=backend, pair_cap=pair_cap, view_batch=view_batch):
         npairs = aux["num_pairs"]
-        if npairs > pair_cap:
+        if pair_cap is not None and npairs > pair_cap:
             print(f"[WARN] view {i}: {npairs} pairs > pair_cap {pair_cap} — "
                   f"deepest pairs dropped; raise pair_cap")
         ovf = aux["tile_overflow"]

@@ -3,13 +3,14 @@ segsplat_tpu/render.py):
 
   * ``render``: RGB from SH plus the 16 identity channels in one 19-channel
     pass, differentiable — what the trainer renders (the reference's
-    gaussian_renderer/__init__.py:18-120);
+    gaussian_renderer/__init__.py:18-120); with ``semantic_logits`` also the
+    32 logit channels, in one 51-channel pass;
   * ``render_semantics`` / ``render_semantics_many``: 32 logit channels, the
     gsplat call in the reference's FPS-metric loop
     (render_semantics_logits.py:92-105).
 
-``render`` has no ``semantic_logits`` pass yet: that 51-channel payload needs
-a kernel build the blend does not have (ROADMAP).
+Each takes ``backend``: ``"cuda"`` (the JAX package's ``"pallas"``, the
+kernels) or ``"dense"`` (its ``"xla"``), see ``ops/rasterize.rasterize``.
 """
 
 from __future__ import annotations
@@ -20,14 +21,9 @@ import torch
 
 from segsplat_tpu_torch.core.sh import eval_sh
 from segsplat_tpu_torch.core.types import NUM_SEMANTIC_CHANNELS, Camera, GaussianTable
-from segsplat_tpu_torch.ops.rasterize import pad_logits_to_channels, rasterize
+from segsplat_tpu_torch.ops.rasterize import BACKENDS, pad_logits_to_channels, rasterize
 
-BACKENDS = ("cuda",)   # the kernel path: blend_tiles (its plain version on CPU tensors)
-
-
-def _check_backend(backend: str) -> None:
-    if backend not in BACKENDS:
-        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+__all__ = ["BACKENDS", "render", "render_semantics", "render_semantics_many", "sh_colors"]
 
 
 def sh_colors(table: GaussianTable, campos: torch.Tensor) -> torch.Tensor:
@@ -44,32 +40,45 @@ def sh_colors(table: GaussianTable, campos: torch.Tensor) -> torch.Tensor:
 
 
 def render(table: GaussianTable, camera: Camera, bg_color: torch.Tensor,
+           semantic_logits: Optional[torch.Tensor] = None,
            means2d_offset: Optional[torch.Tensor] = None,
+           scaling_modifier: float = 1.0,
+           override_color: Optional[torch.Tensor] = None,
            max_tiles_per_axis: int = 8, max_per_tile: int = 512,
+           tile_chunk: int = 64, backend: str = "cuda",
            pair_cap: Optional[int] = None) -> dict:
-    """RGB + identity in one differentiable rasterizer pass.
+    """RGB + identity (+ semantic logits) in one differentiable rasterizer pass
+    (segsplat_tpu/render.py:43-98).
 
-    bg_color [3]; the identity channels composite on 0. Returns ``render``
-    [3, H, W], ``render_object`` [16, H, W], ``radii``, ``visibility_filter``,
+    bg_color [3]; the identity and logit channels composite on 0.
+    semantic_logits [C, P] per-Gaussian logits, padded or sliced to 32
+    channels. override_color [C, 3] replaces the SH colours. Returns
+    ``render`` [3, H, W], ``render_object`` [16, H, W], with semantic_logits
+    also ``semantic_logits`` [32, H, W], and ``radii``, ``visibility_filter``,
     ``alpha``, ``depths``, ``num_pairs`` and ``tile_overflow``."""
     campos = camera.camera_center()
     K = camera.intrinsics()
-    rgb = sh_colors(table, campos)
+    rgb = sh_colors(table, campos) if override_color is None else override_color
     identity = table.objects_dc[:, 0, :]                      # [C, 16]
-    colors = torch.cat([rgb, identity], dim=1)
-    bg = torch.cat([bg_color.to(rgb.dtype),
-                    torch.zeros((identity.shape[1],), dtype=rgb.dtype, device=rgb.device)])
+    zeros = lambda n: torch.zeros((n,), dtype=rgb.dtype, device=rgb.device)
+    payload = [rgb, identity]
+    bg = [bg_color.to(rgb.dtype), zeros(identity.shape[1])]
+    if semantic_logits is not None:
+        payload.append(pad_logits_to_channels(semantic_logits, NUM_SEMANTIC_CHANNELS))
+        bg.append(zeros(NUM_SEMANTIC_CHANNELS))
     opac = table.get_opacity()[:, 0] * table.active.to(rgb.dtype)
-    out = rasterize(table.xyz, table.get_scaling(), table.get_rotation(), opac, colors,
+    out = rasterize(table.xyz, scaling_modifier * table.get_scaling(), table.get_rotation(),
+                    opac, torch.cat(payload, dim=1),
                     camera.world_view_transform(), K[0, 0], K[1, 1], K[0, 2], K[1, 2],
                     camera.width, camera.height,
-                    bg=bg, means2d_offset=means2d_offset,
+                    bg=torch.cat(bg), means2d_offset=means2d_offset,
                     max_tiles_per_axis=max_tiles_per_axis, max_per_tile=max_per_tile,
-                    pair_cap=pair_cap)
+                    tile_chunk=tile_chunk, backend=backend, pair_cap=pair_cap)
     img = out["image"]
-    return {
+    n_id = identity.shape[1]
+    result = {
         "render": img[..., 0:3].permute(2, 0, 1),
-        "render_object": img[..., 3:3 + identity.shape[1]].permute(2, 0, 1),
+        "render_object": img[..., 3:3 + n_id].permute(2, 0, 1),
         "radii": out["radii"],
         "visibility_filter": out["radii"] > 0,
         "alpha": out["alpha"],
@@ -77,6 +86,9 @@ def render(table: GaussianTable, camera: Camera, bg_color: torch.Tensor,
         "num_pairs": out["num_pairs"],
         "tile_overflow": out["tile_overflow"],
     }
+    if semantic_logits is not None:
+        result["semantic_logits"] = img[..., 3 + n_id:].permute(2, 0, 1)
+    return result
 
 
 def _semantic_inputs(table: GaussianTable, logits: torch.Tensor, bg_value: float):
@@ -88,14 +100,11 @@ def _semantic_inputs(table: GaussianTable, logits: torch.Tensor, bg_value: float
     return (table.xyz, table.get_scaling(), table.get_rotation(), opac, payload), bg
 
 
-def _render_one(gaussians, bg, camera: Camera, max_tiles_per_axis, max_per_tile,
-                pair_cap):
+def _render_one(gaussians, bg, camera: Camera, **raster_kw):
     K = camera.intrinsics()
     return rasterize(*gaussians, camera.world_view_transform(),
                      K[0, 0], K[1, 1], K[0, 2], K[1, 2],
-                     camera.width, camera.height, bg=bg,
-                     max_tiles_per_axis=max_tiles_per_axis,
-                     max_per_tile=max_per_tile, pair_cap=pair_cap)
+                     camera.width, camera.height, bg=bg, **raster_kw)
 
 
 def render_semantics(table: GaussianTable, camera: Camera, logits: torch.Tensor,
@@ -105,9 +114,9 @@ def render_semantics(table: GaussianTable, camera: Camera, logits: torch.Tensor,
     """Semantic logits [32, H, W] of one view, on the table's device. With
     ``return_aux`` also a dict of 0-dim tensors ``num_pairs`` and
     ``tile_overflow``, so callers can surface truncation."""
-    _check_backend(backend)
     gaussians, bg = _semantic_inputs(table, logits, bg_value)
-    out = _render_one(gaussians, bg, camera, max_tiles_per_axis, max_per_tile, pair_cap)
+    out = _render_one(gaussians, bg, camera, max_tiles_per_axis=max_tiles_per_axis,
+                      max_per_tile=max_per_tile, backend=backend, pair_cap=pair_cap)
     sem = out["image"].permute(2, 0, 1)
     if return_aux:
         return sem, {"tile_overflow": out["tile_overflow"], "num_pairs": out["num_pairs"]}
@@ -125,16 +134,16 @@ def render_semantics_many(table: GaussianTable, cameras: Sequence[Camera],
     to read that batch's counters. Yields ``(view_index, sem [32,H,W] on the
     device, aux)`` per camera, where aux carries python-int ``tile_overflow``
     and ``num_pairs``."""
-    _check_backend(backend)
     W, H = cameras[0].width, cameras[0].height
     if not all(c.width == W and c.height == H for c in cameras):
         raise ValueError("render_semantics_many requires uniform resolution; "
                          "group cameras by (width, height) first")
     gaussians, bg = _semantic_inputs(table, logits, bg_value)
+    raster_kw = dict(max_tiles_per_axis=max_tiles_per_axis, max_per_tile=max_per_tile,
+                     backend=backend, pair_cap=pair_cap)
     B = max(1, view_batch)
     for start in range(0, len(cameras), B):
-        outs = [_render_one(gaussians, bg, cam, max_tiles_per_axis, max_per_tile,
-                            pair_cap)
+        outs = [_render_one(gaussians, bg, cam, **raster_kw)
                 for cam in cameras[start:start + B]]
         counters = torch.stack([torch.stack([o["tile_overflow"], o["num_pairs"].long()])
                                 for o in outs]).tolist()          # one host sync

@@ -35,8 +35,9 @@ def main(argv=None):
     parser.add_argument("--white_background_sem", action="store_true",
                         help="composite logits on 1s instead of 0s")
     parser.add_argument("--backend", default="cuda", choices=list(BACKENDS),
-                        help="the blend kernel path (its plain PyTorch version "
-                             "runs with --device cpu)")
+                        help="cuda: the blend kernels (their plain PyTorch versions "
+                             "with --device cpu), the JAX CLI's pallas; dense: the "
+                             "dense blend in torch ops, its xla")
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                         help="where to render; cuda raises when no GPU is present")
     parser.add_argument("--allow_random_weights", action="store_true",

@@ -50,34 +50,42 @@ BLEND_CASES = {
     "pair_cap_half": ("light", 128, 0.5),
 }
 
+# the packed blend K3's cases: every blend case, plus an opaque scene at K = 256,
+# where K3's 128-pair early-out stops tiles that K1's one 256-row block does not
+PACKED_CASES = dict(BLEND_CASES, k256_opaque_early_out=("opaque", 256, None))
+PACKED_G = 128                  # K3's early-out block, whatever K is
 
-def blend_case_args(case: str, device, ch: int = 32):
+
+def blend_case_args(case: str, device, ch: int = 32, packed: bool = False):
     """The blend's arguments ``(offsets, sorted_payload, bg, tx_n, ty_n, K)`` for
-    a BLEND_CASES case, projected and binned by the port on ``device`` with the
-    identity camera and m = 4."""
+    a PACKED_CASES case, projected and binned by the port on ``device`` with the
+    identity camera and m = 4; with ``packed`` the payload is K3's [R, 128]."""
     import torch
 
     from segsplat_tpu_torch.ops.rasterize import build_blend_inputs, project_gaussians
 
-    kind, K, cap_frac = BLEND_CASES[case]
+    kind, K, cap_frac = PACKED_CASES[case]
     seed, n, log_scale, opac_range = SCENES[kind]
     sc = {k: torch.as_tensor(v, device=device)
           for k, v in scene(seed, n, log_scale, opac_range, ch=ch).items()}
     proj = project_gaussians(sc["xyz"], sc["scales"], sc["quats"],
                              torch.as_tensor(viewmat("identity"), device=device),
                              F, F, W / 2, H / 2, W, H)
-    bi = build_blend_inputs(proj, sc["colors"], sc["opac"], W, H, 4, K)
+    bi = build_blend_inputs(proj, sc["colors"], sc["opac"], W, H, 4, K, packed=packed)
     if cap_frac is not None:
         cap = int(int(bi.num_pairs) * cap_frac)
-        bi = build_blend_inputs(proj, sc["colors"], sc["opac"], W, H, 4, K, pair_cap=cap)
+        bi = build_blend_inputs(proj, sc["colors"], sc["opac"], W, H, 4, K, pair_cap=cap,
+                                packed=packed)
     return bi.offsets, bi.sorted_payload, sc["bg"], bi.tx_n, bi.ty_n, K
 
 
-def assert_case_exercised(case: str, offsets: np.ndarray, k_max: int, rows_read: int):
-    """The case's scene reaches what its name promises: a third 128-row block,
-    or a tile that stops early; every other case reads all its rows."""
+def assert_case_exercised(case: str, offsets: np.ndarray, k_max: int, rows_read: int,
+                          g: int = 0):
+    """The case's scene reaches what its name promises: a third block, or a
+    tile that stops early; every other case reads all its rows. ``g`` is the
+    early-out block (0: K1's, 256 if K % 256 == 0 else 128)."""
     counts = np.minimum(np.diff(offsets), k_max)
-    g = 256 if k_max % 256 == 0 else 128
+    g = g or (256 if k_max % 256 == 0 else 128)
     if "three_blocks" in case:
         assert counts.max() > 2 * g, f"{case}: the third block is never reached"
     if "early_out" in case:

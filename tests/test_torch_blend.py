@@ -47,7 +47,7 @@ def test_plain_blend_matches_pallas_kernel(case):
         ref_img, ref_alpha = blend_tiles_pallas_dma(
             jnp.asarray(offsets), jnp.asarray(rows), jnp.asarray(bg), tx_n, ty_n, K)
     port_rows = torch.from_numpy(np.ascontiguousarray(rows[:, :B.payload_width(CH)]))
-    img, alpha, rows_read, pixels_hit = B.blend_tiles_plain_with_work(
+    img, alpha, rows_read, pixels_hit, _ = B.blend_tiles_plain_with_work(
         torch.from_numpy(offsets), port_rows, torch.from_numpy(bg), tx_n, ty_n, K)
     np.testing.assert_allclose(img.numpy(), np.asarray(ref_img), rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(alpha.numpy(), np.asarray(ref_alpha), rtol=1e-4, atol=1e-4)

@@ -1,6 +1,8 @@
-"""Kernels K1 (segsplat_tpu_torch/csrc/blend_fwd.cu) and K2 (csrc/blend_bwd.cu)
-against their plain versions on the card, at the training raster's 19 channels
-and the semantic path's 32. Imports no JAX, so it runs where the card is:
+"""Kernels K1 (segsplat_tpu_torch/csrc/blend_fwd.cu), K2 (csrc/blend_bwd.cu) and
+K3 (csrc/blend_packed.cu) against their plain versions on the card, at the
+training raster's 19 channels, the semantic path's 32 and the one-pass
+render's 51; and K3 against K1 on the same scene. Imports no JAX, so it runs
+where the card is:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_blend_cuda.py
 
@@ -14,7 +16,8 @@ import torch
 from segsplat_tpu_torch.ops import blend as B
 # by its bare name: pytest puts tests/ on sys.path, and a machine may have an
 # installed package named `tests` that hides this directory's
-from _torch_port import BLEND_CASES, assert_case_exercised, blend_case_args, owned_rows
+from _torch_port import (BLEND_CASES, PACKED_CASES, PACKED_G, assert_case_exercised,
+                         blend_case_args, owned_rows)
 
 
 def _need_card():
@@ -30,7 +33,7 @@ def test_kernel_matches_plain_version_on_card(case, ch):
     args = blend_case_args(case, "cuda", ch=ch)
     before = B.blend_tiles.launches
     got = B.blend_tiles(*args)
-    ref_img, ref_alpha, rows_read, _ = B.blend_tiles_plain_with_work(*args)
+    ref_img, ref_alpha, rows_read, _, _ = B.blend_tiles_plain_with_work(*args)
     torch.cuda.synchronize()
     assert B.blend_tiles.launches == before + 1
     for g, r in zip(got, (ref_img, ref_alpha)):
@@ -60,3 +63,29 @@ def test_backward_kernel_matches_plain_version_on_card(case, ch):
                                    atol=2e-4 * (np.abs(r).max() + 1e-6))
     owned = owned_rows(offsets.cpu().numpy(), K, payload.shape[0])
     assert not got[0].cpu().numpy()[~owned].any(), "rows no tile owns must stay 0"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ch", B.KERNEL_CHANNELS)
+@pytest.mark.parametrize("case", sorted(PACKED_CASES))
+def test_packed_kernel_matches_plain_version_and_k1_on_card(case, ch):
+    """K3 against its plain version at 1e-4, and against K1 on the same scene
+    at 1e-4 + 2·SAT_EPS·max(|colour|, |bg|) (its 128-pair early-out may stop a
+    saturated tile one block before K1's 256-row one)."""
+    _need_card()
+    args = blend_case_args(case, "cuda", ch=ch, packed=True)
+    before = B.blend_tiles_packed.launches
+    got = B.blend_tiles_packed(*args)
+    ref_img, ref_alpha, rows_read, _, _ = B.blend_tiles_packed_plain_with_work(*args)
+    torch.cuda.synchronize()
+    assert B.blend_tiles_packed.launches == before + 1
+    for g, r in zip(got, (ref_img, ref_alpha)):
+        torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4)
+    assert_case_exercised(case, args[0].cpu().numpy(), args[-1], rows_read, g=PACKED_G)
+
+    dense = blend_case_args(case, "cuda", ch=ch)
+    k1 = B.blend_tiles(*dense)
+    colours = dense[1][:, B.GEOM:B.GEOM + ch]
+    atol = 1e-4 + 2 * B.SAT_EPS * max(float(colours.abs().max()), float(dense[2].abs().max()))
+    for g, r in zip(got, k1):
+        torch.testing.assert_close(g, r, rtol=1e-4, atol=atol)

@@ -143,3 +143,30 @@ def test_render_semantics_many_matches_jax(model_dir):
                                     k: v for k, v in kw.items() if k != "view_batch"})
     assert torch.equal(one, got[0][1])
     assert {k: int(v) for k, v in aux.items()} == got[0][2]
+
+
+def test_render_semantic_views_dense_backend(model_dir, tmp_path):
+    """The pipeline on the dense backend (the JAX package's "xla"): no
+    automatic pair_cap, and the same logits as JAX render_semantics_many."""
+    from segsplat_tpu.render import render_semantics_many as jax_many
+    from segsplat_tpu.scene import Scene as JaxScene
+    from segsplat_tpu.scene import to_device_camera as jax_camera
+    from segsplat_tpu_torch.pipeline.render_semantics import (attach_logits_for_table,
+                                                              render_semantic_views)
+    from segsplat_tpu_torch.scene import Scene, to_device_camera
+
+    root, model, sem = model_dir
+    jscene = JaxScene(str(root), str(model), shuffle=False, load_iteration=1)
+    tscene = Scene(str(root), str(model), shuffle=False, load_iteration=1, device="cpu")
+    logits = attach_logits_for_table(tscene.gaussians, str(sem))
+    ref = [np.asarray(s) for _, s, _ in jax_many(
+        jscene.gaussians, [jax_camera(c) for c in jscene.get_train_cameras()],
+        jnp.asarray(logits), backend="xla", max_tiles_per_axis=6, max_per_tile=256)]
+    labels = render_semantic_views(
+        tscene.gaussians, [to_device_camera(c, device="cpu")
+                           for c in tscene.get_train_cameras()],
+        logits, str(tmp_path), backend="dense")
+    assert len(labels) == len(ref) == N_VIEWS
+    for i, r in enumerate(ref):
+        got = np.load(tmp_path / f"{i:05d}_logits.npy").astype(np.float32)
+        np.testing.assert_allclose(got, r[:3], atol=1e-3, rtol=0)   # fp16 files
