@@ -11,8 +11,10 @@ Phases, each fatal on failure:
      256-row block, three 128-row blocks with the transmittance carry), an
      opaque scene that takes the forward's block early-out, and a pair_cap
      truncation. K1 (forward) at 1e-4; K2 (backward) at rtol 5e-3, atol
-     2e-4·max|ref|, with the rows no tile owns exactly 0; K3 (packed forward)
-     on the same cases and an opaque K = 256 one at 1e-4, and against K1.
+     2e-4·max|ref|, with the rows no tile owns exactly 0, also on empty tiles
+     and a tile past its K cap; a wide, faint K = 256 scene whose tile counts
+     leave K2 a partial last chunk; K3 (packed forward) on the same cases and
+     an opaque K = 256 one at 1e-4, and against K1.
   3. K1 vs plain at full scale: 1920×1080, 200 000 Gaussians, 32 channels, the
      headline scene (seed 0, m=3, K=256, pair_cap 1.5M) and the hostile one
      (seed 7, m=6, K=512, pair_cap 6M), built as bench.py builds them; times the
@@ -51,7 +53,8 @@ Phases, each fatal on failure:
      |bg|), timed with its bound and with the whole packed rasterize;
      (c) the dense backend (the JAX package's "xla") on the headline scene,
      forward, against K1 at 1e-4, timed.
-Prints a ``{"kernels": [...]}`` line, then as the last line
+Prints a ``{"kernels": [...]}`` line (K2's entries with its blocks per SM and
+dynamic shared memory from the occupancy API), then as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when CUDA
 is unavailable or the package is missing.
 """
@@ -212,8 +215,9 @@ def phase_small(results):
 
     # the case table and scenes of tests/test_torch_blend_cuda.py
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
-    from _torch_port import (BLEND_CASES, PACKED_CASES, PACKED_G, assert_case_exercised,
-                             blend_case_args, owned_rows)
+    from _torch_port import (BLEND_CASES, DEGENERATE_K, PACKED_CASES, PACKED_G,
+                             assert_case_exercised, blend_case_args, degenerate_case_args,
+                             owned_rows)
 
     gen = torch.Generator("cuda").manual_seed(0)
     for ch in B.KERNEL_CHANNELS:
@@ -245,6 +249,25 @@ def phase_small(results):
                 f"deepest={int(counts.max())} fwd rows_read={rows}/{int(counts.sum())} "
                 f"pixels_hit={hits} max_abs_err={err:.3g}; bwd rows_read={brows} "
                 f"pixels_hit={bhits} max_abs_err={berr:.3g}")
+
+        # K2 on empty tiles and on a tile past its K cap: those rows stay 0
+        offsets, payload, bg, tx_n, ty_n, K = degenerate_case_args("cuda", ch=ch)
+        img, alpha = B.blend_tiles_plain(offsets, payload, bg, tx_n, ty_n, K)
+        bargs = (offsets, payload, bg, img, alpha, torch.randn(img.shape, generator=gen,
+                                                               device="cuda"),
+                 torch.randn(alpha.shape, generator=gen, device="cuda"), tx_n, ty_n, K)
+        d_pay, d_bg = B.blend_tiles_bwd(*bargs)
+        ref_pay, ref_bg = B.blend_tiles_bwd_plain(*bargs)
+        torch.cuda.synchronize()
+        berr = max(compare_grad(f"degenerate CH={ch} d_payload", d_pay, ref_pay),
+                   compare_grad(f"degenerate CH={ch} d_bg", d_bg, ref_bg))
+        owned = torch.as_tensor(owned_rows(offsets.cpu().numpy(), DEGENERATE_K,
+                                           payload.shape[0]), device="cuda")
+        if bool((d_pay[~owned] != 0).any()):
+            raise AssertionError(f"degenerate CH={ch}: K2 wrote a row no tile owns")
+        results["bwd_err"] = max(results["bwd_err"], berr)
+        log(f"[small] degenerate tiles CH={ch} (counts 0 and past K={K}): K2 "
+            f"max_abs_err={berr:.3g}, unowned rows 0")
 
         for name in sorted(PACKED_CASES):
             args = blend_case_args(name, "cuda", ch=ch, packed=True)
@@ -1080,6 +1103,14 @@ def main() -> int:
                 if "registers" in line or "spill" in line or "Compiling entry" in line:
                     log(f"[ptxas] {line.strip()}")
 
+    from segsplat_tpu_torch.ops.blend import KERNEL_CHANNELS, blend_tiles_bwd_occupancy
+
+    k2_occupancy = {}
+    for ch in KERNEL_CHANNELS:
+        blocks, smem = blend_tiles_bwd_occupancy(ch)
+        k2_occupancy[ch] = dict(blocks_per_sm=blocks, smem_bytes=smem)
+    log(f"[occupancy] blend_bwd: {json.dumps(k2_occupancy)}")
+
     results = {"fwd_err": 0.0, "bwd_err": 0.0, "packed_err": 0.0, "scenes": {},
                "launches": {}, "packed": {}}
     root = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -1117,13 +1148,13 @@ def main() -> int:
                      path="render(semantic_logits)"),
         kernel_entry("blend_bwd", 19, bwd_src, k2_tpu, train_launches["blend_bwd"],
                      results["train_bwd"]["max_abs_err"], results["train_bwd"],
-                     path="train", train_step=results["train_step"]),
+                     path="train", train_step=results["train_step"], **k2_occupancy[19]),
         kernel_entry("blend_bwd", 32, bwd_src, k2_tpu, results["k2_32"]["launches"],
                      results["k2_32"]["max_abs_err"], results["k2_32"],
-                     path="rasterize gradient, 1080p headline"),
+                     path="rasterize gradient, 1080p headline", **k2_occupancy[32]),
         kernel_entry("blend_bwd", 51, bwd_src, k2_tpu, logits["launches"]["blend_bwd"],
                      logits["bwd"]["max_abs_err"], logits["bwd"],
-                     path="render(semantic_logits) gradient"),
+                     path="render(semantic_logits) gradient", **k2_occupancy[51]),
         kernel_entry("blend_packed", 32, packed_src, k3_tpu,
                      packed["headline"]["launches"] + packed["hostile"]["launches"],
                      max(packed["headline"]["max_abs_err"], packed["hostile"]["max_abs_err"]),

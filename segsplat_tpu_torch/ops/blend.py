@@ -386,8 +386,9 @@ def _check_bwd(offsets, sorted_payload, bg, img, alpha, g_img, g_alpha,
 
 
 def _d_bg(alpha, g_img):
-    """d bg = Σ_px T_fin · g_img, a plain reduction (XLA's on the TPU too)."""
-    return ((1.0 - alpha)[..., None] * g_img).sum((0, 1))
+    """d bg = Σ_px T_fin · g_img, a plain reduction (XLA's on the TPU too), as
+    one vector-matrix product that reads g_img once."""
+    return (1.0 - alpha).reshape(-1) @ g_img.reshape(-1, g_img.shape[-1])
 
 
 def blend_tiles_bwd_plain_with_work(offsets, sorted_payload, bg, img, alpha,
@@ -481,7 +482,8 @@ def blend_tiles_bwd(offsets, sorted_payload, bg, img, alpha, g_img, g_alpha,
                     tx_n: int, ty_n: int, k_max: int):
     """Backward of ``blend_tiles`` (arguments as ``blend_tiles_bwd_plain_with_work``).
     CUDA tensors launch kernel K2, which counts in ``blend_tiles_bwd.launches``;
-    CPU tensors run the plain version. Raises on anything else.
+    CPU tensors run the plain version. Raises on anything else, and when CUDA
+    refuses the kernel's dynamic shared memory or its launch.
     Returns (d_payload, d_bg)."""
     _check_bwd(offsets, sorted_payload, bg, img, alpha, g_img, g_alpha,
                tx_n, ty_n, k_max)
@@ -496,6 +498,9 @@ def blend_tiles_bwd(offsets, sorted_payload, bg, img, alpha, g_img, g_alpha,
         raise ValueError(f"the CUDA blend is built for CH in {KERNEL_CHANNELS}, got {ch}")
     if sorted_payload.data_ptr() % 16:
         raise ValueError("sorted_payload must be 16-byte aligned for float4 loads")
+    # the kernel reads img and g_img as float4s: a view that starts off a
+    # 16-byte boundary is copied to one that does not
+    img, g_img = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (img, g_img))
     fn = _kernel_fn("blend_bwd", 8, 4)
     d_payload = torch.zeros_like(sorted_payload)     # rows no tile owns stay 0
     with torch.cuda.device(dev):
@@ -510,6 +515,20 @@ def blend_tiles_bwd(offsets, sorted_payload, bg, img, alpha, g_img, g_alpha,
 
 
 blend_tiles_bwd.launches = 0
+
+
+def blend_tiles_bwd_occupancy(ch: int) -> tuple[int, int]:
+    """Kernel K2's occupancy on the current card at ``ch`` channels: (blocks of
+    256 threads an SM holds at once, dynamic shared memory bytes per block), as
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` gives them."""
+    fn = cuda_build.load_library("blend_bwd").segsplat_blend_bwd_occupancy
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    blocks, smem = ctypes.c_int(), ctypes.c_int()
+    err = fn(ch, ctypes.byref(blocks), ctypes.byref(smem))
+    if err != 0:
+        raise RuntimeError(f"blend_bwd occupancy query failed: cudaError {err}")
+    return blocks.value, smem.value
 
 
 class _Blend(torch.autograd.Function):

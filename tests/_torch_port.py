@@ -38,6 +38,10 @@ SCENES = {
     "light": (0, 500, -2.5, (0.3, 0.95)),      # shallow tiles, one block
     "deep": (1, 4000, -1.5, (0.02, 0.15)),     # > 256 rows, transmittance stays up
     "opaque": (2, 3000, -1.5, (0.9, 0.99)),    # saturates within the first block
+    # wide and faint, as the training step's scene: ~73 % of pair-pixels pass
+    # the cut, nothing saturates, and no tile's count (225-230) is a multiple
+    # of 16, so the backward's last chunk of rows is partial
+    "faint": (3, 230, -0.4, (0.02, 0.1)),
 }
 
 # blend cases, name: (scene kind, K, pair_cap as a fraction of the real pairs).
@@ -48,6 +52,7 @@ BLEND_CASES = {
     "k384_three_blocks_carry": ("deep", 384, None),
     "k384_opaque_early_out": ("opaque", 384, None),
     "pair_cap_half": ("light", 128, 0.5),
+    "wide_faint_k256": ("faint", 256, None),
 }
 
 # the packed blend K3's cases: every blend case, plus an opaque scene at K = 256,
@@ -77,6 +82,38 @@ def blend_case_args(case: str, device, ch: int = 32, packed: bool = False):
         bi = build_blend_inputs(proj, sc["colors"], sc["opac"], W, H, 4, K, pair_cap=cap,
                                 packed=packed)
     return bi.offsets, bi.sorted_payload, sc["bg"], bi.tx_n, bi.ty_n, K
+
+
+# degenerate tiles for the backward: a 3×2-tile frame with K = 128 whose tiles
+# hold these many pairs; empty tiles, one past the cap, one just past it
+DEGENERATE_COUNTS = (0, 300, 0, 77, 0, 129)
+DEGENERATE_K = 128
+
+
+def degenerate_case_args(device, ch: int = 19):
+    """The blend's arguments ``(offsets, sorted_payload, bg, tx_n, ty_n, K)`` for
+    DEGENERATE_COUNTS: seeded pairs drawn inside and around their tile, with K
+    zero rows past the end."""
+    import torch
+
+    from segsplat_tpu_torch.ops.blend import make_payload
+
+    tx_n, ty_n = 3, 2
+    counts = np.array(DEGENERATE_COUNTS)
+    tiles = np.repeat(np.arange(tx_n * ty_n), counts)
+    n = tiles.size
+    rng = np.random.default_rng(11)
+    mu = np.stack([(tiles % tx_n) * 16 + rng.uniform(-4.0, 20.0, n),
+                   (tiles // tx_n) * 16 + rng.uniform(-4.0, 20.0, n)], 1)
+    a, c = rng.uniform(0.02, 0.2, n), rng.uniform(0.02, 0.2, n)
+    b = rng.uniform(-0.5, 0.5, n) * np.sqrt(a * c)
+    f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=device)
+    rows = make_payload(f32(mu), f32(np.stack([a, b, c], 1)), f32(rng.uniform(0.02, 0.3, n)),
+                        f32(rng.standard_normal((n, ch)) * 2.0))
+    payload = torch.nn.functional.pad(rows, (0, 0, 0, DEGENERATE_K))
+    offsets = torch.as_tensor(np.concatenate([[0], np.cumsum(counts)]).astype(np.int32),
+                              device=device)
+    return offsets, payload, f32(rng.random(ch)), tx_n, ty_n, DEGENERATE_K
 
 
 def assert_case_exercised(case: str, offsets: np.ndarray, k_max: int, rows_read: int,

@@ -5,6 +5,9 @@ and cotangents, at the training raster's 19 channels. The CUDA kernel itself is
 held against the plain version on the card by tests/test_torch_blend_cuda.py
 and chip_smoke.py."""
 
+import sys
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,7 +17,8 @@ from jax.experimental.pallas import tpu as pltpu
 from segsplat_tpu.ops.blend_pallas import GEOM, PAYLOAD_WIDTH
 from segsplat_tpu.ops.blend_pallas_vjp import _blend_bwd_pallas, _image_to_tiles
 from segsplat_tpu_torch.ops import blend as B
-from _torch_port import BLEND_CASES, blend_case_args, owned_rows
+from _torch_port import (BLEND_CASES, DEGENERATE_K, blend_case_args, degenerate_case_args,
+                         owned_rows)
 
 CH = 19
 
@@ -22,9 +26,16 @@ CH = 19
 def _case(case: str):
     """Port inputs for the case, the forward's outputs (plain K1) and seeded
     cotangents."""
-    offsets, payload, bg, tx_n, ty_n, K = blend_case_args(case, "cpu", ch=CH)
+    return _with_cotangents(blend_case_args(case, "cpu", ch=CH),
+                            sorted(BLEND_CASES).index(case))
+
+
+def _with_cotangents(blend_args, seed: int):
+    """The backward's arguments: the blend's, its plain forward's outputs and
+    cotangents drawn from ``seed``."""
+    offsets, payload, bg, tx_n, ty_n, K = blend_args
     img, alpha = B.blend_tiles_plain(offsets, payload, bg, tx_n, ty_n, K)
-    rng = np.random.default_rng(sorted(BLEND_CASES).index(case))
+    rng = np.random.default_rng(seed)
     g_img = torch.from_numpy(rng.standard_normal(img.shape).astype(np.float32))
     g_alpha = torch.from_numpy(rng.standard_normal(alpha.shape).astype(np.float32))
     return offsets, payload, bg, img, alpha, g_img, g_alpha, tx_n, ty_n, K
@@ -72,6 +83,23 @@ def test_plain_backward_matches_pallas_kernel(case):
     assert np.abs(d_pay.numpy()[owned]).max() > 0
     if "pair_cap" in case:
         assert (~owned).sum() > K, "pair_cap must leave rows beyond the K-row tail"
+
+
+def test_plain_backward_matches_pallas_kernel_on_degenerate_tiles():
+    """Empty tiles and tiles past the K cap: the rows past the cap stay exactly
+    0, as in the TPU kernel, which writes only a tile's first K rows."""
+    args = _with_cotangents(degenerate_case_args("cpu", ch=CH), 11)
+    offsets, payload = args[0].numpy(), args[1]
+    d_pay, d_bg, rows_read, _ = B.blend_tiles_bwd_plain_with_work(*args)
+    ref_pay, ref_bg = _jax_backward(*args)
+    _assert_close(d_pay.numpy(), ref_pay, "d_payload")
+    _assert_close(d_bg.numpy(), ref_bg, "d_bg")
+    assert rows_read == np.minimum(np.diff(offsets), DEGENERATE_K).sum()
+    owned = owned_rows(offsets, DEGENERATE_K, payload.shape[0])
+    past_cap = np.arange(offsets[1] + DEGENERATE_K, offsets[2])
+    assert past_cap.size and not owned[past_cap].any()
+    assert not d_pay.numpy()[~owned].any() and not ref_pay[~owned].any()
+    assert np.abs(d_pay.numpy()[owned]).max() > 0
 
 
 def test_rows_of_a_short_tile_do_not_clobber_the_next():
@@ -135,3 +163,18 @@ def test_autograd_blend_matches_explicit_backward():
                                               g_alpha, tx_n, ty_n, K)
     assert torch.equal(pay.grad, ref_pay)
     torch.testing.assert_close(bgv.grad, ref_bg)
+
+
+def test_k2_diagnostic_variants_follow_the_kernel_source():
+    """scripts/k2_variants.py finds its anchors in csrc/blend_bwd.cu: each
+    diagnostic variant is the kernel with its own edit, and the clock variant
+    marks every segment once."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "scripts"))
+    import k2_variants as KV
+
+    src = KV.SOURCE.read_text()
+    out = KV.variants(src)
+    assert sorted(out) == ["clocks", "empty", "noA", "noAB", "noB"]
+    assert len({src, *out.values()}) == 6
+    assert all(out["clocks"].count(f"K2_MARK({i})") == 1 for i in range(len(KV.SEGMENTS)))
+    assert "expf(-sigma)" not in out["noA"] and "expf(-sigma)" in out["noB"]

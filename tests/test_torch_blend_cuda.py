@@ -16,8 +16,9 @@ import torch
 from segsplat_tpu_torch.ops import blend as B
 # by its bare name: pytest puts tests/ on sys.path, and a machine may have an
 # installed package named `tests` that hides this directory's
-from _torch_port import (BLEND_CASES, PACKED_CASES, PACKED_G, assert_case_exercised,
-                         blend_case_args, owned_rows)
+from _torch_port import (BLEND_CASES, DEGENERATE_K, PACKED_CASES, PACKED_G,
+                         assert_case_exercised, blend_case_args, degenerate_case_args,
+                         owned_rows)
 
 
 def _need_card():
@@ -63,6 +64,32 @@ def test_backward_kernel_matches_plain_version_on_card(case, ch):
                                    atol=2e-4 * (np.abs(r).max() + 1e-6))
     owned = owned_rows(offsets.cpu().numpy(), K, payload.shape[0])
     assert not got[0].cpu().numpy()[~owned].any(), "rows no tile owns must stay 0"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ch", B.KERNEL_CHANNELS)
+def test_backward_kernel_on_degenerate_tiles_on_card(ch):
+    """Tiles with count 0 write nothing, and a tile whose count exceeds K leaves
+    the rows past its cap at exactly 0."""
+    _need_card()
+    offsets, payload, bg, tx_n, ty_n, K = degenerate_case_args("cuda", ch=ch)
+    img, alpha = B.blend_tiles_plain(offsets, payload, bg, tx_n, ty_n, K)
+    gen = torch.Generator("cuda").manual_seed(ch)
+    args = (offsets, payload, bg, img, alpha, torch.randn(img.shape, generator=gen,
+                                                          device="cuda"),
+            torch.randn(alpha.shape, generator=gen, device="cuda"), tx_n, ty_n, K)
+    got = B.blend_tiles_bwd(*args)
+    ref = B.blend_tiles_bwd_plain(*args)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        r = r.cpu().numpy()
+        np.testing.assert_allclose(g.cpu().numpy(), r, rtol=5e-3,
+                                   atol=2e-4 * (np.abs(r).max() + 1e-6))
+    off = offsets.cpu().numpy()
+    d_pay = got[0].cpu().numpy()
+    owned = owned_rows(off, DEGENERATE_K, payload.shape[0])
+    assert not d_pay[off[1] + DEGENERATE_K:off[2]].any(), "rows past the K cap must stay 0"
+    assert not d_pay[~owned].any() and np.abs(d_pay[owned]).max() > 0
 
 
 @pytest.mark.cuda
