@@ -14,7 +14,10 @@ Phases, each fatal on failure:
      2e-4·max|ref|, with the rows no tile owns exactly 0, also on empty tiles
      and a tile past its K cap; a wide, faint K = 256 scene whose tile counts
      leave K2 a partial last chunk; K3 (packed forward) on the same cases and
-     an opaque K = 256 one at 1e-4, and against K1.
+     an opaque K = 256 one at 1e-4, and against K1; K1 and K3 at 1e-4 on the
+     degenerate tiles and on edge tiles (count 0, one row, count > K, partial
+     last chunks, rows at the edges of the row test). On every input the row
+     lists of K1 and K3 (the plain counter) keep no fewer warp-rows than hit.
   3. K1 vs plain at full scale: 1920×1080, 200 000 Gaussians, 32 channels, the
      headline scene (seed 0, m=3, K=256, pair_cap 1.5M) and the hostile one
      (seed 7, m=6, K=512, pair_cap 6M), built as bench.py builds them; times the
@@ -53,8 +56,9 @@ Phases, each fatal on failure:
      |bg|), timed with its bound and with the whole packed rasterize;
      (c) the dense backend (the JAX package's "xla") on the headline scene,
      forward, against K1 at 1e-4, timed.
-Prints a ``{"kernels": [...]}`` line (K2's entries with its blocks per SM and
-dynamic shared memory from the occupancy API), then as the last line
+Prints a ``{"kernels": [...]}`` line (each kernel's blocks per SM, shared
+memory and registers from the occupancy API; K1's and K3's share of warp-rows
+their row lists keep beside the share with a passing lane), then as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when CUDA
 is unavailable or the package is missing.
 """
@@ -217,7 +221,7 @@ def phase_small(results):
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
     from _torch_port import (BLEND_CASES, DEGENERATE_K, PACKED_CASES, PACKED_G,
                              assert_case_exercised, blend_case_args, degenerate_case_args,
-                             owned_rows)
+                             edge_case_args, owned_rows)
 
     gen = torch.Generator("cuda").manual_seed(0)
     for ch in B.KERNEL_CHANNELS:
@@ -230,6 +234,7 @@ def phase_small(results):
             err = compare(f"{name} CH={ch}", got, (ref_img, ref_alpha))
             counts = np.minimum(np.diff(offsets.cpu().numpy()), K)
             assert_case_exercised(name, offsets.cpu().numpy(), K, rows)
+            lists = warp_row_shares(f"{name} CH={ch} K1", B.blend_tiles_warp_rows(*args))
             results["fwd_err"] = max(results["fwd_err"], err)
 
             g_img = torch.randn(ref_img.shape, generator=gen, device="cuda")
@@ -247,7 +252,8 @@ def phase_small(results):
             results["bwd_err"] = max(results["bwd_err"], berr)
             log(f"[small] {name} CH={ch}: K={K} pairs={int(offsets[-1])} "
                 f"deepest={int(counts.max())} fwd rows_read={rows}/{int(counts.sum())} "
-                f"pixels_hit={hits} max_abs_err={err:.3g}; bwd rows_read={brows} "
+                f"pixels_hit={hits} max_abs_err={err:.3g} warp-rows kept "
+                f"{lists['kept_share']:.3f} hit {lists['hit_share']:.3f}; bwd rows_read={brows} "
                 f"pixels_hit={bhits} max_abs_err={berr:.3g}")
 
         # K2 on empty tiles and on a tile past its K cap: those rows stay 0
@@ -269,6 +275,25 @@ def phase_small(results):
         log(f"[small] degenerate tiles CH={ch} (counts 0 and past K={K}): K2 "
             f"max_abs_err={berr:.3g}, unowned rows 0")
 
+        # K1 and K3 on the degenerate tiles and on the edge tiles
+        for case, args in (("degenerate", degenerate_case_args("cuda", ch=ch)),
+                           ("edge", edge_case_args("cuda", ch=ch))):
+            offsets, payload, bg, tx_n, ty_n, K = args
+            pargs = (offsets, B.pack_payload(payload[:-K], K), bg, tx_n, ty_n, K)
+            err = compare(f"{case} tiles CH={ch} K1", B.blend_tiles(*args),
+                          B.blend_tiles_plain(*args))
+            perr = compare(f"{case} tiles CH={ch} K3", B.blend_tiles_packed(*pargs),
+                           B.blend_tiles_packed_plain(*pargs))
+            lists = warp_row_shares(f"{case} tiles CH={ch} K1", B.blend_tiles_warp_rows(*args))
+            plists = warp_row_shares(f"{case} tiles CH={ch} K3",
+                                     B.blend_tiles_packed_warp_rows(*pargs))
+            results["fwd_err"] = max(results["fwd_err"], err)
+            results["packed_err"] = max(results["packed_err"], perr)
+            log(f"[small] {case} tiles CH={ch} (counts {np.diff(offsets.cpu().numpy()).tolist()}, "
+                f"K={K}): K1 max_abs_err={err:.3g}, K3 {perr:.3g}; warp-rows kept/hit "
+                f"K1 {lists['warp_rows_kept']}/{lists['warp_rows_hit']}, K3 "
+                f"{plists['warp_rows_kept']}/{plists['warp_rows_hit']}")
+
         for name in sorted(PACKED_CASES):
             args = blend_case_args(name, "cuda", ch=ch, packed=True)
             got = B.blend_tiles_packed(*args)
@@ -276,12 +301,25 @@ def phase_small(results):
             torch.cuda.synchronize()
             err = compare(f"{name} CH={ch} K3", got, (ref_img, ref_alpha))
             assert_case_exercised(name, args[0].cpu().numpy(), args[-1], rows, g=PACKED_G)
+            warp_row_shares(f"{name} CH={ch} K3", B.blend_tiles_packed_warp_rows(*args))
             dense = blend_case_args(name, "cuda", ch=ch)
             k1_err = compare(f"{name} CH={ch} K3 vs K1", got, B.blend_tiles(*dense),
                              atol=packed_atol(dense[1], dense[2]))
             results["packed_err"] = max(results["packed_err"], err)
             log(f"[small] {name} CH={ch} K3: rows_read={rows} pixels_hit={hits} "
                 f"tiles_stopped={stopped} max_abs_err={err:.3g}; vs K1 {k1_err:.3g}")
+
+
+def warp_row_shares(name: str, work: dict) -> dict:
+    """The row lists of K1 or K3 on one input, as the plain counter gives them
+    (``blend_tiles_warp_rows``): warp-rows read, kept and hit, and the kept
+    and hit shares of those read. Raises if the lists keep fewer warp-rows
+    than have a passing lane, or none is read."""
+    read, kept, hit = work["read"], work["kept"], work["hit"]
+    if not (hit <= kept <= read and read > 0):
+        raise AssertionError(f"{name}: warp-rows read {read}, kept {kept}, hit {hit}")
+    return dict(warp_rows_read=read, warp_rows_kept=kept, warp_rows_hit=hit,
+                kept_share=kept / read, hit_share=hit / read)
 
 
 def packed_atol(payload, bg) -> float:
@@ -345,7 +383,7 @@ def phase_full(results):
     import torch
 
     from segsplat_tpu_torch.ops.blend import (blend_tiles, blend_tiles_plain,
-                                              blend_tiles_plain_with_work)
+                                              blend_tiles_plain_with_work, blend_tiles_warp_rows)
     from segsplat_tpu_torch.ops.rasterize import (build_blend_inputs, project_gaussians,
                                                   rasterize)
 
@@ -364,6 +402,8 @@ def phase_full(results):
         err = compare(name, got, (ref_img, ref_alpha))
         results["fwd_err"] = max(results["fwd_err"], err)
         del got, ref_img, ref_alpha
+        lists = warp_row_shares(f"{name} K1", blend_tiles_warp_rows(
+            bi.offsets, bi.sorted_payload, bg, bi.tx_n, bi.ty_n, K))
 
         blend = lambda: blend_tiles(bi.offsets, bi.sorted_payload, bg, bi.tx_n, bi.ty_n, K)
         plain = lambda: blend_tiles_plain(bi.offsets, bi.sorted_payload, bg,
@@ -389,7 +429,7 @@ def phase_full(results):
                      pixels_hit=hits, tiles_stopped=stopped, K=K, m=m,
                      max_abs_err=err, ms=ms, plain_ms=plain_ms, rasterize_ms=raster_ms,
                      project_ms=project_ms, bin_gather_ms=bin_ms,
-                     bound_ms=bound_ms, bound_by=bound_by, ops=ops, bytes=bytes_)
+                     bound_ms=bound_ms, bound_by=bound_by, ops=ops, bytes=bytes_, **lists)
         results["scenes"][name] = scene
         log(f"[full] {name}: " + json.dumps(scene))
         if name == "headline":
@@ -659,7 +699,8 @@ def kernels_on_captured(results, cap, label: str):
     num_tiles = tx_n * ty_n
     fwd = dict(ms=cuda_time_ms(lambda: B.blend_tiles(*fargs), reps=10),
                plain_ms=cuda_time_ms(lambda: B.blend_tiles_plain(*fargs), reps=3, warmup=1),
-               rows_read=f_rows, pixels_hit=f_hits, max_abs_err=fwd_err)
+               rows_read=f_rows, pixels_hit=f_hits, max_abs_err=fwd_err,
+               **warp_row_shares(f"{label} K1 CH={ch}", B.blend_tiles_warp_rows(*fargs)))
     fwd["bound_ms"], fwd["bound_by"], fwd["ops"], fwd["bytes"] = k1_bound(
         offsets, f_rows, f_hits, ch, num_tiles)
     bwd = dict(ms=cuda_time_ms(lambda: B.blend_tiles_bwd(*bargs), reps=10),
@@ -1021,7 +1062,8 @@ def packed_stats(name, raster, pargs, dargs):
                  ms=cuda_time_ms(lambda: B.blend_tiles_packed(*pargs), reps=10),
                  plain_ms=cuda_time_ms(lambda: B.blend_tiles_packed_plain(*pargs), reps=3,
                                        warmup=1),
-                 rasterize_ms=raster_ms)
+                 rasterize_ms=raster_ms,
+                 **warp_row_shares(f"{name} K3", B.blend_tiles_packed_warp_rows(*pargs)))
     stats["bound_ms"], stats["bound_by"], stats["ops"], stats["bytes"] = k1_bound(
         offsets, rows, hits, ch, num_tiles, row_bytes=k3_row_bytes(ch))
     log(f"[packed] {name}: " + json.dumps(stats))
@@ -1068,11 +1110,16 @@ def phase_other_blends(results):
         torch.cuda.empty_cache()
 
 
+LIST_KEYS = ("warp_rows_read", "warp_rows_kept", "warp_rows_hit", "kept_share", "hit_share")
+
+
 def kernel_entry(name, ch, source, replaces, launches, max_abs_err, t, **extra):
+    """One kernel's entry of the ``{"kernels": [...]}`` line; K1's and K3's
+    carry their row lists' shares from ``t``."""
     return dict(name=name, ch=ch, route="cuda", source=source, replaces=replaces,
                 launches=launches, max_abs_err=max_abs_err, ms=t["ms"],
                 plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
-                library_ms=None, **extra)
+                library_ms=None, **{k: t[k] for k in LIST_KEYS if k in t}, **extra)
 
 
 def main() -> int:
@@ -1103,13 +1150,17 @@ def main() -> int:
                 if "registers" in line or "spill" in line or "Compiling entry" in line:
                     log(f"[ptxas] {line.strip()}")
 
-    from segsplat_tpu_torch.ops.blend import KERNEL_CHANNELS, blend_tiles_bwd_occupancy
+    from segsplat_tpu_torch.ops.blend import (KERNEL_CHANNELS, blend_forward_occupancy,
+                                              blend_tiles_bwd_occupancy)
 
     k2_occupancy = {}
     for ch in KERNEL_CHANNELS:
         blocks, smem = blend_tiles_bwd_occupancy(ch)
         k2_occupancy[ch] = dict(blocks_per_sm=blocks, smem_bytes=smem)
     log(f"[occupancy] blend_bwd: {json.dumps(k2_occupancy)}")
+    occupancy = {k: {ch: blend_forward_occupancy(k, ch) for ch in KERNEL_CHANNELS}
+                 for k in ("blend_fwd", "blend_packed")}
+    log(f"[occupancy] {json.dumps(occupancy)}")
 
     results = {"fwd_err": 0.0, "bwd_err": 0.0, "packed_err": 0.0, "scenes": {},
                "launches": {}, "packed": {}}
@@ -1139,13 +1190,14 @@ def main() -> int:
         kernel_entry("blend_fwd", 32, fwd_src, k1_tpu,
                      results["launches"]["render_semantics"]["blend_fwd"],
                      headline["max_abs_err"], headline,
-                     path="render_semantics", scenes=results["scenes"]),
+                     path="render_semantics", scenes=results["scenes"],
+                     **occupancy["blend_fwd"][32]),
         kernel_entry("blend_fwd", 19, fwd_src, k1_tpu, train_launches["blend_fwd"],
                      results["train_fwd"]["max_abs_err"], results["train_fwd"],
-                     path="train"),
+                     path="train", **occupancy["blend_fwd"][19]),
         kernel_entry("blend_fwd", 51, fwd_src, k1_tpu, logits["launches"]["blend_fwd"],
                      logits["fwd"]["max_abs_err"], logits["fwd"],
-                     path="render(semantic_logits)"),
+                     path="render(semantic_logits)", **occupancy["blend_fwd"][51]),
         kernel_entry("blend_bwd", 19, bwd_src, k2_tpu, train_launches["blend_bwd"],
                      results["train_bwd"]["max_abs_err"], results["train_bwd"],
                      path="train", train_step=results["train_step"], **k2_occupancy[19]),
@@ -1159,10 +1211,11 @@ def main() -> int:
                      packed["headline"]["launches"] + packed["hostile"]["launches"],
                      max(packed["headline"]["max_abs_err"], packed["hostile"]["max_abs_err"]),
                      packed["headline"], path="rasterize with USE_PACKED",
-                     hostile=packed["hostile"]),
+                     hostile=packed["hostile"], **occupancy["blend_packed"][32]),
         kernel_entry("blend_packed", 51, packed_src, k3_tpu, packed["logits51"]["launches"],
                      packed["logits51"]["max_abs_err"], packed["logits51"],
-                     path="render(semantic_logits) with USE_PACKED"),
+                     path="render(semantic_logits) with USE_PACKED",
+                     **occupancy["blend_packed"][51]),
     ]
     log(f"[total] {time.perf_counter() - t_all:.1f} s on {smi}")
     log(json.dumps({"kernels": kernels}))

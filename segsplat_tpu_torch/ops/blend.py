@@ -34,6 +34,15 @@ early-out per ``g_block`` = 128 pairs whatever K is. ``blend_tiles_packed``
 launches ``csrc/blend_packed.cu`` on CUDA tensors and runs
 ``blend_tiles_packed_plain`` on CPU tensors; it has no backward, as on the TPU.
 
+Row lists (K1 and K3). A warp owns an 8×4 block of its tile's pixels
+(``WARP_FOOTPRINT``). Once a chunk of rows lands in shared memory, each warp
+tests every row against its block with ``warp_row_may_hit``'s test and keeps a
+bitmask; it then blends only the rows whose bit is set. The test is exact by
+construction: it drops a row only where no pixel centre of the block can pass
+the sigma and alpha cut, so the dropped row has alpha 0 at every pixel of the
+warp and the result is the same bit for bit. ``blend_tiles_warp_rows`` and
+``blend_tiles_packed_warp_rows`` count the warp-rows read, kept and hit.
+
 Bound on the card (K1): every pair-pixel of a row read costs about 15 fp32
 operations (one exp among them), and one that passes the cut another 2·CH + 3;
 the payload is read once per pair and the image written once. Which of the two
@@ -59,6 +68,14 @@ KERNEL_CHANNELS = (19, 32, 51)  # channel counts the kernels are built for
 PACKED_HALF = 64      # floats per pair in K3's packed layout
 PACKED_MAX_CH = PACKED_HALF - GEOM   # colours a packed pair can hold: 56
 _PLAIN_CHUNK_ELEMS = 1 << 24    # [tiles, G, 256] elements per plain-version chunk
+WARP_FOOTPRINT = (8, 4)         # the pixels of one warp in K1 and K3: 8 wide, 4 high
+ALPHA_MIN = 1.0 / 255.0
+# the row test's margins (csrc/blend_common.cuh): kappa = 4·CULL_GAMMA·ac/det
+# bounds the relative rounding of sigma in the kernel and in the test itself;
+# CULL_TAU_MARGIN covers logf's and expf's rounding of the threshold
+CULL_GAMMA = 2.0 ** -16
+CULL_TAU_MARGIN = 1e-5
+CULL_BIG = 1e30
 
 
 def payload_width(ch: int) -> int:
@@ -142,13 +159,77 @@ def _block_alpha(win, px, py, live):
     ca, cb, cc, op = win[..., 2:3], win[..., 3:4], win[..., 4:5], win[..., 5:6]
     dx = mu_x - px
     dy = mu_y - py
-    # the kernels compute sigma in this operation order, unfused
-    sigma = 0.5 * (ca * dx * dx + cc * dy * dy) + cb * dx * dy
+    sigma = _sigma(ca, cb, cc, dx, dy)
     expnegs = torch.exp(-sigma)
     raw = op * expnegs
     a = torch.clamp_max(raw, 0.999)
     valid = (sigma >= 0.0) & (a >= 1.0 / 255.0) & live[..., None]
     return dx, dy, expnegs, raw, torch.where(valid, a, 0.0), valid
+
+
+def _sigma(ca, cb, cc, dx, dy):
+    """sigma in the kernels' operation order, unfused (csrc/blend_common.cuh)."""
+    return 0.5 * (ca * dx * dx + cc * dy * dy) + cb * dx * dy
+
+
+def _warp_origins(footprint=WARP_FOOTPRINT):
+    """(x, y) of each warp's first pixel in its tile, [8] each: warp w covers
+    ``footprint`` = (fw, fh) pixels from x = fw·(w mod 16/fw), y = fh·(w div 16/fw)."""
+    fw, fh = footprint
+    w = torch.arange(PX // 32)
+    return fw * (w % (TILE // fw)), fh * (w // (TILE // fw))
+
+
+def warp_row_may_hit(rows: torch.Tensor, tiles: torch.Tensor, tx_n: int,
+                     footprint=WARP_FOOTPRINT) -> torch.Tensor:
+    """The kernels' row test (csrc/blend_common.cuh ``row_may_hit``), in its
+    operation order: can any pixel centre of a warp's block pass the cut
+    sigma ≥ 0, op·e^-sigma ≥ 1/255 for this row? rows [C, G, W ≥ 6] of tiles
+    [C]; returns [C, G, 8] bool, one per warp. False only where no pixel can
+    pass:
+      - op < 1/255: alpha ≤ op everywhere;
+      - otherwise a row whose conic is not positive definite or not finite, or
+        whose opacity is not finite, is kept;
+      - otherwise the minimum s of sigma over the block's rectangle of pixel
+        centres (0 when mu lies inside; else the clamped 1-D minimum on the
+        faces mu lies beyond) must exceed tau = ln(255·op) with margins:
+        kappa = 4·CULL_GAMMA·ac/det bounds the relative rounding of sigma
+        (|b dx dy| ≤ rho·Q, sigma ≥ (1-rho)·Q for Q = (a dx² + c dy²)/2 and
+        rho = |b|/sqrt(ac), and (1+rho)/(1-rho) ≤ 4ac/det); kept if
+        kappa ≥ 1/2 or s·(1 - kappa) ≤ tau + CULL_TAU_MARGIN, compared as
+        s·(det - g) ≤ tau·det with g = 4·CULL_GAMMA·ac.
+    The kernel divides for the 1-D minimum with ``__fdividef`` (≤ 2 ulp), so
+    its s may differ from this one by a few ulp; both are exact."""
+    dev = rows.device
+    fw, fh = footprint
+    ox, oy = (o.to(dev) for o in _warp_origins(footprint))
+    fx0 = ((tiles % tx_n)[:, None] * TILE + ox[None, :]).float()[:, None, :] + 0.5
+    fy0 = ((tiles // tx_n)[:, None] * TILE + oy[None, :]).float()[:, None, :] + 0.5
+    fx1, fy1 = fx0 + (fw - 1), fy0 + (fh - 1)                        # [C, 1, 8]
+    mu_x, mu_y = rows[..., 0:1], rows[..., 1:2]                       # [C, G, 1]
+    ca, cb, cc, op = rows[..., 2:3], rows[..., 3:4], rows[..., 4:5], rows[..., 5:6]
+    ac = ca * cc
+    det = ac - cb * cb
+    keep = ~((ca > 0) & (det > 0) & (ac <= CULL_BIG) & (op <= CULL_BIG))
+    dx0, dx1, dy0, dy1 = mu_x - fx1, mu_x - fx0, mu_y - fy1, mu_y - fy0   # [C, G, 8]
+    inside = (dx0 <= 0) & (dx1 >= 0) & (dy0 <= 0) & (dy1 >= 0)
+    ux = torch.where(dx0 > 0, dx0, dx1)
+    uy = torch.where(dy0 > 0, dy0, dy1)
+    vy = torch.fmin(torch.fmax((-cb * ux) / cc, dy0), dy1)
+    vx = torch.fmin(torch.fmax((-cb * uy) / ca, dx0), dx1)
+    s = torch.fmin(_sigma(ca, cb, cc, ux, vy), _sigma(ca, cb, cc, vx, uy))
+    g = (4.0 * CULL_GAMMA) * ac
+    tau = torch.log(op * 255.0) + CULL_TAU_MARGIN
+    hit = ~(2.0 * g < det) | (s * (det - g) <= tau * det)
+    return ~(op < ALPHA_MIN) & (keep | inside | hit)
+
+
+def _per_warp(valid: torch.Tensor, footprint=WARP_FOOTPRINT) -> torch.Tensor:
+    """[C, G, PX] per pixel → [C, G, 8]: any pixel of each warp's block."""
+    fw, fh = footprint
+    c, g = valid.shape[:2]
+    v = valid.reshape(c, g, TILE // fh, fh, TILE // fw, fw)
+    return v.any(5).any(3).reshape(c, g, PX // 32)
 
 
 def _pair_weights(a, trans):
@@ -174,7 +255,7 @@ def _couple_weights(a, trans):
 
 
 def _plain_forward(offsets, pairs, bg, tx_n: int, ty_n: int, k_max: int, G: int,
-                   weights):
+                   weights, work=None):
     """The forward blend of K1 and K3, chunked over tiles: per G-row block the
     rows a tile reads, their alphas, ``weights`` (``_pair_weights`` or
     ``_couple_weights``), the transmittance carried across blocks, and the
@@ -183,7 +264,10 @@ def _plain_forward(offsets, pairs, bg, tx_n: int, ty_n: int, k_max: int, G: int,
     pairs [rows, W ≥ 8 + CH] holds one pair per row. Returns (img, alpha in
     image layout, rows_read, pixels_hit, tiles_stopped): the rows the blend
     reads, the pair-pixels of those rows that pass the cut, and the tiles that
-    stop before their last row."""
+    stop before their last row. With a dict ``work`` it also adds the
+    warp-rows read, kept by ``warp_row_may_hit`` and hit (some pixel of the
+    warp passes the cut) under "read", "kept" and "hit"; K3's lists test
+    couples, so with ``_couple_weights`` a warp-row is a couple."""
     dev = pairs.device
     ch = bg.shape[0]
     num_tiles = tx_n * ty_n
@@ -214,6 +298,9 @@ def _plain_forward(offsets, pairs, bg, tx_n: int, ty_n: int, k_max: int, G: int,
             win = pairs[start[:, None] + b * G + g[None, :]]             # [C, G, W]
             _, _, _, _, a, valid = _block_alpha(win, px, py, live)
             pixels_hit += valid.sum()
+            if work is not None:
+                _count_warp_rows(work, win, tiles, tx_n, live, valid,
+                                 weights is _couple_weights)
             w, t_block = weights(a, trans)
             acc += torch.bmm(w.transpose(1, 2), win[..., GEOM:GEOM + ch])  # [C, PX, CH]
             trans = trans * t_block
@@ -228,6 +315,29 @@ def _plain_forward(offsets, pairs, bg, tx_n: int, ty_n: int, k_max: int, G: int,
     return (img.reshape(ty_n * TILE, tx_n * TILE, ch),
             alpha.reshape(ty_n * TILE, tx_n * TILE),
             int(rows_read), int(pixels_hit), int(tiles_stopped))
+
+
+def _count_warp_rows(work, win, tiles, tx_n, live, valid, couples: bool):
+    kept = warp_row_may_hit(win, tiles, tx_n) & live[..., None]         # [C, G, 8]
+    hit = _per_warp(valid)
+    if couples:     # a couple is read where its first pair is
+        live, kept, hit = live[:, 0::2], kept[:, 0::2] | kept[:, 1::2], hit[:, 0::2] | hit[:, 1::2]
+    work["read"] += int(live.sum()) * (PX // 32)
+    work["kept"] += int(kept.sum())
+    work["hit"] += int(hit.sum())
+
+
+def blend_tiles_warp_rows(offsets, sorted_payload, bg, tx_n: int, ty_n: int,
+                          k_max: int) -> dict:
+    """K1's row lists on these inputs, by its plain version: the warp-rows the
+    blend reads (a warp-row is one row against one warp's 8×4 pixels, early-out
+    included), those ``warp_row_may_hit`` keeps, and those where some pixel
+    passes the cut. {"read", "kept", "hit"}; hit ≤ kept ≤ read."""
+    _check(offsets, sorted_payload, bg, tx_n, ty_n, k_max)
+    work = {"read": 0, "kept": 0, "hit": 0}
+    _plain_forward(offsets, sorted_payload, bg, tx_n, ty_n, k_max, g_block(k_max),
+                   _pair_weights, work)
+    return work
 
 
 def blend_tiles_plain_with_work(offsets, sorted_payload, bg, tx_n: int, ty_n: int,
@@ -331,6 +441,18 @@ def blend_tiles_packed_plain_with_work(offsets, packed_payload, bg, tx_n: int,
     _check_packed(offsets, packed_payload, bg, tx_n, ty_n, k_max, g_block)
     return _plain_forward(offsets, packed_payload.view(-1, PACKED_HALF), bg, tx_n, ty_n,
                           k_max, g_block, _couple_weights)
+
+
+def blend_tiles_packed_warp_rows(offsets, packed_payload, bg, tx_n: int, ty_n: int,
+                                 k_max: int, g_block: int = 128) -> dict:
+    """K3's row lists on these inputs (as ``blend_tiles_warp_rows``; a
+    warp-row is one couple against one warp's pixels, kept where the test
+    keeps either pair)."""
+    _check_packed(offsets, packed_payload, bg, tx_n, ty_n, k_max, g_block)
+    work = {"read": 0, "kept": 0, "hit": 0}
+    _plain_forward(offsets, packed_payload.view(-1, PACKED_HALF), bg, tx_n, ty_n, k_max,
+                   g_block, _couple_weights, work)
+    return work
 
 
 def blend_tiles_packed_plain(offsets, packed_payload, bg, tx_n: int, ty_n: int,
@@ -529,6 +651,23 @@ def blend_tiles_bwd_occupancy(ch: int) -> tuple[int, int]:
     if err != 0:
         raise RuntimeError(f"blend_bwd occupancy query failed: cudaError {err}")
     return blocks.value, smem.value
+
+
+def blend_forward_occupancy(name: str, ch: int) -> dict:
+    """Occupancy of the forward kernel ``csrc/<name>.cu`` (``blend_fwd``, K1, or
+    ``blend_packed``, K3) at ``ch`` channels on the current card: blocks of
+    256 threads an SM holds at once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
+    static shared memory per block, registers and local (spill) bytes per
+    thread (``cudaFuncGetAttributes``)."""
+    fn = getattr(cuda_build.load_library(name), f"segsplat_{name}_occupancy")
+    fn.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 4
+    fn.restype = ctypes.c_int
+    vals = [ctypes.c_int() for _ in range(4)]
+    err = fn(ch, *(ctypes.byref(v) for v in vals))
+    if err != 0:
+        raise RuntimeError(f"{name} occupancy query failed: cudaError {err}")
+    return dict(zip(("blocks_per_sm", "smem_bytes", "registers", "local_bytes"),
+                    (v.value for v in vals)))
 
 
 class _Blend(torch.autograd.Function):

@@ -3,8 +3,9 @@ interface, loaded with ctypes.
 
 A source ``segsplat_tpu_torch/csrc/<name>.cu`` becomes
 ``build/kernels/<name>-<hash>.so`` at the root of the checkout, keyed by a hash of
-the source and the flags, at first use. Nothing is built at import: only a
-process that launches a kernel needs nvcc.
+the source, every header (``*.cuh``) beside it and the flags, at first use: an
+edit to a shared header rebuilds every source. Nothing is built at import: only
+a process that launches a kernel needs nvcc.
 """
 
 from __future__ import annotations
@@ -37,11 +38,20 @@ def _nvcc() -> str:
     return found
 
 
-def library_path(name: str) -> Path:
+def source_key(src: Path, flags=NVCC_FLAGS) -> str:
+    """Hash of a CUDA source, of every ``*.cuh`` in its directory (what its
+    ``#include "..."`` lines can reach) and of the nvcc flags."""
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
+    h.update(" ".join(flags).encode())
+    return h.hexdigest()[:16]
+
+
+def library_path(name: str, csrc: Path = CSRC) -> Path:
     """Where the library of ``csrc/<name>.cu`` is built, keyed by content."""
-    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{name}-{source_key(csrc / f'{name}.cu')}.so"
 
 
 def build_library(name: str) -> Path:

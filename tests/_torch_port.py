@@ -138,3 +138,99 @@ def owned_rows(offsets: np.ndarray, k_max: int, n_rows: int) -> np.ndarray:
     for s, e in zip(offsets[:-1], offsets[1:]):
         owned[s:s + min(e - s, k_max)] = True
     return owned
+
+
+def rows_around_tile(rng, n, origin=(16.0, 16.0), spread=24.0, log_scale=(-3.0, 3.0),
+                     op_range=(0.0, 1.0)) -> np.ndarray:
+    """n seeded pair rows [n, 8] (mu, conic a b c, opacity, 0, 0) about the
+    16×16 tile whose first pixel is at ``origin``: a positive definite conic of
+    random orientation with pixel std devs e^log_scale, mu within ``spread`` of
+    the tile's centre."""
+    mu = np.asarray(origin, np.float64) + 8.0 + rng.uniform(-spread, spread, (n, 2))
+    s1, s2 = np.exp(rng.uniform(*log_scale, (2, n)))
+    th = rng.uniform(0, np.pi, n)
+    cos, sin = np.cos(th), np.sin(th)
+    # conic = inverse covariance R diag(1/s1², 1/s2²) Rᵀ
+    a = cos ** 2 / s1 ** 2 + sin ** 2 / s2 ** 2
+    c = sin ** 2 / s1 ** 2 + cos ** 2 / s2 ** 2
+    b = cos * sin * (1 / s1 ** 2 - 1 / s2 ** 2)
+    rows = np.zeros((n, 8), np.float32)
+    rows[:, 0:2], rows[:, 2], rows[:, 3], rows[:, 4] = mu, a, b, c
+    rows[:, 5] = rng.uniform(*op_range, n)
+    return rows
+
+
+def edge_rows(origin=(16.0, 16.0)) -> np.ndarray:
+    """Pair rows [n, 8] at the edges of the kernels' row test, about the 16×16
+    tile whose first pixel is at ``origin`` (pixel centres origin + 0.5 ..
+    origin + 15.5; the warps' 8×4 blocks start at x + 0, 8 and y + 0, 4, 8,
+    12): opacity just below, at and just above 1/255 and at the 0.999 clamp;
+    mu inside a block, just outside one, on pixel centres and block edges;
+    conics that are not positive definite or have a ≤ 0; splats wider than the
+    tile; mu far outside it; a conic with rho next to 1."""
+    a_min = np.float32(1.0) / np.float32(255.0)
+    below, above = np.nextafter(a_min, np.float32(0)), np.nextafter(a_min, np.float32(1))
+    ox, oy = origin
+    rows = []
+
+    def row(mx, my, a, b, c, op):       # mx, my relative to the tile at (16, 16)
+        rows.append([ox - 16.0 + mx, oy - 16.0 + my, a, b, c, op, 0, 0])
+
+    for op in (below, a_min, above, 0.999, 0.9995, 1.0, 0.5):
+        row(20.0, 20.0, 0.5, 0.0, 0.5, op)           # mu inside a block
+        row(23.9, 19.5, 0.5, 0.1, 0.5, op)           # just outside a block
+        row(24.5, 20.5, 2.0, 0.0, 2.0, op)           # mu on a pixel centre at a block corner
+    for mx in (16.5, 23.5, 24.5, 31.5, 16.0, 24.0, 32.0):   # mu on footprint edges
+        for my in (16.5, 19.5, 20.5, 31.5, 20.0):
+            row(mx, my, 1.5, 0.3, 0.8, 0.7)
+            row(mx, my, 40.0, 0.0, 40.0, 0.05)       # tight: one pixel or none
+    for b in (-0.9, 0.9, 2.0, -5.0):                 # not positive definite
+        row(10.0, 40.0, 0.5, b, 0.5, 0.8)
+    for a in (0.0, -0.3, -1e-9):                     # a <= 0
+        row(24.0, 24.0, a, 0.0, 0.5, 0.8)
+        row(60.0, -10.0, a, 0.0, -0.5, 0.8)
+    for sd in (40.0, 200.0, 5000.0):                 # wider than the tile
+        c = 1.0 / sd ** 2
+        row(-3 * sd, 24.0, c, 0.0, c, 0.9)
+        row(24.0, 24.0 + 2.5 * sd, c, 0.3 * c, c, 0.6)
+    for far in (1e3, 1e5, -1e6):                     # far outside
+        row(far, 24.0, 0.3, 0.0, 0.3, 0.99)
+        row(24.0, far, 1e-9, 0.0, 1e-9, 0.99)
+    row(40.0, 40.0, 1e-3, 1e-3 * 0.99999, 1e-3, 0.9)  # rho next to 1
+    return np.asarray(rows, np.float32)
+
+
+# edge tiles for the forward kernels: a 3×2-tile frame with K = 384 (G = 128)
+# whose tiles hold these many pairs: empty, one row, past the cap (the early-out
+# may stop it), partial last chunks of 77 and 190 rows, one just past a block
+EDGE_COUNTS = (0, 1, 500, 77, 190, 129)
+EDGE_K = 384
+
+
+def edge_case_args(device, ch: int = 19):
+    """The blend's arguments ``(offsets, sorted_payload, bg, tx_n, ty_n, K)`` for
+    EDGE_COUNTS: each tile's run is one seeded row that hits it, then
+    ``edge_rows`` about it, then seeded rows about it of every size and
+    opacity, cut to its count; K zero rows past the end."""
+    import torch
+
+    from segsplat_tpu_torch.ops.blend import make_payload
+
+    tx_n, ty_n = 3, 2
+    rng = np.random.default_rng(13)
+    runs = []
+    for t, n in enumerate(EDGE_COUNTS):
+        origin = (16.0 * (t % tx_n), 16.0 * (t // tx_n))
+        first = rows_around_tile(rng, 1, origin, spread=4.0, log_scale=(1.0, 2.0),
+                                 op_range=(0.3, 0.9))
+        rest = rows_around_tile(rng, max(n, 1), origin, log_scale=(-2.0, 4.0),
+                                op_range=(0.0, 1.0))
+        runs.append(np.concatenate([first, edge_rows(origin), rest])[:n])
+    rows = np.concatenate(runs)
+    f32 = lambda x: torch.as_tensor(np.ascontiguousarray(x, np.float32), device=device)
+    payload = make_payload(f32(rows[:, 0:2]), f32(rows[:, 2:5]), f32(rows[:, 5]),
+                           f32(rng.standard_normal((len(rows), ch)) * 2.0))
+    payload = torch.nn.functional.pad(payload, (0, 0, 0, EDGE_K))
+    offsets = torch.as_tensor(np.concatenate([[0], np.cumsum(EDGE_COUNTS)]).astype(np.int32),
+                              device=device)
+    return offsets, payload, f32(rng.random(ch)), tx_n, ty_n, EDGE_K

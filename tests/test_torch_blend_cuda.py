@@ -1,7 +1,8 @@
 """Kernels K1 (segsplat_tpu_torch/csrc/blend_fwd.cu), K2 (csrc/blend_bwd.cu) and
 K3 (csrc/blend_packed.cu) against their plain versions on the card, at the
 training raster's 19 channels, the semantic path's 32 and the one-pass
-render's 51; and K3 against K1 on the same scene. Imports no JAX, so it runs
+render's 51; K3 against K1 on the same scene; K1 and K3 on edge tiles (count 0,
+one row, count > K, partial last chunks, the row test's edge rows). Imports no JAX, so it runs
 where the card is:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_blend_cuda.py
@@ -18,7 +19,7 @@ from segsplat_tpu_torch.ops import blend as B
 # installed package named `tests` that hides this directory's
 from _torch_port import (BLEND_CASES, DEGENERATE_K, PACKED_CASES, PACKED_G,
                          assert_case_exercised, blend_case_args, degenerate_case_args,
-                         owned_rows)
+                         edge_case_args, owned_rows)
 
 
 def _need_card():
@@ -116,3 +117,32 @@ def test_packed_kernel_matches_plain_version_and_k1_on_card(case, ch):
     atol = 1e-4 + 2 * B.SAT_EPS * max(float(colours.abs().max()), float(dense[2].abs().max()))
     for g, r in zip(got, k1):
         torch.testing.assert_close(g, r, rtol=1e-4, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ch", B.KERNEL_CHANNELS)
+@pytest.mark.parametrize("kernel", ["k1", "k3"])
+def test_forward_kernels_on_edge_tiles_on_card(kernel, ch):
+    """K1 or K3 against its plain version at 1e-4 on the edge tiles
+    (tests/_torch_port.py edge_case_args) and on the degenerate ones: tiles
+    with count 0, one row, count > K, partial last chunks, and rows at the
+    edges of the row test (opacity at 1/255 and at the clamp, non-PD conics,
+    mu on block edges, splats wider than the tile, mu far outside)."""
+    _need_card()
+    for args in (edge_case_args("cuda", ch=ch), degenerate_case_args("cuda", ch=ch)):
+        if kernel == "k3":
+            offsets, payload, bg, tx_n, ty_n, K = args
+            args = (offsets, B.pack_payload(payload[:-K], K), bg, tx_n, ty_n, K)
+            fn, plain, counter = (B.blend_tiles_packed, B.blend_tiles_packed_plain,
+                                  B.blend_tiles_packed_warp_rows)
+        else:
+            fn, plain, counter = B.blend_tiles, B.blend_tiles_plain, B.blend_tiles_warp_rows
+        before = fn.launches
+        got = fn(*args)
+        ref = plain(*args)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        for g, r in zip(got, ref):
+            torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4)
+        work = counter(*args)
+        assert 0 < work["hit"] <= work["kept"] <= work["read"]

@@ -1,5 +1,5 @@
 """The port imports neither JAX nor anything of the JAX package: an AST scan of
-its sources, chip_smoke.py and K2's bench scripts, and an import of every port module in a
+its sources, chip_smoke.py and the kernels' bench scripts, and an import of every port module in a
 process where JAX and segsplat_tpu cannot be imported."""
 
 import ast
@@ -23,7 +23,8 @@ def _top_level_imports(path: Path):
 
 def test_port_sources_import_no_jax():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + [
-        ROOT / "scripts" / f for f in ("bench_k2.py", "k2_variants.py")]
+        ROOT / "scripts" / f
+        for f in ("bench_k1.py", "bench_k2.py", "k1_variants.py", "k2_variants.py")]
     assert len(files) > 10
     # exact top-level names: segsplat_tpu_torch itself shares the prefix
     bad = [f"{f.relative_to(ROOT)}:{line} imports {name}"
