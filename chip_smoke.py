@@ -13,7 +13,10 @@ Phases, each fatal on failure:
      truncation. K1 (forward) at 1e-4; K2 (backward) at rtol 5e-3, atol
      2e-4·max|ref|, with the rows no tile owns exactly 0, also on empty tiles
      and a tile past its K cap; a wide, faint K = 256 scene whose tile counts
-     leave K2 a partial last chunk; K3 (packed forward) on the same cases and
+     leave K2 a partial last chunk; K = 200, no multiple of 128 (the cap inside
+     a partial 128-row block), against the plain versions, and rasterize on K1
+     and K2 against the dense blend at that K, forward and gradients (19 and 32
+     channels); K3 (packed forward) on the same cases and
      an opaque K = 256 one at 1e-4, and against K1; K1 and K3 at 1e-4 on the
      degenerate tiles and on edge tiles (count 0, one row, count > K, partial
      last chunks, rows at the edges of the row test). On every input the row
@@ -42,7 +45,9 @@ Phases, each fatal on failure:
      scene written here (3 views at 876×584, a 200 000-point cloud, capacity
      262 144), with a densify step and an opacity reset, then eval and save; K1
      and K2 must launch at least once per iteration, the losses must be finite
-     and the saved PLY must reload through the port's load_gaussian_table.
+     and the saved PLY must reload through the port's load_gaussian_table; then
+     3 iterations at --max_per_tile 200, no multiple of 128, which must launch
+     K1 and K2 each iteration.
   7. the one-pass 51-channel render and the rasterizer's other blend paths:
      (a) ``render(..., semantic_logits=...)`` of phase 5's table (876×584, m=3,
      K=256, seeded [262 144, 32] logits): forward with K1 at 51 channels and the
@@ -56,6 +61,25 @@ Phases, each fatal on failure:
      |bg|), timed with its bound and with the whole packed rasterize;
      (c) the dense backend (the JAX package's "xla") on the headline scene,
      forward, against K1 at 1e-4, timed.
+  8. feature lifting, which launches none of the kernels: (a) the DDA and the
+     splat lift on the small scenes of tests/test_torch_lift*.py, the DDA
+     against the reference kernel's numpy transcription (≥ 99.5 % of pixels),
+     the splat against the DDA (≥ 97 %), the card against the CPU (≥ 99.9 %),
+     lift_view_splat's sums against hits + scatter_features at rtol 1e-5;
+     (b) bench.py's officescene-scale scene in process (876×584 rays, 512
+     channels upsampled ×2 from fp16 maps, 109 000 voxels at 0.04 m): 216 views
+     (8 cycled) through the splat lift (m=8, K=128) and 16 through the DDA,
+     views/s, peak memory, the overflow; the splat at tile_chunk 64, 512 and
+     all tiles of a view in one chunk (views/s, peak memory, kernels a view,
+     device idle share; counts equal to the default's); per-view medians of
+     whole calls (CUDA events), and each stage's device and host time from the
+     lift's record_function ranges (torch.profiler, 8 views); one traced view
+     of each (kernels launched, device idle share, the costliest kernels),
+     splat against DDA at full width (≥ 97 %), and two sweeps of the 8 views
+     with the same bits; (c) the lift CLI twin
+     segsplat_tpu_torch/aggregate_voxel_features_onthefly.py on those 8 views
+     written to disk (its counts must equal (b)'s, its .pt must reload), and
+     the grid CLI twin on phase 6's point_cloud.ply at 0.04 m.
 Prints a ``{"kernels": [...]}`` line (each kernel's blocks per SM, shared
 memory and registers from the occupancy API; K1's and K3's share of warp-rows
 their row lists keep beside the share with a passing lane), then as the last line
@@ -145,6 +169,13 @@ def compare(name: str, got, ref, atol: float = ATOL) -> float:
     return worst
 
 
+def _tests_on_path():
+    """Put tests/ on sys.path for its shared scenes (_torch_port, oracles)."""
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+
+
 # ───────────────────────────── scenes (numpy, seeded) ─────────────────────────
 
 def headline_scene(N: int = 200_000):
@@ -218,7 +249,7 @@ def phase_small(results):
     from segsplat_tpu_torch.ops import blend as B
 
     # the case table and scenes of tests/test_torch_blend_cuda.py
-    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    _tests_on_path()
     from _torch_port import (BLEND_CASES, DEGENERATE_K, PACKED_CASES, PACKED_G,
                              assert_case_exercised, blend_case_args, degenerate_case_args,
                              edge_case_args, owned_rows)
@@ -294,6 +325,9 @@ def phase_small(results):
                 f"K1 {lists['warp_rows_kept']}/{lists['warp_rows_hit']}, K3 "
                 f"{plists['warp_rows_kept']}/{plists['warp_rows_hit']}")
 
+        if ch in (19, 32):
+            odd_k_against_dense(results, ch)
+
         for name in sorted(PACKED_CASES):
             args = blend_case_args(name, "cuda", ch=ch, packed=True)
             got = B.blend_tiles_packed(*args)
@@ -308,6 +342,32 @@ def phase_small(results):
             results["packed_err"] = max(results["packed_err"], err)
             log(f"[small] {name} CH={ch} K3: rows_read={rows} pixels_hit={hits} "
                 f"tiles_stopped={stopped} max_abs_err={err:.3g}; vs K1 {k1_err:.3g}")
+
+
+def odd_k_against_dense(results, ch: int):
+    """rasterize at K = 200, no multiple of 128, on K1 and K2 against the dense
+    blend: forward at 1e-4, gradients at compare_grad's tolerance."""
+    import torch
+
+    from segsplat_tpu_torch.ops import blend as B
+    from _torch_port import K_ODD, odd_k_raster
+
+    before = (B.blend_tiles.launches, B.blend_tiles_bwd.launches)
+    img, alpha, over, grads = odd_k_raster("cuda", "cuda", ch)
+    torch.cuda.synchronize()
+    if (B.blend_tiles.launches - before[0], B.blend_tiles_bwd.launches - before[1]) != (1, 1):
+        raise AssertionError(f"K={K_ODD}: rasterize did not launch K1 and K2 once each")
+    d_img, d_alpha, d_over, d_grads = odd_k_raster("cuda", "dense", ch)
+    if int(over) != int(d_over) or int(over) == 0:
+        raise AssertionError(f"K={K_ODD}: tile overflow {int(over)} on the kernels, "
+                             f"{int(d_over)} on the dense blend")
+    err = compare(f"K={K_ODD} CH={ch} K1 vs dense", (img, alpha), (d_img, d_alpha))
+    gerr = max(compare_grad(f"K={K_ODD} CH={ch} K2 vs dense d_{k}", grads[k], d_grads[k])
+               for k in d_grads)
+    results.setdefault("odd_k", {})[ch] = dict(k=K_ODD, fwd_max_abs_err=err,
+                                               grad_max_abs_err=gerr, tile_overflow=int(over))
+    log(f"[small] K={K_ODD} CH={ch} rasterize on K1 + K2 vs the dense blend: forward "
+        f"max_abs_err={err:.3g}, gradients {gerr:.3g}, {int(over)} pairs past the cap")
 
 
 def warp_row_shares(name: str, work: dict) -> dict:
@@ -928,13 +988,31 @@ def phase_train_cli(results, root: str):
     ckpt = os.path.join(model, "chkpnts", f"chkpnt{TRAIN_ITERS}.pt")
     if not os.path.exists(ckpt):
         raise AssertionError(f"no checkpoint {ckpt}")
+
+    # a per-tile K that is no multiple of 128 trains on the kernels too
+    k_odd, k_iters = 200, 3
+    blend_tiles.launches = blend_tiles_bwd.launches = 0
+    try:
+        odd_state = cli.main(["-s", src, "-m", os.path.join(root, "train_model_k200"),
+                              "--iterations", str(k_iters), "--capacity", str(TRAIN_CAP),
+                              "--max_per_tile", str(k_odd), "--device", DEV])
+        torch.cuda.synchronize()
+    finally:
+        sys.stdout = stdout
+    odd = {"blend_fwd": blend_tiles.launches, "blend_bwd": blend_tiles_bwd.launches}
+    if min(odd.values()) < k_iters or odd_state.step != k_iters or not bool(
+            torch.isfinite(odd_state.table.xyz).all()):
+        raise AssertionError(f"K={k_odd}: {k_iters} iterations launched {odd}, ended at "
+                             f"step {odd_state.step}")
     results["train_cli"] = dict(
         seconds=cli_s, launches=launches, last=steps[-1], eval=evals[-1],
-        num_gaussians=int(active.sum()))
+        num_gaussians=int(active.sum()), ply=ply,
+        odd_k=dict(max_per_tile=k_odd, iterations=k_iters, launches=odd))
     log(f"[train-cli] {TRAIN_ITERS} iterations at {TRAIN_W}x{TRAIN_H} through "
         f"segsplat_tpu_torch.train in {cli_s:.1f} s: launches {launches}; last "
         f"{json.dumps(steps[-1])}; eval {json.dumps(evals[-1])}; PLY reloads with "
-        f"{int(active.sum())} active rows")
+        f"{int(active.sum())} active rows; at --max_per_tile {k_odd}, {k_iters} iterations "
+        f"launched {odd}")
 
 
 # ──────────────── phase 7: the 51-channel render, K3, the dense blend ────────────────
@@ -1110,6 +1188,421 @@ def phase_other_blends(results):
         torch.cuda.empty_cache()
 
 
+# ─────────────────────────── phase 8: feature lifting ───────────────────────────
+
+LIFT_SPLAT_VIEWS = 216      # the reference's view count (LiftConfig.max_views)
+LIFT_DDA_VIEWS = 16
+LIFT_CLI_VIEWS = 8
+LIFT_HIT_AGREE = 0.97       # splat against DDA, share of pixels
+LIFT_CARD_AGREE = 0.999     # card against CPU, share of pixels
+LIFT_ORACLE_AGREE = 0.995   # DDA against the kernel's numpy transcription
+# the record_function ranges of ops/lift.py, ops/lift_splat.py and
+# pipeline/lift_features.resize_features
+LIFT_STAGES = ("lift.resize", "lift.projection", "lift.binning", "lift.tile_test",
+               "lift.first_hit", "lift.accumulation")
+
+
+def phase_lift_small(results):
+    """(a) the DDA and the splat on the small scenes of tests/test_torch_lift*.py."""
+    import numpy as np
+    import torch
+
+    _tests_on_path()
+    from _torch_port import LIFT_ORIGIN, LIFT_VS, lift_camera, lift_occupancy, occupied_voxels
+    from oracles import make_test_scene, oracle_first_hit
+
+    from segsplat_tpu_torch.ops import lift as PL
+    from segsplat_tpu_torch.ops import lift_splat as PS
+
+    def on(dev, *xs):
+        return [torch.as_tensor(np.array(x), device=dev) for x in xs]
+
+    def share(a, b):
+        return float((a.cpu() == b.cpu()).float().mean())
+
+    occ, c2w, intr, origin, vs, w, h = make_test_scene(np.random.default_rng(3))
+    steps = PL.default_max_steps(w, h, intr[0], intr[1], 0.01, 3.0, vs * 0.5)
+    dda = {dev: PL.first_hit_voxels(*on(dev, occ, c2w, intr, origin, np.float32(vs)), 0.01,
+                                    3.0, *on(dev, np.float32(vs * 0.5)), w, h, steps)
+           for dev in ("cuda", "cpu")}
+    oracle = oracle_first_hit(occ, c2w, intr, origin, vs, 0.01, 3.0, vs * 0.5, w, h)
+    agree = {"dda_vs_oracle": share(dda["cuda"], torch.as_tensor(oracle)),
+             "dda_card_vs_cpu": share(dda["cuda"], dda["cpu"])}
+
+    W, H, C = 64, 48, 32
+    grid = lift_occupancy(np.random.default_rng(0))
+    centers, ids = occupied_voxels(grid, LIFT_VS, LIFT_ORIGIN)
+    num_ids = int(ids.max()) + 1
+    k = np.array([70.0, 70.0, W / 2, H / 2], np.float32)
+    kw = dict(max_tiles_per_axis=6, max_per_tile=128, tile_chunk=8)
+    steps = PL.default_max_steps(W, H, 70.0, 70.0, 0.05, 8.0, LIFT_VS * 0.5)
+    worst_sums = 0.0
+    for view in range(3):
+        feats = np.random.default_rng(view).random((H, W, C)).astype(np.float32)
+        hits = {}
+        for dev in ("cuda", "cpu"):
+            c, i, cw, kk, v, inc, o, org, f = on(dev, centers, ids, lift_camera(view, 3), k,
+                                                 np.float32(LIFT_VS),
+                                                 np.float32(LIFT_VS * 0.5), grid,
+                                                 LIFT_ORIGIN, feats)
+            hits[dev] = (PL.first_hit_voxels(o, cw, kk, org, v, 0.05, 8.0, inc, W, H, steps),
+                         PS.first_hit_voxels_splat(c, i, cw, kk, v, 0.05, 8.0, inc, W, H,
+                                                   **kw))
+            if dev == "cuda":
+                s, cnt, _ = PS.lift_view_splat(c, i, cw, kk, v, 0.05, 8.0, inc, f, num_ids,
+                                               W, H, **kw)
+                ref_s, ref_c = PL.scatter_features(f, hits[dev][1], num_ids)
+                if not torch.equal(cnt, ref_c):
+                    raise AssertionError(f"lift view {view}: fused counts differ from "
+                                         f"hits + scatter_features")
+                torch.testing.assert_close(s, ref_s, rtol=1e-5, atol=1e-5)
+                worst_sums = max(worst_sums, float((s - ref_s).abs().max()))
+        agree[f"splat_vs_dda_view{view}"] = share(hits["cuda"][1], hits["cuda"][0])
+        agree[f"dda_card_vs_cpu_view{view}"] = share(hits["cuda"][0], hits["cpu"][0])
+        agree[f"splat_card_vs_cpu_view{view}"] = share(hits["cuda"][1], hits["cpu"][1])
+    torch.cuda.synchronize()
+    for key, val in agree.items():
+        need = (LIFT_ORACLE_AGREE if "oracle" in key else
+                LIFT_CARD_AGREE if "card" in key else LIFT_HIT_AGREE)
+        if val < need:
+            raise AssertionError(f"lift small scenes: {key} agrees on {val:.4f} < {need}")
+    results["lift_small"] = dict(agree=agree, fused_sums_max_abs_diff=worst_sums)
+    log(f"[lift-small] pixel agreement {json.dumps({k: round(v, 5) for k, v in agree.items()})}; "
+        f"lift_view_splat against hits + scatter_features: counts equal, sums max abs "
+        f"diff {worst_sums:.3g}")
+
+
+def profiled(fn, n_views: int):
+    """The profiler's events of ``fn(v)`` for n views, and the device kernels
+    among them (the device-side copies of record_function ranges left out)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for v in range(n_views):
+            fn(v)
+        torch.cuda.synchronize()
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and not e.name.startswith("lift.")]
+    return events, kernels
+
+
+def stage_profile(fn, n_views: int) -> dict:
+    """``fn(v)`` for n views under torch.profiler: for each lift stage (the
+    record_function ranges LIFT_STAGES), the device time of the kernels
+    launched inside its ranges and the host time spent in them, ms per view,
+    and the ranges per view; "rest" is the kernel time outside every range.
+    The profiler's own cost inflates the host times, not the device times."""
+    from torch.autograd import DeviceType
+
+    events, kernels = profiled(fn, n_views)
+    total_us = sum(e.time_range.end - e.time_range.start for e in kernels)
+    if not kernels:
+        return {"device_time": "not measured"}
+    out = {}
+    for e in events:
+        if e.device_type == DeviceType.CPU and e.name in LIFT_STAGES:
+            d = out.setdefault(e.name[5:], dict(device_ms=0.0, host_ms=0.0, ranges=0))
+            d["device_ms"] += (e.device_time_total if hasattr(e, "device_time_total")
+                               else e.cuda_time_total) / 1e3 / n_views
+            d["host_ms"] += e.cpu_time_total / 1e3 / n_views
+            d["ranges"] += 1 / n_views
+    attributed = sum(d["device_ms"] for d in out.values())
+    if attributed == 0.0:       # kernels ran, but none was tied to a range
+        return {"device_time": "not measured", "kernel_ms_per_view": total_us / 1e3 / n_views}
+    out["rest"] = dict(device_ms=total_us / 1e3 / n_views - attributed)
+    return out
+
+
+def device_trace(fn, n_views: int) -> dict:
+    """``fn(v)`` for n views under torch.profiler: kernels launched and their
+    device time per view, the device's idle share between the first kernel's
+    start and the last one's end, and the five kernels that take most time.
+    The profiler's own host cost widens the gaps, so the idle share is an
+    upper bound. Device times are "not measured" if the trace holds none."""
+    _, kernels = profiled(fn, n_views)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    if not spans:
+        return {"device_time": "not measured"}
+    busy, (cur_s, cur_e) = 0.0, spans[0]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy, cur_s = busy + (cur_e - cur_s), s
+        cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    window = spans[-1][1] - spans[0][0]
+    by_name = {}                # [count, µs] per kernel name, cut to 90 characters
+    for e in kernels:
+        entry = by_name.setdefault(e.name[:90], [0, 0.0])
+        entry[0] += 1
+        entry[1] += e.time_range.end - e.time_range.start
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:5]
+    return dict(kernels_per_view=len(spans) / n_views, busy_ms_per_view=busy / 1e3 / n_views,
+                window_ms_per_view=window / 1e3 / n_views, idle_share=1.0 - busy / window,
+                top_per_view={k: {"launches": n / n_views, "ms": t / 1e3 / n_views}
+                              for k, (n, t) in top})
+
+
+def write_lift_workdir(root: str, sc: dict) -> dict:
+    """(c)'s inputs: the scene's grid as a voxel PLY with its header comments, a
+    camera JSON in the {"images", "cameras"} layout at twice the ray grid and
+    twice the intrinsics (1752×1168, fx 700: the 0.5 downsample gives the
+    876×584 rays and fx 350), and the fp16 feature maps as
+    view_NNN.npy; the maps are also returned, in view order."""
+    import numpy as np
+
+    from segsplat_tpu_torch.io.ply import write_voxel_grid_ply
+
+    os.makedirs(os.path.join(root, "lseg"))
+    ply = os.path.join(root, "grid.ply")
+    write_voxel_grid_ply(ply, sc["centers"], np.full((len(sc["centers"]), 3), 127, np.uint8),
+                         sc["vs"], sc["origin"], grid_shape=sc["grid_shape"])
+    images, maps = {}, []
+    for i, fmap in enumerate(sc["feats"]()):
+        np.save(os.path.join(root, "lseg", f"view_{i:03d}.npy"), fmap)
+        maps.append(fmap)
+        images[str(i)] = {"name": f"view_{i:03d}.png", "camera_id": "0",
+                          "R": sc["c2ws"][i, :3, :3].T.tolist(), "tvec": [0.0, 0.0, 0.0]}
+    cams = os.path.join(root, "cameras.json")
+    with open(cams, "w") as f:
+        json.dump({"images": images, "cameras": {"0": {
+            "params": [float(2 * x) for x in sc["intr"][0]], "width": 2 * sc["W"],
+            "height": 2 * sc["H"]}}}, f)
+    return dict(ply=ply, lseg=os.path.join(root, "lseg"), cams=cams, maps=maps)
+
+
+def phase_lift(results, root: str):
+    """Phase 8: (a) the small scenes, (b) full width in process, (c) through the
+    two entry points."""
+    import itertools
+
+    import numpy as np
+    import torch
+
+    _tests_on_path()
+    from _torch_port import officescene_lift_scene
+
+    from segsplat_tpu_torch import aggregate_voxel_features_onthefly as lift_cli
+    from segsplat_tpu_torch import minkowski_voxel_grid_from_ply_advanced as grid_cli
+    from segsplat_tpu_torch.io.artifacts import load_voxel_features
+    from segsplat_tpu_torch.io.ply import read_voxel_grid_ply
+    from segsplat_tpu_torch.ops import lift as PL
+    from segsplat_tpu_torch.ops import lift_splat as PS
+    from segsplat_tpu_torch.pipeline.lift_features import (LiftConfig, lift_grid,
+                                                           resize_features)
+
+    phase_lift_small(results)
+    t0 = time.perf_counter()
+    sc = officescene_lift_scene(n_views=LIFT_CLI_VIEWS)
+    work = write_lift_workdir(os.path.join(root, "lift"), sc)
+    log(f"[lift] scene and work dir written in {time.perf_counter() - t0:.1f} s")
+
+    dev = "cuda"
+    cfg = LiftConfig()
+    W, H, C = sc["W"], sc["H"], sc["C"]
+    centers, _, vs, origin, shape = read_voxel_grid_ply(work["ply"])
+    _, occ, occ_origin, snap, ids = lift_grid(centers, vs, origin, shape, dev)
+    num_ids = len(centers) + 1
+    f32 = dict(dtype=torch.float32, device=dev)
+    feats = [torch.as_tensor(m, device=dev) for m in work["maps"]]
+    c2ws = [torch.as_tensor(c, **f32) for c in sc["c2ws"]]
+    intr = [torch.as_tensor(k, **f32) for k in sc["intr"]]
+    vs_t = torch.tensor(vs, **f32)
+    inc = vs * cfg.ray_increment_factor
+    inc_t, org_t = torch.tensor(inc, **f32), torch.as_tensor(occ_origin, **f32)
+    dmin, dmax = cfg.depth_min, cfg.depth_max
+    fx, fy, cx, cy = (float(x) for x in sc["intr"][0])
+    steps = PL.default_max_steps(W, H, fx, fy, dmin, dmax, inc, cx=cx, cy=cy)
+    skw = dict(max_tiles_per_axis=cfg.splat_max_tiles_per_axis,
+               max_per_tile=cfg.splat_max_per_tile, tile_chunk=PS.TILE_CHUNK)
+    n = len(feats)
+    num_tiles = -(-W // 16) * -(-H // 16)
+
+    def splat_view(v, tile_chunk=PS.TILE_CHUNK):
+        fmap = resize_features(feats[v % n], H, W).permute(1, 2, 0)
+        return PS.lift_view_splat(snap, ids, c2ws[v % n], intr[v % n], vs_t, dmin, dmax,
+                                  inc_t, fmap, num_ids, W, H, **dict(skw, tile_chunk=tile_chunk))
+
+    def dda_view(v):
+        fmap = resize_features(feats[v % n], H, W).permute(1, 2, 0)
+        hits = PL.first_hit_voxels(occ, c2ws[v % n], intr[v % n], org_t, vs_t, dmin, dmax,
+                                   inc_t, W, H, steps)
+        return PL.scatter_features(fmap, hits, num_ids)
+
+    def sweep(view_fn, n_views):
+        sums = torch.zeros((num_ids, C), **f32)
+        counts = torch.zeros((num_ids,), dtype=torch.int32, device=dev)
+        of_max = torch.zeros((), dtype=torch.int64, device=dev)
+        of_sum = torch.zeros((), dtype=torch.int64, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        for v in range(n_views):
+            out = view_fn(v)
+            sums += out[0]
+            counts += out[1]
+            if len(out) == 3:
+                of_max, of_sum = torch.maximum(of_max, out[2]), of_sum + out[2]
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t
+        return dict(sums=sums, counts=counts, seconds=s, views_per_sec=n_views / s,
+                    peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                    overflow_max=int(of_max), overflow_sum=int(of_sum))
+
+    def cycle(fn):
+        """fn(view) as a call without arguments that visits the views in turn."""
+        it = itertools.count()
+        return lambda: fn(next(it) % n)
+
+    splat_view(0)                                  # first calls: allocator, cuBLAS
+    dda_view(0)
+    out = {}
+    for method, view_fn, n_views in (("splat", splat_view, LIFT_SPLAT_VIEWS),
+                                     ("dda", dda_view, LIFT_DDA_VIEWS)):
+        r = sweep(view_fn, n_views)
+        out[method] = {k: r[k] for k in ("seconds", "views_per_sec", "peak_gib",
+                                          "overflow_max", "overflow_sum")}
+        out[method]["views"] = n_views
+
+    # the splat's tile chunk: 64 (the JAX default, sized for TPU memory), 512,
+    # and every tile of the view in one chunk; 3 passes over the 8 views each,
+    # counts equal to the default's, sums beside them
+    ref = sweep(splat_view, n)
+    chunk_sweep = {}
+    for tc in sorted({min(c, num_tiles) for c in (64, 512, num_tiles,
+                                                  PS.TILE_CHUNK)}):
+        fn = lambda v, tc=tc: splat_view(v, tc)
+        r = sweep(fn, 3 * n)
+        once = sweep(fn, n)
+        if not torch.equal(once["counts"], ref["counts"]):
+            raise AssertionError(f"tile_chunk {tc}: counts differ from tile_chunk "
+                                 f"{PS.TILE_CHUNK}'s")
+        tr = device_trace(fn, 1)
+        chunk_sweep[tc] = dict(views_per_sec=r["views_per_sec"], peak_gib=r["peak_gib"],
+                               sums_max_abs_diff=float((once["sums"] - ref["sums"]).abs().max()),
+                               **{k: tr[k] for k in ("kernels_per_view", "busy_ms_per_view",
+                                                     "window_ms_per_view", "idle_share")
+                                  if k in tr})
+    out["tile_chunk_sweep"] = chunk_sweep
+    del ref
+
+    # per-view medians of whole calls, CUDA events around each call, over the 8
+    # views in turn; on a host-bound path they hold the host's issue time too
+    half = vs_t * 0.5
+    w2cs = []
+    for c2w in c2ws:
+        w2c = torch.eye(4, **f32)
+        w2c[:3, :3] = c2w[:3, :3].T
+        w2c[:3, 3] = -(c2w[:3, :3].T @ c2w[:3, 3])
+        w2cs.append(w2c)
+    cand = lambda v: PS._splat_candidates(snap, ids, c2ws[v], intr[v], vs_t, dmax, W, H,
+                                          skw["max_tiles_per_axis"], skw["max_per_tile"],
+                                          None)
+    first_splat = lambda v: PS.first_hit_voxels_splat(snap, ids, c2ws[v], intr[v], vs_t, dmin,
+                                                      dmax, inc_t, W, H, dual_bin=True, **skw)
+    first_dda = lambda v: PL.first_hit_voxels(occ, c2ws[v], intr[v], org_t, vs_t, dmin, dmax,
+                                              inc_t, W, H, steps)
+    fmap0 = resize_features(feats[0], H, W).permute(1, 2, 0)
+    hits0 = first_dda(0)
+    reps = 2 * n
+    ms = dict(
+        resize=cuda_time_ms(cycle(lambda v: resize_features(feats[v], H, W)), reps),
+        projection=cuda_time_ms(cycle(lambda v: PS._project_voxels(
+            snap, half, w2cs[v], intr[v], W, H, dmax)), reps),
+        candidates=cuda_time_ms(cycle(cand), reps),
+        splat_first_hit=cuda_time_ms(cycle(first_splat), reps),
+        splat_lift=cuda_time_ms(cycle(lambda v: PS.lift_view_splat(
+            snap, ids, c2ws[v], intr[v], vs_t, dmin, dmax, inc_t, fmap0, num_ids, W, H,
+            **skw)), reps),
+        dda_first_hit=cuda_time_ms(cycle(first_dda), n),
+        dda_accumulation=cuda_time_ms(lambda: PL.scatter_features(fmap0, hits0, num_ids),
+                                      reps))
+    out["call_ms"] = ms
+
+    # each stage's device time (kernels inside its record_function ranges) and
+    # host time, per view over the 8 views; and one traced view of each lift
+    out["stage_profile"] = {m: stage_profile(fn, n) for m, fn in (("splat", splat_view),
+                                                                   ("dda", dda_view))}
+    out["trace"] = {m: device_trace(fn, 1) for m, fn in (("splat", splat_view),
+                                                          ("dda", dda_view))}
+
+    # splat against DDA at full width, on two views
+    agree = []
+    for v in (0, n - 1):
+        agree.append(float((first_splat(v) == first_dda(v)).float().mean()))
+    if min(agree) < LIFT_HIT_AGREE:
+        raise AssertionError(f"full-width splat and DDA hit images agree on {agree}")
+    out["splat_vs_dda_agree"] = agree
+
+    # the same bits from two sweeps of the 8 views
+    a, b = sweep(splat_view, n), sweep(splat_view, n)
+    if not (torch.equal(a["sums"], b["sums"]) and torch.equal(a["counts"], b["counts"])):
+        raise AssertionError("two splat sweeps of the same 8 views gave other bits")
+    out["bit_identical_rerun"] = True
+    nonzero = int((a["counts"][1:] > 0).sum())
+
+    # (c) the lift CLI on the work dir: the same counts as the sweep above
+    out_dir = os.path.join(root, "lift", "out")
+    t = time.perf_counter()
+    cli = lift_cli.main(["--voxel_ply", work["ply"], "--lseg_dir", work["lseg"],
+                         "--camera_params", work["cams"], "--out_dir", out_dir,
+                         "--device", dev])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t
+    if not torch.equal(cli["counts"], a["counts"]):
+        raise AssertionError("the lift CLI's counts differ from the in-process sweep's")
+    art = load_voxel_features(cli["artifact"])
+    if art["pos"].shape[0] != nonzero or art["feat"].shape != (nonzero, C) or \
+            not np.isfinite(art["feat"]).all():
+        raise AssertionError(f"the lift artifact holds {art['feat'].shape}, not "
+                             f"({nonzero}, {C}) finite features")
+    hit_ply = os.path.join(out_dir, "ALL_nonzero_voxel_features_hitcounts.ply")
+    if not os.path.exists(hit_ply):
+        raise AssertionError(f"no hit-count PLY {hit_ply}")
+    sums_diff = float((cli["sums"] - a["sums"]).abs().max())
+    out["cli"] = dict(views=LIFT_CLI_VIEWS, views_per_sec=cli["views_per_sec"],
+                      wall_s=cli_s, voxels_hit=nonzero, overflow=cli["overflow"],
+                      sums_max_abs_diff_vs_sweep=sums_diff)
+
+    # the grid CLI on phase 6's trained point_cloud.ply, at 0.04 m; the PLY has
+    # no normals, and its points are spread, so the normal filter is off and the
+    # density ball is 0.1 m
+    t = time.perf_counter()
+    grid_ply = grid_cli.main(["--ply", results["train_cli"]["ply"], "--output_dir",
+                              os.path.join(root, "lift", "grid"), "--cell_size", "0.04",
+                              "--opacity_threshold", "0.5", "--normal_consistency", "1.0",
+                              "--density_eps", "0.1", "--density_min_neighbors", "5"])
+    grid_s = time.perf_counter() - t
+    gc_, _, gvs, _, gshape = read_voxel_grid_ply(grid_ply)
+    if gvs != 0.04 or len(gc_) < 1000:
+        raise AssertionError(f"the grid CLI wrote {len(gc_)} voxels at {gvs}")
+    out["grid_cli"] = dict(seconds=grid_s, voxels=len(gc_), grid_shape=gshape)
+    out["voxels"] = len(centers)
+    results["lift"] = out
+    for method in ("splat", "dda"):
+        r = out[method]
+        log(f"[lift] {method}: {r['views']} views at {W}x{H}, {C} channels, {len(centers)} "
+            f"voxels: {r['views_per_sec']:.2f} views/s ({r['seconds']:.2f} s), peak "
+            f"{r['peak_gib']:.2f} GiB, overflow max {r['overflow_max']}/view, sum "
+            f"{r['overflow_sum']}")
+    log(f"[lift] per-view medians of whole calls, CUDA events (ms): "
+        f"{json.dumps({k: round(v, 3) for k, v in ms.items()})}")
+    log(f"[lift] per-stage device and host ms per view (profiler ranges): "
+        f"{json.dumps(out['stage_profile'])}")
+    log(f"[lift] splat tile_chunk sweep ({num_tiles} tiles a view; default "
+        f"{PS.TILE_CHUNK}): {json.dumps(chunk_sweep)}")
+    log(f"[lift] one traced view: {json.dumps(out['trace'])}")
+    log(f"[lift] splat vs DDA hit images agree on {agree}; a second sweep of the 8 views "
+        f"gives the same bits in sums and counts")
+    log(f"[lift] CLI: {LIFT_CLI_VIEWS} views in {cli_s:.2f} s wall, {cli['views_per_sec']:.2f} "
+        f"views/s, {nonzero} voxels hit, counts equal to the sweep's (sums max abs diff "
+        f"{sums_diff:.3g}); grid CLI: {len(gc_)} voxels {gshape} in {grid_s:.2f} s")
+
+
 LIST_KEYS = ("warp_rows_read", "warp_rows_kept", "warp_rows_hit", "kept_share", "hit_share")
 
 
@@ -1172,7 +1665,8 @@ def main() -> int:
                             ("train", lambda: phase_train_step(results)),
                             ("train-cli", lambda: phase_train_cli(results, root)),
                             ("logits", lambda: phase_logits_render(results)),
-                            ("other-blends", lambda: phase_other_blends(results))):
+                            ("other-blends", lambda: phase_other_blends(results)),
+                            ("lift", lambda: phase_lift(results, root))):
             t0 = time.perf_counter()
             phase()
             log(f"[{name}] done in {time.perf_counter() - t0:.1f} s")

@@ -6,8 +6,10 @@ so each counterpart sits at the same path. It imports torch and never jax, nor
 anything of ``segsplat_tpu``.
 
 Ported so far: semantic novel-view rendering of a trained scene (the CLI twin
-``segsplat_tpu_torch/render_semantics_logits.py``) and Unified-Lift training
-(``python -m segsplat_tpu_torch.train``, the twin of the root train.py). The tile
+``segsplat_tpu_torch/render_semantics_logits.py``), Unified-Lift training
+(``python -m segsplat_tpu_torch.train``, the twin of the root train.py), and
+feature lifting: the voxel grid (``minkowski_voxel_grid_from_ply_advanced.py``)
+and the multi-view lift (``aggregate_voxel_features_onthefly.py``). The tile
 blend is two hand-written CUDA kernels, forward and backward
 (``csrc/blend_fwd.cu``, ``csrc/blend_bwd.cu``, bound in ``ops/blend.py``).
 

@@ -1,4 +1,5 @@
-"""Core types: a fixed-capacity Gaussian table and a pinhole camera.
+"""Core types: a fixed-capacity Gaussian table, a sparse voxel grid and a
+pinhole camera.
 
 Counterparts of segsplat_tpu/core/types.py as frozen dataclasses of tensors.
 The table keeps the JAX package's fixed capacity with an ``active`` mask, so a
@@ -8,6 +9,7 @@ table converted from JAX (convert.table_from_jax_arrays) renders the same pairs.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -59,6 +61,30 @@ class GaussianTable:
     def get_features(self) -> torch.Tensor:
         """[C, 1+R, 3] concatenated SH coefficients."""
         return torch.cat([self.features_dc, self.features_rest], dim=1)
+
+
+@dataclasses.dataclass(frozen=True)
+class VoxelGrid:
+    """Sparse voxel grid (segsplat_tpu/core/types.py:120).
+
+    ``coords`` are non-negative integer voxel coordinates in (x, y, z) order, the
+    reference's ``round((p - origin) / voxel_size)`` convention. ``origin`` is the
+    world position of voxel (0, 0, 0): its corner for floor-quantized grids, its
+    centre for round-quantized ones. ``shape`` is the dense (Z, Y, X) extent."""
+
+    coords: torch.Tensor                     # [V, 3] int32 (x, y, z)
+    origin: torch.Tensor                     # [3] float32 world-space origin
+    voxel_size: torch.Tensor                 # [] float32
+    features: Optional[torch.Tensor] = None  # [V, F] optional per-voxel payload
+    shape: tuple = ()                        # (Z, Y, X) dense extent
+
+    @property
+    def num_voxels(self) -> int:
+        return self.coords.shape[0]
+
+    def centers(self) -> torch.Tensor:
+        """World-space voxel centres, the reference's coord·vs + origin."""
+        return self.coords.to(torch.float32) * self.voxel_size + self.origin
 
 
 @dataclasses.dataclass(frozen=True)

@@ -9,7 +9,9 @@
 //
 // The early-out follows the TPU kernel exactly, not the usual per-pixel exit:
 // the tile stops only at the end of a G-row block (G = 256 if K % 256 == 0,
-// else 128), and only once every pixel's transmittance is below 1e-4. A pixel
+// else 128), and only once every pixel's transmittance is below 1e-4. K may be
+// any positive count (the TPU kernel asks for a multiple of G): a tile's last
+// block is then partial, and the cap still falls at row K. A pixel
 // already below it keeps accumulating until then; stopping it earlier changes
 // logits of magnitude ~4 by more than 1e-4. sigma and alpha are computed as
 // blend_common.cuh says, so the cut falls as in the plain version.

@@ -1,6 +1,9 @@
 """Self-contained PLY I/O for vertex-only files: Gaussian checkpoints (x/y/z,
 nx/ny/nz, f_dc_*, f_rest_*, opacity, scale_*, rot_*, obj_dc_*; the reference's
-scene/gaussian_model.py:363-397 layout) and coloured point clouds. The body is
+scene/gaussian_model.py:363-397 layout), coloured point clouds, and voxel grids
+whose header comments ``voxel_size v`` / ``grid_origin x y z`` / ``grid_shape
+sx sy sz`` carry the grid's metadata from one stage to the next (the
+reference's minkowski_voxel_grid_from_ply_advanced.py:173-205). The body is
 read with one ``np.frombuffer`` (binary) or one split (ascii)."""
 
 from __future__ import annotations
@@ -8,7 +11,7 @@ from __future__ import annotations
 import dataclasses
 import io
 import os
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -32,6 +35,10 @@ _NUMPY_TO_PLY = {
 class PlyContent:
     vertex: np.ndarray               # structured array of the 'vertex' element
     comments: List[str]
+    # voxel-grid metadata parsed from the comments, None where absent
+    voxel_size: Optional[float] = None
+    grid_origin: Optional[np.ndarray] = None
+    grid_shape: Optional[Tuple[int, int, int]] = None
 
     def __getitem__(self, name):
         return self.vertex[name]
@@ -42,6 +49,21 @@ class PlyContent:
 
     def xyz(self) -> np.ndarray:
         return np.stack([self.vertex["x"], self.vertex["y"], self.vertex["z"]], axis=1)
+
+
+def _parse_grid_comments(comments: List[str]):
+    vs, origin, shape = None, None, None
+    for c in comments:
+        parts = c.split()
+        if not parts:
+            continue
+        if parts[0] == "voxel_size" and len(parts) >= 2:
+            vs = float(parts[1])
+        elif parts[0] == "grid_origin" and len(parts) >= 4:
+            origin = np.array([float(p) for p in parts[1:4]], np.float32)
+        elif parts[0] == "grid_shape" and len(parts) >= 4:
+            shape = tuple(int(float(p)) for p in parts[1:4])
+    return vs, origin, shape
 
 
 def read_ply(path: str) -> PlyContent:
@@ -100,7 +122,9 @@ def read_ply(path: str) -> PlyContent:
 
     if vertex is None:
         raise ValueError(f"{path}: no vertex element")
-    return PlyContent(vertex=vertex, comments=comments)
+    vs, origin, shape = _parse_grid_comments(comments)
+    return PlyContent(vertex=vertex, comments=comments, voxel_size=vs,
+                      grid_origin=origin, grid_shape=shape)
 
 
 def write_ply(path: str, vertex: np.ndarray, comments: Optional[List[str]] = None,
@@ -126,6 +150,39 @@ def write_ply(path: str, vertex: np.ndarray, comments: Optional[List[str]] = Non
                 out.write(" ".join(str(c[i]) for c in cols))
                 out.write("\n")
             f.write(out.getvalue().encode("ascii"))
+
+
+def write_voxel_grid_ply(path: str, centers: np.ndarray, colors: np.ndarray,
+                         voxel_size: float, grid_origin: np.ndarray,
+                         grid_shape: Optional[Tuple[int, int, int]] = None,
+                         binary: bool = False) -> None:
+    """Voxel-grid PLY with the metadata header comments; ascii by default, as the
+    reference writes it."""
+    comments = [
+        f"voxel_size {voxel_size}",
+        f"grid_origin {grid_origin[0]} {grid_origin[1]} {grid_origin[2]}",
+    ]
+    if grid_shape is not None:
+        comments.append(f"grid_shape {grid_shape[0]} {grid_shape[1]} {grid_shape[2]}")
+    dt = np.dtype([("x", "f4"), ("y", "f4"), ("z", "f4"),
+                   ("red", "u1"), ("green", "u1"), ("blue", "u1")])
+    v = np.empty(len(centers), dtype=dt)
+    v["x"], v["y"], v["z"] = centers[:, 0], centers[:, 1], centers[:, 2]
+    colors = np.asarray(colors, np.uint8)
+    v["red"], v["green"], v["blue"] = colors[:, 0], colors[:, 1], colors[:, 2]
+    write_ply(path, v, comments=comments, binary=binary)
+
+
+def read_voxel_grid_ply(path: str):
+    """(centers [V,3] f32, colors [V,3] u8 or None, voxel_size, origin, shape).
+    The last three are None when the PLY lacks the header comments; callers
+    raise then (there is no inferred-spacing fallback)."""
+    c = read_ply(path)
+    centers = c.xyz().astype(np.float32)
+    colors = None
+    if c.names and "red" in c.names:
+        colors = np.stack([c["red"], c["green"], c["blue"]], axis=1).astype(np.uint8)
+    return centers, colors, c.voxel_size, c.grid_origin, c.grid_shape
 
 
 def save_gaussian_ply(path: str, xyz, features_dc, features_rest, opacity,

@@ -1,2 +1,3 @@
-"""Ops: EWA projection, tile binning, the tile blend (kernels K1 and K2), kNN
-and the linear sum assignment."""
+"""Ops: EWA projection, tile binning, the tile blend (kernels K1 and K2), kNN,
+the linear sum assignment, voxel quantization and the feature lifts (DDA and
+splat first hit)."""

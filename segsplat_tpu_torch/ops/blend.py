@@ -14,7 +14,9 @@ K1 replaces the TPU kernel ``segsplat_tpu/ops/blend_pallas.py:188``
 ``blend_tiles_pallas_dma``. Its semantics are kept exactly: pixel centres at
 +0.5, sigma ≥ 0 and 1/255 ≤ alpha ≤ 0.999, a per-tile cap of K rows, and the
 early-out at G-row block boundaries (G = 256 if K % 256 == 0, else 128) once
-every pixel's transmittance is below 1e-4. Its layout is not: a payload row is
+every pixel's transmittance is below 1e-4. K may be any positive count: where it
+is no multiple of G (the TPU kernel asks that it be one), a tile's last block
+is partial and the cap still falls at row K. Its layout is not: a payload row is
 ``[mu_x, mu_y, conic a, b, c, opacity, 0, 0, CH colours]`` padded to a multiple
 of 4 floats (16-byte loads) instead of the TPU's 128 lanes, and the K zero rows
 past the end stay.
@@ -113,8 +115,8 @@ def _check_common(offsets, payload, bg, tx_n, ty_n, name):
 
 
 def _check(offsets, sorted_payload, bg, tx_n, ty_n, k_max):
-    if k_max <= 0 or k_max % 128:
-        raise ValueError(f"k_max must be a positive multiple of 128, got {k_max}")
+    if k_max <= 0:
+        raise ValueError(f"k_max must be positive, got {k_max}")
     _check_common(offsets, sorted_payload, bg, tx_n, ty_n, "sorted_payload")
     w = payload_width(bg.shape[0])
     if (sorted_payload.dtype != torch.float32 or sorted_payload.dim() != 2
@@ -125,8 +127,8 @@ def _check(offsets, sorted_payload, bg, tx_n, ty_n, k_max):
 
 def _check_packed(offsets, packed_payload, bg, tx_n, ty_n, k_max, g_block):
     """K3's inputs, checked alike on every device (alignment included)."""
-    if g_block <= 0 or g_block % 2 or k_max <= 0 or k_max % g_block:
-        raise ValueError(f"g_block must be positive and even and divide k_max, got "
+    if g_block <= 0 or g_block % 2 or k_max <= 0:
+        raise ValueError(f"g_block must be positive and even and k_max positive, got "
                          f"g_block {g_block}, k_max {k_max}")
     _check_common(offsets, packed_payload, bg, tx_n, ty_n, "packed_payload")
     if bg.shape[0] > PACKED_MAX_CH:
@@ -275,6 +277,7 @@ def _plain_forward(offsets, pairs, bg, tx_n: int, ty_n: int, k_max: int, G: int,
     off = offsets.long()
     counts = torch.clamp_max(off[1:] - off[:-1], k_max)
     g = torch.arange(G, device=dev)
+    last = pairs.shape[0] - 1           # rows past a tile's count are read clamped, unused
     img = torch.empty((num_tiles, PX, ch), dtype=torch.float32, device=dev)
     alpha = torch.empty((num_tiles, PX), dtype=torch.float32, device=dev)
     rows_read = torch.zeros((), dtype=torch.int64, device=dev)
@@ -290,12 +293,12 @@ def _plain_forward(offsets, pairs, bg, tx_n: int, ty_n: int, k_max: int, G: int,
         trans = torch.ones((c, PX), dtype=torch.float32, device=dev)
         done = torch.zeros((c,), dtype=torch.bool, device=dev)
         tile_rows = torch.zeros((c,), dtype=torch.int64, device=dev)
-        for b in range(k_max // G):
+        for b in range(-(-k_max // G)):            # the last block partial where G ∤ K
             if bool(done.all()):
                 break
             live = ((b * G + g)[None, :] < cnt[:, None]) & ~done[:, None]  # [C, G]
             tile_rows += live.sum(1)
-            win = pairs[start[:, None] + b * G + g[None, :]]             # [C, G, W]
+            win = pairs[torch.clamp_max(start[:, None] + b * G + g[None, :], last)]  # [C, G, W]
             _, _, _, _, a, valid = _block_alpha(win, px, py, live)
             pixels_hit += valid.sum()
             if work is not None:
@@ -535,6 +538,7 @@ def blend_tiles_bwd_plain_with_work(offsets, sorted_payload, bg, img, alpha,
     off = offsets.long()
     counts = torch.clamp_max(off[1:] - off[:-1], k_max)
     g = torch.arange(G, device=dev)
+    last = sorted_payload.shape[0] - 1
     img_t, g_img_t = _to_tiles(img, tx_n, ty_n), _to_tiles(g_img, tx_n, ty_n)
     t_fin_t = 1.0 - _to_tiles(alpha, tx_n, ty_n)
     g_alpha_t = _to_tiles(g_alpha, tx_n, ty_n)
@@ -554,12 +558,12 @@ def blend_tiles_bwd_plain_with_work(offsets, sorted_payload, bg, img, alpha,
         g_suffix_const = t_fin * g_bg - g_alpha_t[t0:t0 + c] * t_fin
         trans = torch.ones((c, PX), dtype=torch.float32, device=dev)
         gpref = torch.zeros((c, PX), dtype=torch.float32, device=dev)
-        for b in range(k_max // G):
+        for b in range(-(-k_max // G)):            # the last block partial where G ∤ K
             live_row = (b * G + g)[None, :] < cnt[:, None]             # [C, G]
             if not bool(live_row.any()):
                 break
             rows_read += live_row.sum()
-            idx = start[:, None] + b * G + g[None, :]
+            idx = torch.clamp_max(start[:, None] + b * G + g[None, :], last)
             win = sorted_payload[idx]                                  # [C, G, W]
             dx, dy, expnegs, raw, a, valid = _block_alpha(win, px, py, live_row)
             ca, cb, cc = win[..., 2:3], win[..., 3:4], win[..., 4:5]

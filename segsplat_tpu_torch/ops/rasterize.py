@@ -46,13 +46,13 @@ USE_PACKED = False
 
 def map_tile_chunks(tile_fn, num_tiles: int, tile_chunk: int, device):
     """Run ``tile_fn([chunk] tile ids) → tuple of [chunk, ...]`` over all tiles
-    in fixed-size chunks. The tail chunk pads by wrapping ids (% num_tiles), as
-    the JAX package's lax.map does; the duplicates are sliced off. Returns the
-    tuple with leading dim ``num_tiles``."""
-    pad = (-num_tiles) % tile_chunk
-    ids = torch.arange(num_tiles + pad, device=device) % num_tiles
+    in chunks of ``tile_chunk``, the last one shorter. (The JAX package's
+    lax.map needs one static chunk shape, so it pads the tail chunk with
+    wrapped ids and slices the duplicates off; here that would only repeat
+    work.) Returns the tuple with leading dim ``num_tiles``."""
+    ids = torch.arange(num_tiles, device=device)
     outs = [tile_fn(chunk) for chunk in ids.split(tile_chunk)]
-    return tuple(torch.cat(parts)[:num_tiles] for parts in zip(*outs))
+    return tuple(torch.cat(parts) for parts in zip(*outs))
 
 
 def tiles_to_image(x: torch.Tensor, ty_n: int, tx_n: int, height: int,
@@ -347,8 +347,8 @@ def rasterize(means3d, scales, quats, opacities, colors, viewmat, fx, fy, cx, cy
 
     colors: [N, CH] per-Gaussian channels. means2d_offset: [N, 2] zeros added to
     the projected means before binning; its gradient is the screen-space mean
-    gradient densification consumes. max_per_tile (K) must be a multiple of 128
-    on the ``"cuda"`` backend. opacity_cull: exact opacity-aware tile culling in
+    gradient densification consumes. max_per_tile (K) is any positive count
+    on both backends. opacity_cull: exact opacity-aware tile culling in
     binning (both backends).
 
     backend: ``"cuda"`` (the JAX package's ``"pallas"``): kernels K1 forward and

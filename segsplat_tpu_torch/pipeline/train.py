@@ -58,8 +58,11 @@ class TrainRunConfig:
     log_every: int = 10
     seed: int = 0
     raster_max_tiles_per_axis: int = 8
-    raster_max_per_tile: int = 256  # a multiple of 128; 0 → auto-size from the
-    #                                 measured per-tile pair depth
+    raster_max_per_tile: int = 256  # 0 → auto-size from the measured per-tile
+    #                                 pair depth
+    raster_tile_chunk: int = 64     # tiles per chunk of the dense blend
+    raster_backend: str = "cuda"    # "cuda" (the blend kernels, at any K) or
+    #                                 "dense" (torch ops)
     raster_pair_cap: int = 0        # >0: cap sorted raster pairs (num_pairs is
     #                                 logged, overflow warns)
     view_batch: int = 1             # views per iteration; only 1 is ported
@@ -97,6 +100,22 @@ def _resolve_auto_max_per_tile(scene, table, run, device, n_probe: int = 3,
     return int(min(max(cap, lo), hi))
 
 
+def raster_kw_for(run: TrainRunConfig) -> dict:
+    """The rasterizer's keyword arguments for ``run``; ``pair_cap`` applies to
+    the kernel backend only. The kernels blend any K, so the port has no
+    counterpart of the JAX package's ``"auto"``, which picks ``"xla"`` where K
+    is no multiple of 128."""
+    backend = run.raster_backend
+    if backend not in ("cuda", "dense"):
+        raise ValueError(f"raster_backend must be 'cuda' or 'dense', got {backend!r}")
+    raster_kw = dict(max_tiles_per_axis=run.raster_max_tiles_per_axis,
+                     max_per_tile=run.raster_max_per_tile,
+                     tile_chunk=run.raster_tile_chunk, backend=backend)
+    if run.raster_pair_cap and backend == "cuda":
+        raster_kw["pair_cap"] = run.raster_pair_cap
+    return raster_kw
+
+
 def train(source_path: str, model_path: str, opt: Optional[OptimizationConfig] = None,
           run: Optional[TrainRunConfig] = None, images: str = "images",
           object_dir: str = "object_mask", eval_split: bool = False,
@@ -120,13 +139,7 @@ def train(source_path: str, model_path: str, opt: Optional[OptimizationConfig] =
         print(f"[INFO] auto max_per_tile={cap} (probed per-tile pair depth "
               f"x densify margin; overflow warnings still surface)")
         run = dataclasses.replace(run, raster_max_per_tile=cap)
-    if run.raster_max_per_tile % 128:
-        raise ValueError(f"max_per_tile must be a multiple of 128 (the blend "
-                         f"kernels' block), got {run.raster_max_per_tile}")
-    raster_kw = dict(max_tiles_per_axis=run.raster_max_tiles_per_axis,
-                     max_per_tile=run.raster_max_per_tile)
-    if run.raster_pair_cap:
-        raster_kw["pair_cap"] = run.raster_pair_cap
+    raster_kw = raster_kw_for(run)
     step_fn = make_train_step(opt, raster_kw)
     state = init_state(scene.gaussians, opt, spatial_lr_scale=scene.cameras_extent,
                        seed=run.seed)

@@ -44,7 +44,7 @@ def main(argv=None):
                         help="cap sorted raster pairs (speed knob; num_pairs is "
                              "logged and overflow warns)")
     parser.add_argument("--max_per_tile", type=int, default=256,
-                        help="per-tile blend K, a multiple of 128 (0 = auto-size "
+                        help="per-tile blend K, any positive count (0 = auto-size "
                              "from the measured per-tile pair depth)")
     parser.add_argument("--view_batch", type=int, default=1,
                         help="views per iteration; only 1 is ported")

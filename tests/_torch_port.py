@@ -45,7 +45,8 @@ SCENES = {
 }
 
 # blend cases, name: (scene kind, K, pair_cap as a fraction of the real pairs).
-# G = 256 when K % 256 == 0, else 128.
+# G = 256 when K % 256 == 0, else 128; at K = 200 a tile's second block holds
+# rows 128-199 only.
 BLEND_CASES = {
     "k128_one_block": ("light", 128, None),
     "k256_one_block": ("light", 256, None),
@@ -53,6 +54,7 @@ BLEND_CASES = {
     "k384_opaque_early_out": ("opaque", 384, None),
     "pair_cap_half": ("light", 128, 0.5),
     "wide_faint_k256": ("faint", 256, None),
+    "k200_partial_block": ("deep", 200, None),
 }
 
 # the packed blend K3's cases: every blend case, plus an opaque scene at K = 256,
@@ -82,6 +84,35 @@ def blend_case_args(case: str, device, ch: int = 32, packed: bool = False):
         bi = build_blend_inputs(proj, sc["colors"], sc["opac"], W, H, 4, K, pair_cap=cap,
                                 packed=packed)
     return bi.offsets, bi.sorted_payload, sc["bg"], bi.tx_n, bi.ty_n, K
+
+
+K_ODD = 200                     # a per-tile K that is no multiple of 128
+
+
+def odd_k_raster(device, backend: str, ch: int = 19):
+    """``rasterize`` of the deep scene (rotated view, m = 4) at K = K_ODD on
+    ``backend``, with the gradient of a seeded linear functional of image and
+    alpha. Tiles hold more than K pairs, so the cap cuts them inside a partial
+    128-row block; nothing saturates, so the kernels' block early-out never
+    fires and the two backends blend the same pairs. Returns (image, alpha,
+    tile_overflow, {input name: gradient})."""
+    import torch
+
+    from segsplat_tpu_torch.ops.rasterize import rasterize
+
+    seed, n, log_scale, opac_range = SCENES["deep"]
+    sc = scene(seed, n, log_scale, opac_range, ch=ch)
+    t = {k: torch.as_tensor(v, device=device).requires_grad_(True) for k, v in sc.items()}
+    out = rasterize(t["xyz"], t["scales"], t["quats"], t["opac"], t["colors"],
+                    torch.as_tensor(viewmat("rotated"), device=device), F, F, W / 2, H / 2,
+                    W, H, bg=t["bg"], max_tiles_per_axis=4, max_per_tile=K_ODD,
+                    backend=backend)
+    rng = np.random.default_rng(ch)
+    w_img, w_alpha = (torch.as_tensor(rng.standard_normal(out[k].shape).astype(np.float32),
+                                      device=device) for k in ("image", "alpha"))
+    ((out["image"] * w_img).sum() + (out["alpha"] * w_alpha).sum()).backward()
+    return (out["image"].detach(), out["alpha"].detach(), out["tile_overflow"],
+            {k: v.grad for k, v in t.items()})
 
 
 # degenerate tiles for the backward: a 3×2-tile frame with K = 128 whose tiles
@@ -118,17 +149,27 @@ def degenerate_case_args(device, ch: int = 19):
 
 def assert_case_exercised(case: str, offsets: np.ndarray, k_max: int, rows_read: int,
                           g: int = 0):
-    """The case's scene reaches what its name promises: a third block, or a
-    tile that stops early; every other case reads all its rows. ``g`` is the
-    early-out block (0: K1's, 256 if K % 256 == 0 else 128)."""
+    """The case's scene reaches what its name promises: a third block, a
+    partial last block cut at K, or a tile that stops early; every other case
+    reads all its rows. ``g`` is the early-out block (0: K1's, 256 if
+    K % 256 == 0 else 128)."""
     counts = np.minimum(np.diff(offsets), k_max)
     g = g or (256 if k_max % 256 == 0 else 128)
     if "three_blocks" in case:
         assert counts.max() > 2 * g, f"{case}: the third block is never reached"
+    if "partial_block" in case:
+        assert k_max % g and counts.max() == k_max > g, f"{case}: no tile fills K"
     if "early_out" in case:
         assert counts.max() > g and rows_read < counts.sum(), f"{case}: no tile stops early"
     else:
         assert rows_read == counts.sum(), f"{case}: read {rows_read} of {counts.sum()} rows"
+
+
+def jax_g_block(k_max: int, g: int) -> int:
+    """The block to give the JAX Pallas blends, which ask that it divide K: the
+    port's ``g`` where it does, else one K-row block. Where no tile saturates
+    (no early-out), both give the same blend."""
+    return g if k_max % g == 0 else k_max
 
 
 def owned_rows(offsets: np.ndarray, k_max: int, n_rows: int) -> np.ndarray:
@@ -234,3 +275,70 @@ def edge_case_args(device, ch: int = 19):
     offsets = torch.as_tensor(np.concatenate([[0], np.cumsum(EDGE_COUNTS)]).astype(np.int32),
                               device=device)
     return offsets, payload, f32(rng.random(ch)), tx_n, ty_n, EDGE_K
+
+
+# ───────────────────────────── feature lifting ─────────────────────────────
+
+LIFT_VS = 0.22                                       # tests/test_lift_splat.py's grid
+LIFT_ORIGIN = np.array([-1.3, -0.9, -1.1], np.float32)
+
+
+def lift_occupancy(rng, Z=10, Y=8, X=12, fill=0.06) -> np.ndarray:
+    """tests/test_lift_splat.py's occupancy: a sparse random grid in front of a
+    solid back wall, 1-based ids in raster order."""
+    occ = np.zeros((Z, Y, X), np.int32)
+    mask = rng.random((Z, Y, X)) < fill
+    mask[0, :, :] = True
+    ids = np.cumsum(mask.ravel()).reshape(Z, Y, X)
+    occ[mask] = ids[mask]
+    return occ
+
+
+def lift_camera(i: int, n: int, scale: float = 1.0) -> np.ndarray:
+    """[4, 4] c2w of view i of n on a circle of radius 2.5·scale about the
+    grid, looking at its centre (tests/test_lift_splat.py's cameras)."""
+    ang = 2 * np.pi * i / max(n, 1)
+    pos = np.array([2.5 * np.sin(ang), 0.3, -2.5 * np.cos(ang)])
+    fwd = -pos / np.linalg.norm(pos)
+    right = np.cross([0.0, 1.0, 0.0], fwd)
+    right /= np.linalg.norm(right)
+    up = np.cross(fwd, right)
+    c2w = np.eye(4, dtype=np.float32)
+    c2w[:3, 0], c2w[:3, 1], c2w[:3, 2], c2w[:3, 3] = right, up, fwd, pos * scale
+    return c2w
+
+
+def occupied_voxels(occ: np.ndarray, vs: float, origin: np.ndarray):
+    """(centres [V, 3] f32 in (x, y, z), ids [V] int32) of an occupancy grid."""
+    coords = np.argwhere(occ > 0)                                 # (z, y, x)
+    ids = occ[coords[:, 0], coords[:, 1], coords[:, 2]].astype(np.int32)
+    return coords[:, ::-1].astype(np.float32) * vs + origin, ids
+
+
+def officescene_lift_scene(n_views: int = 8, seed: int = 1) -> dict:
+    """bench.py's officescene-scale lift inputs (bench.py:294-325) in numpy:
+    876×584 rays, 109 000 voxels at 0.04 m drawn without repeats from a
+    60×44×42 box at (-1.2, -0.9, 1.0), fp16 [512, 292, 438] feature maps
+    (upsampled ×2 by the lift), fx = fy = 350, views rotated by 0.02 rad each.
+    ``feats`` draws one view at a time, in the order of bench.py's one draw."""
+    rng = np.random.default_rng(seed)
+    W, H, C = 876, 584, 512
+    vs = 0.04
+    nv = 109_000
+    coords = rng.choice(60 * 44 * 42, size=nv, replace=False)
+    ii = np.stack(np.unravel_index(coords, (60, 44, 42)), axis=1)
+    origin = np.array([-1.2, -0.9, 1.0], np.float32)
+    centers = (origin + ii * vs).astype(np.float32)
+    fx = 700.0 * 0.5
+    intr = np.tile(np.array([fx, fx, W / 2, H / 2], np.float32), (n_views, 1))
+    c2ws = np.tile(np.eye(4, dtype=np.float32), (n_views, 1, 1))
+    for i in range(n_views):
+        a = 0.02 * i
+        c2ws[i, :3, :3] = [[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]]
+
+    def feats():
+        for _ in range(n_views):
+            yield rng.random((C, H // 2, W // 2)).astype(np.float16)
+
+    return dict(W=W, H=H, C=C, vs=vs, origin=origin, grid_shape=(60, 44, 42),
+                centers=centers, intr=intr, c2ws=c2ws, feats=feats)

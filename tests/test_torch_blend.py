@@ -12,8 +12,8 @@ from jax.experimental.pallas import tpu as pltpu
 from segsplat_tpu.ops import rasterize as Rz
 from segsplat_tpu.ops.blend_pallas import GEOM, PAYLOAD_WIDTH, blend_tiles_pallas_dma
 from segsplat_tpu_torch.ops import blend as B
-from _torch_port import (BLEND_CASES, F, H, SCENES, W, assert_case_exercised, scene,
-                         viewmat)
+from _torch_port import (BLEND_CASES, F, H, SCENES, W, assert_case_exercised,
+                         jax_g_block, scene, viewmat)
 
 CH = 32
 # the cases without pair_cap: the JAX payload below is built untruncated
@@ -45,7 +45,8 @@ def test_plain_blend_matches_pallas_kernel(case):
     offsets, rows, bg, tx_n, ty_n = _jax_payload(kind, K)
     with pltpu.force_tpu_interpret_mode():
         ref_img, ref_alpha = blend_tiles_pallas_dma(
-            jnp.asarray(offsets), jnp.asarray(rows), jnp.asarray(bg), tx_n, ty_n, K)
+            jnp.asarray(offsets), jnp.asarray(rows), jnp.asarray(bg), tx_n, ty_n, K,
+            g_block=jax_g_block(K, B.g_block(K)))
     port_rows = torch.from_numpy(np.ascontiguousarray(rows[:, :B.payload_width(CH)]))
     img, alpha, rows_read, pixels_hit, _ = B.blend_tiles_plain_with_work(
         torch.from_numpy(offsets), port_rows, torch.from_numpy(bg), tx_n, ty_n, K)
@@ -71,7 +72,7 @@ def test_wrapper_runs_plain_version_on_cpu_tensors():
 
     off, pay, bgt = args
     bad = {
-        "k_max": ((off, pay, bgt, tx_n, ty_n, 192), "multiple of 128"),
+        "k_max": ((off, pay, bgt, tx_n, ty_n, 0), "positive"),
         "offsets dtype": ((off.long(), pay, bgt, tx_n, ty_n, 128), "int32"),
         "offsets length": ((off[:-1], pay, bgt, tx_n, ty_n, 128), "int32"),
         "payload width": ((off, pay[:, :-4], bgt, tx_n, ty_n, 128), "sorted_payload"),

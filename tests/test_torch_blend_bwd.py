@@ -18,7 +18,7 @@ from segsplat_tpu.ops.blend_pallas import GEOM, PAYLOAD_WIDTH
 from segsplat_tpu.ops.blend_pallas_vjp import _blend_bwd_pallas, _image_to_tiles
 from segsplat_tpu_torch.ops import blend as B
 from _torch_port import (BLEND_CASES, DEGENERATE_K, blend_case_args, degenerate_case_args,
-                         owned_rows)
+                         jax_g_block, owned_rows)
 
 CH = 19
 
@@ -52,7 +52,8 @@ def _jax_backward(offsets, payload, bg, img, alpha, g_img, g_alpha, tx_n, ty_n, 
         d_rows, d_bg = _blend_bwd_pallas(
             jnp.asarray(offsets.numpy()), jnp.asarray(rows), jnp.asarray(bg.numpy()),
             tiles(img), tiles(alpha).reshape(T, 1, 256), tiles(g_img),
-            tiles(g_alpha).reshape(T, 1, 256), tx_n, ty_n, K, g_block=B.g_block(K))
+            tiles(g_alpha).reshape(T, 1, 256), tx_n, ty_n, K,
+            g_block=jax_g_block(K, B.g_block(K)))
     d_rows = np.asarray(d_rows)
     ref = np.zeros(payload.shape, np.float32)
     ref[:, :6] = d_rows[:, :6]

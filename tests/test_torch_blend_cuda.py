@@ -2,8 +2,9 @@
 K3 (csrc/blend_packed.cu) against their plain versions on the card, at the
 training raster's 19 channels, the semantic path's 32 and the one-pass
 render's 51; K3 against K1 on the same scene; K1 and K3 on edge tiles (count 0,
-one row, count > K, partial last chunks, the row test's edge rows). Imports no JAX, so it runs
-where the card is:
+one row, count > K, partial last chunks, the row test's edge rows); and
+rasterize on K1 and K2 against the dense blend at K = 200, no multiple of 128,
+forward and gradients. Imports no JAX, so it runs where the card is:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_blend_cuda.py
 
@@ -17,9 +18,9 @@ import torch
 from segsplat_tpu_torch.ops import blend as B
 # by its bare name: pytest puts tests/ on sys.path, and a machine may have an
 # installed package named `tests` that hides this directory's
-from _torch_port import (BLEND_CASES, DEGENERATE_K, PACKED_CASES, PACKED_G,
+from _torch_port import (BLEND_CASES, DEGENERATE_K, K_ODD, PACKED_CASES, PACKED_G,
                          assert_case_exercised, blend_case_args, degenerate_case_args,
-                         edge_case_args, owned_rows)
+                         edge_case_args, odd_k_raster, owned_rows)
 
 
 def _need_card():
@@ -146,3 +147,25 @@ def test_forward_kernels_on_edge_tiles_on_card(kernel, ch):
             torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4)
         work = counter(*args)
         assert 0 < work["hit"] <= work["kept"] <= work["read"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ch", [19, 32])
+def test_kernels_match_dense_blend_at_odd_k_on_card(ch):
+    """K = 200, no multiple of 128: rasterize on the kernels (K1 forward, K2
+    backward, one launch each) against the dense blend, forward at 1e-4,
+    gradients at rtol 5e-3, atol 2e-4·max|ref|."""
+    _need_card()
+    before = (B.blend_tiles.launches, B.blend_tiles_bwd.launches)
+    img, alpha, over, grads = odd_k_raster("cuda", "cuda", ch)
+    torch.cuda.synchronize()
+    assert (B.blend_tiles.launches, B.blend_tiles_bwd.launches) == (before[0] + 1,
+                                                                      before[1] + 1)
+    d_img, d_alpha, d_over, d_grads = odd_k_raster("cuda", "dense", ch)
+    assert int(over) == int(d_over) > 0, f"no tile is cut at K={K_ODD}"
+    torch.testing.assert_close(img, d_img, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(alpha, d_alpha, rtol=1e-4, atol=1e-4)
+    for name, r in d_grads.items():
+        atol = 2e-4 * float(r.abs().max())
+        torch.testing.assert_close(grads[name], r, rtol=5e-3, atol=atol,
+                                   msg=lambda m, name=name: f"{name}: {m}")

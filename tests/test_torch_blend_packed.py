@@ -23,7 +23,7 @@ from segsplat_tpu.ops.blend_pallas2 import blend_tiles_pallas_packed
 from segsplat_tpu_torch.ops import blend as B
 from segsplat_tpu_torch.ops import rasterize as Pr
 from _torch_port import (F, H, PACKED_CASES, PACKED_G, SCENES, W, assert_case_exercised,
-                         blend_case_args, scene, viewmat)
+                         blend_case_args, jax_g_block, scene, viewmat)
 
 UNCAPPED = sorted(c for c, (_, _, cap) in PACKED_CASES.items() if cap is None)
 
@@ -59,7 +59,8 @@ def test_packed_plain_matches_pallas_kernel(case, ch):
     offsets, packed, bg, tx_n, ty_n = _jax_packed(kind, K, ch)
     with pltpu.force_tpu_interpret_mode():
         ref_img, ref_alpha = blend_tiles_pallas_packed(
-            jnp.asarray(offsets), jnp.asarray(packed), jnp.asarray(bg), tx_n, ty_n, K)
+            jnp.asarray(offsets), jnp.asarray(packed), jnp.asarray(bg), tx_n, ty_n, K,
+            g_block=jax_g_block(K, PACKED_G))
     img, alpha, rows_read, pixels_hit, _ = B.blend_tiles_packed_plain_with_work(
         *_torch(offsets, packed, bg), tx_n, ty_n, K)
     np.testing.assert_allclose(img.numpy(), np.asarray(ref_img), rtol=1e-4, atol=1e-4)
@@ -117,7 +118,7 @@ def test_packed_wrapper_runs_plain_version_and_checks_inputs():
         "too few rows": ((off, packed[:K // 2 + 1], bg, tx_n, ty_n, K), "packed_payload"),
         "layout": ((off, packed.t().contiguous().t(), bg, tx_n, ty_n, K), "contiguous"),
         "odd g_block": ((off, packed, bg, tx_n, ty_n, K, 127), "g_block"),
-        "g_block not dividing K": ((off, packed, bg, tx_n, ty_n, K, 96), "g_block"),
+        "k_max 0": ((off, packed, bg, tx_n, ty_n, 0), "k_max positive"),
         "offsets dtype": ((off.long(), packed, bg, tx_n, ty_n, K), "int32"),
     }
     for name, (call, match) in bad.items():

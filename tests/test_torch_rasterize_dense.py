@@ -13,10 +13,11 @@ import torch
 
 from segsplat_tpu.ops import rasterize as Rz
 from segsplat_tpu_torch.ops import rasterize as Pr
-from _torch_port import F, H, SCENES, W, scene, viewmat
+from _torch_port import F, H, K_ODD, SCENES, W, odd_k_raster, scene, viewmat
 
 # name: (scene kind, view, K, tile_chunk, opacity_cull). The 64×48 image has 12
-# tiles: a tile_chunk of 5 pads the last chunk by wrapping tile ids.
+# tiles: a tile_chunk of 5 leaves a last chunk of 2 (the JAX package pads it by
+# wrapping tile ids).
 DENSE_CASES = {
     "light_k128": ("light", "identity", 128, 64, False),
     "deep_k384_wrapped_chunks": ("deep", "rotated", 384, 5, False),
@@ -99,6 +100,23 @@ def test_dense_matches_kernel_path_where_no_block_stops():
         assert torch.equal(dense[k], kernel[k])
     with pytest.raises(ValueError, match="backend"):
         Pr.rasterize(*args, backend="xla", **kw)
+
+
+@pytest.mark.parametrize("ch", [19, 32])
+def test_kernel_path_matches_dense_at_odd_k(ch):
+    """K = 200, no multiple of 128: the kernel path (K1 and K2's plain versions
+    here) against the dense blend, forward at 1e-4 and gradients at the
+    tolerances above, with the cap cutting tiles inside a partial block."""
+    img, alpha, over, grads = odd_k_raster("cpu", "cuda", ch)
+    d_img, d_alpha, d_over, d_grads = odd_k_raster("cpu", "dense", ch)
+    assert int(over) == int(d_over) > 0
+    torch.testing.assert_close(img, d_img, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(alpha, d_alpha, rtol=1e-4, atol=1e-4)
+    for name, r in d_grads.items():
+        g, r = grads[name].numpy(), r.numpy()
+        np.testing.assert_allclose(g, r, rtol=5e-3, atol=2e-4 * (np.abs(r).max() + 1e-6),
+                                   err_msg=f"grad mismatch at K={K_ODD}: {name}")
+        assert np.abs(g).max() > 0, f"grad identically zero: {name}"
 
 
 def test_tile_helpers_match_jax():

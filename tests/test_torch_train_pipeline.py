@@ -15,7 +15,7 @@ from PIL import Image
 
 from segsplat_tpu.scene import load_gaussian_table as jax_load_gaussian_table
 from segsplat_tpu_torch.io.dataset import store_point_cloud_ply
-from segsplat_tpu_torch.pipeline.train import TrainRunConfig, train
+from segsplat_tpu_torch.pipeline.train import TrainRunConfig, raster_kw_for, train
 from segsplat_tpu_torch.train.cli import main as cli_main
 from segsplat_tpu_torch.train.densify import PARAM_FIELDS
 from segsplat_tpu_torch.train.trainer import OptimizationConfig
@@ -129,9 +129,24 @@ def test_train_states_its_limits(blender_scene, tmp_path):
         with pytest.raises(NotImplementedError, match="not ported"):
             train(blender_scene, str(tmp_path / "m"), opt=OPT,
                   run=TrainRunConfig(iterations=1, **kw), device="cpu")
-    with pytest.raises(ValueError, match="multiple of 128"):
-        train(blender_scene, str(tmp_path / "m"), opt=OPT,
-              run=TrainRunConfig(iterations=1, raster_max_per_tile=64), device="cpu")
+    # K = 64 is no multiple of the kernels' 128-row block, and trains on them
+    # (their plain versions here) and on the dense blend; the JAX package's
+    # "auto"/"xla" names are no backend of the port
+    for backend in ("cuda", "dense"):
+        run = TrainRunConfig(iterations=1, test_iterations=(), save_iterations=(),
+                             checkpoint_iterations=(), log_every=1, num_classes=16,
+                             raster_max_tiles_per_axis=4, raster_max_per_tile=64,
+                             raster_backend=backend)
+        assert raster_kw_for(run)["backend"] == backend
+        state = train(blender_scene, str(tmp_path / f"k64_{backend}"), opt=OPT, run=run,
+                      device="cpu")
+        assert state.step == 1
+        rec = json.loads(open(tmp_path / f"k64_{backend}" / "metrics.jsonl").readline())
+        assert np.isfinite(rec["total"])
+    for backend in ("auto", "xla"):
+        with pytest.raises(ValueError, match="raster_backend"):
+            train(blender_scene, str(tmp_path / "m"), opt=OPT,
+                  run=TrainRunConfig(iterations=1, raster_backend=backend), device="cpu")
 
 
 def test_cli_twin_trains_on_the_cpu(blender_scene, tmp_path, monkeypatch):

@@ -220,3 +220,43 @@ def test_train_step_matches_jax_make_train_step():
                + 2 * np.spacing(np.abs(old).astype(np.float32)))
         got = getattr(ps.table, f).detach().numpy()
         assert (np.abs(got - new_ref) <= tol).all(), f
+
+
+@pytest.mark.parametrize("backend", ["cuda", "dense"])
+def test_train_step_at_k200_matches_jax(backend):
+    """K = 200 is no multiple of 128. The JAX package trains at that K only on
+    its dense ``backend="xla"``; the port trains on either backend (the
+    kernels' plain versions here), and its step matches the JAX step at the
+    tolerances above."""
+    from segsplat_tpu_torch.pipeline.train import TrainRunConfig, raster_kw_for
+
+    state, opts, cfg, jcam, pcam, gt, gto = _setup()
+    raster = raster_kw_for(TrainRunConfig(raster_max_tiles_per_axis=4,
+                                          raster_max_per_tile=200, raster_tile_chunk=16,
+                                          raster_backend=backend))
+    assert raster == dict(max_tiles_per_axis=4, max_per_tile=200, tile_chunk=16,
+                          backend=backend)
+    key = jax.random.PRNGKey(5)
+    ref_state, ref_metrics = JT.make_train_step(cfg, opts, dict(raster, backend="xla"))(
+        state, jcam, jnp.asarray(gt), jnp.asarray(gto), jnp.zeros(3), key)
+    ps = train_state_from_jax_arrays(jax.tree.map(np.asarray, state),
+                                     PT.OptimizationConfig(num_classes=16), 2.0, device="cpu")
+    idx = torch.from_numpy(np.array(jax.random.randint(jax.random.split(key)[0], (32768,),
+                                                       0, H * W))).long()
+    metrics = PT.make_train_step(PT.OptimizationConfig(num_classes=16), raster)(
+        ps, pcam, torch.from_numpy(gt), torch.from_numpy(gto), torch.zeros(3), idx=idx)
+    for k in ("l1", "dssim", "contrastive", "cls", "clustering", "reg", "total", "psnr"):
+        np.testing.assert_allclose(float(metrics[k]), float(ref_metrics[k]), rtol=1e-4,
+                                   atol=1e-9, err_msg=k)
+    _grad_close(ps.stats.grad_accum.numpy(), ref_state.stats.grad_accum, "grad_accum")
+    np.testing.assert_array_equal(ps.stats.denom.numpy(), np.asarray(ref_state.stats.denom))
+    np.testing.assert_array_equal(ps.stats.max_radii.numpy(),
+                                  np.asarray(ref_state.stats.max_radii))
+    for f in PARAM_FIELDS:
+        old = np.asarray(getattr(state.table, f))
+        new_ref = np.asarray(getattr(ref_state.table, f))
+        upd = new_ref - old
+        tol = (5e-3 * np.abs(upd) + 2e-4 * np.abs(upd).max()
+               + 2 * np.spacing(np.abs(old).astype(np.float32)))
+        got = getattr(ps.table, f).detach().numpy()
+        assert (np.abs(got - new_ref) <= tol).all(), f
