@@ -80,6 +80,26 @@ Phases, each fatal on failure:
      segsplat_tpu_torch/aggregate_voxel_features_onthefly.py on those 8 views
      written to disk (its counts must equal (b)'s, its .pt must reload), and
      the grid CLI twin on phase 6's point_cloud.ply at 0.04 m.
+  9. the open-vocabulary query, the one-command pipeline and the two models,
+     which launch no kernel of their own (the JAX query is XLA): (a) card
+     against CPU on small inputs: nearest_neighbor_index (equal indices, or
+     near-ties within tests/_torch_port.nn_index_mismatch's bound),
+     project_features_to_labels (logits rtol 1e-5, atol 1e-5·scale, labels
+     beyond a 1e-3 top-2 gap), the text tower and LSeg on narrow configs (1e-4
+     of max|CPU|); (b) the CLIP text tower at its published width (512, 12
+     layers, context 77) on 32 prompts, card against CPU and timed; LSeg
+     ViT-L/16 + DPT at its published width on a 360×480 image (384×480
+     padded) in fp32 and bf16 (ms, peak memory, the least per-pixel cosine of
+     bf16 against fp32 ≥ 0.999) and card against CPU in fp32 on a 128×160 image
+     (1e-3 of max|CPU|); build_map on phase 6's trained PLY against a
+     109 000-voxel table at 0.04 m of seeded 512-channel fp16 features (ms,
+     peak memory, the share of 20 000 indices equal to the CPU's); the query
+     with run_pipeline.py's 5 prompts and with 32 (device ms of the projection
+     and argmax, host ms of the gather, the npz and the two ASCII PLYs);
+     (c) the LSeg extraction twin at full width in bf16 on phase 6's views
+     (random weights, stamped), the pipeline twin's refusal of those maps, and
+     ``python -m segsplat_tpu_torch.run_pipeline`` through all five stages on
+     seeded unstamped maps of the same views, K1 launched in stage 5.
 Prints a ``{"kernels": [...]}`` line (each kernel's blocks per SM, shared
 memory and registers from the occupancy API; K1's and K3's share of warp-rows
 their row lists keep beside the share with a passing lane), then as the last line
@@ -591,16 +611,61 @@ def write_model_dir(root: str, n_views: int = 4):
     return model, sem
 
 
+def view0_against_plain(src: str, model: str, iteration: int, sem: str, out_dir: str):
+    """View 0 of a render CLI's output held against K1's plain version: the
+    scene, its Gaussians and the semantics loaded again on the card, the
+    blend inputs rebuilt as ``render_semantic_views`` builds them (m = 6,
+    K = 256, its pair cap, bg 0), blended by ``blend_tiles_plain``. The saved
+    fp16 logits must lie within 1e-4 + |ref|·2^-10 (fp16's rounding on top of
+    1e-4), the labels must equal the argmax where the top-2 gap > 1e-2.
+    Returns (max abs diff, labelled pixels held)."""
+    import numpy as np
+    import torch
+
+    from segsplat_tpu_torch.ops.blend import blend_tiles_plain
+    from segsplat_tpu_torch.ops.rasterize import build_blend_inputs, project_gaussians
+    from segsplat_tpu_torch.pipeline.render_semantics import (PAIR_CAP_MAX,
+                                                              attach_logits_for_table)
+    from segsplat_tpu_torch.render import _semantic_inputs
+    from segsplat_tpu_torch.scene import Scene, to_device_camera
+
+    m, K = 6, 256                       # render_semantic_views' defaults
+    saved = np.load(os.path.join(out_dir, "00000_logits.npy")).astype(np.float32)
+    P = saved.shape[0]
+    scene = Scene(src, model, shuffle=False, load_iteration=iteration, device="cuda")
+    table = scene.gaussians
+    cam = to_device_camera(scene.get_train_cameras()[0], 1.0, device="cuda")
+    logits = torch.as_tensor(attach_logits_for_table(table, sem), device="cuda")
+    (xyz, scaling, rotation, opac, payload), bg = _semantic_inputs(table, logits, 0.0)
+    Kc = cam.intrinsics()
+    proj = project_gaussians(xyz, scaling, rotation, cam.world_view_transform(), Kc[0, 0],
+                             Kc[1, 1], Kc[0, 2], Kc[1, 2], cam.width, cam.height)
+    bi = build_blend_inputs(proj, payload, opac, cam.width, cam.height, m, K,
+                            pair_cap=min(table.capacity * m * m, PAIR_CAP_MAX))
+    ref, _ = blend_tiles_plain(bi.offsets, bi.sorted_payload, bg, bi.tx_n, bi.ty_n, K)
+    ref = ref[:cam.height, :cam.width, :P].permute(2, 0, 1).cpu().numpy()
+    if saved.shape != ref.shape or not np.isfinite(saved).all():
+        raise AssertionError(f"{out_dir} view 0 logits: shape {saved.shape} against the "
+                             f"plain blend's {ref.shape}, finite {np.isfinite(saved).all()}")
+    err = float(np.abs(saved - ref).max())
+    if not np.all(np.abs(saved - ref) <= 1e-4 + np.abs(ref) * 2.0 ** -10):
+        raise AssertionError(f"{out_dir} view 0 logits differ from the plain blend by {err}")
+    labels = torch.load(os.path.join(out_dir, "00000_labels.pt"),
+                        weights_only=True)["label_indices"].numpy()
+    top2 = np.sort(ref, axis=0)[-2:]
+    clear = (top2[1] - top2[0]) > 1e-2
+    if not np.array_equal(labels[clear], ref.argmax(0)[clear]):
+        raise AssertionError(f"{out_dir} view 0 labels differ from the plain blend's argmax")
+    return err, int(clear.sum())
+
+
 def phase_main_path(results, root: str):
     """The semantic render path through its CLI twin."""
     import numpy as np
     import torch
 
     from segsplat_tpu_torch import render_semantics_logits as cli
-    from segsplat_tpu_torch.ops.blend import blend_tiles, blend_tiles_bwd, blend_tiles_plain
-    from segsplat_tpu_torch.ops.rasterize import build_blend_inputs, project_gaussians
-    from segsplat_tpu_torch.pipeline.render_semantics import attach_logits_for_table
-    from segsplat_tpu_torch.scene import Scene, to_device_camera
+    from segsplat_tpu_torch.ops.blend import blend_tiles, blend_tiles_bwd
 
     n_views = 4
     model, sem = write_model_dir(root, n_views)
@@ -633,36 +698,11 @@ def phase_main_path(results, root: str):
         raise AssertionError(f"view 0 logits: shape {saved.shape}, finite "
                              f"{np.isfinite(saved).all()}")
 
-    # view 0 again, blended by the plain version on the same loaded inputs
-    scene = Scene(os.path.join(root, "scene"), model, shuffle=False,
-                  load_iteration=1, device="cuda")
-    table = scene.gaussians
-    cam = to_device_camera(scene.get_train_cameras()[0], 1.0, device="cuda")
-    logits = torch.as_tensor(attach_logits_for_table(table, sem), device="cuda")
-    K = cam.intrinsics()
-    proj = project_gaussians(table.xyz, table.get_scaling(), table.get_rotation(),
-                             cam.world_view_transform(), K[0, 0], K[1, 1], K[0, 2],
-                             K[1, 2], cam.width, cam.height)
-    opac = table.get_opacity()[:, 0] * table.active.float()
-    bi = build_blend_inputs(proj, logits, opac, cam.width, cam.height, 6, 256,
-                            pair_cap=min(table.capacity * 36, 3_000_000))
-    ref, _ = blend_tiles_plain(bi.offsets, bi.sorted_payload,
-                               torch.zeros(32, device="cuda"), bi.tx_n, bi.ty_n, 256)
-    ref = ref[:1080, :1920].permute(2, 0, 1).cpu().numpy()
-    # the CLI stores fp16: allow its rounding (2^-11 relative) on top of 1e-4
-    fp16_err = float(np.abs(saved - ref).max())
-    if not np.all(np.abs(saved - ref) <= 1e-4 + np.abs(ref) * 2.0 ** -10):
-        raise AssertionError(f"view 0 logits differ from the plain blend by {fp16_err}")
-    labels = torch.load(os.path.join(out_dir, "00000_labels.pt"),
-                        weights_only=True)["label_indices"].numpy()
-    top2 = np.sort(ref, axis=0)[-2:]
-    clear = (top2[1] - top2[0]) > 1e-2
-    if not np.array_equal(labels[clear], ref.argmax(0)[clear]):
-        raise AssertionError("view 0 labels differ from the plain blend's argmax")
+    fp16_err, clear = view0_against_plain(os.path.join(root, "scene"), model, 1, sem, out_dir)
     log(f"[main] CLI rendered {n_views} views at 1920x1080 in "
         f"{results['cli_s']:.3f} s; blend launches {launches}; view 0 logits vs "
         f"plain max abs diff {fp16_err:.3g} (fp16 file); labels equal on "
-        f"{int(clear.sum())} px with top1-top2 > 1e-2")
+        f"{clear} px with top1-top2 > 1e-2")
 
 
 # ───────────────────────────── training (phases 5–6) ───────────────────────────
@@ -1272,6 +1312,9 @@ def phase_lift_small(results):
         f"diff {worst_sums:.3g}")
 
 
+RANGE_PREFIXES = ("lift.", "lseg.", "query.")     # the port's record_function ranges
+
+
 def profiled(fn, n_views: int):
     """The profiler's events of ``fn(v)`` for n views, and the device kernels
     among them (the device-side copies of record_function ranges left out)."""
@@ -1287,13 +1330,13 @@ def profiled(fn, n_views: int):
     events = prof.events()
     kernels = [e for e in events if e.device_type == DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)
-               and not e.name.startswith("lift.")]
+               and not e.name.startswith(RANGE_PREFIXES)]
     return events, kernels
 
 
-def stage_profile(fn, n_views: int) -> dict:
-    """``fn(v)`` for n views under torch.profiler: for each lift stage (the
-    record_function ranges LIFT_STAGES), the device time of the kernels
+def stage_profile(fn, n_views: int, stages=LIFT_STAGES) -> dict:
+    """``fn(v)`` for n views under torch.profiler: for each stage (the
+    record_function ranges ``stages``), the device time of the kernels
     launched inside its ranges and the host time spent in them, ms per view,
     and the ranges per view; "rest" is the kernel time outside every range.
     The profiler's own cost inflates the host times, not the device times."""
@@ -1305,8 +1348,9 @@ def stage_profile(fn, n_views: int) -> dict:
         return {"device_time": "not measured"}
     out = {}
     for e in events:
-        if e.device_type == DeviceType.CPU and e.name in LIFT_STAGES:
-            d = out.setdefault(e.name[5:], dict(device_ms=0.0, host_ms=0.0, ranges=0))
+        if e.device_type == DeviceType.CPU and e.name in stages:
+            d = out.setdefault(e.name.split(".", 1)[1], dict(device_ms=0.0, host_ms=0.0,
+                                                              ranges=0))
             d["device_ms"] += (e.device_time_total if hasattr(e, "device_time_total")
                                else e.cuda_time_total) / 1e3 / n_views
             d["host_ms"] += e.cpu_time_total / 1e3 / n_views
@@ -1603,6 +1647,434 @@ def phase_lift(results, root: str):
         f"{sums_diff:.3g}); grid CLI: {len(gc_)} voxels {gshape} in {grid_s:.2f} s")
 
 
+# ──────── phase 9: the query, the pipeline, the CLIP text tower and LSeg ────────
+
+QUERY_VOXELS = 109_000          # the officescene table at 0.04 m (PERF.md §4)
+QUERY_CHANNELS = 512
+QUERY_VS = 0.04
+PIPELINE_PROMPTS = ("wall", "floor", "chair", "table", "monitor")   # run_pipeline.py's example
+CLIP_PROMPTS = 32
+NN_SUBSET = 20_000              # Gaussians held against the CPU's 1-NN
+LSEG_IMAGE = (360, 480)         # short side 360 (extract_lseg_features.py), padded to 384×480
+LSEG_SMALL_IMAGE = (128, 160)   # full width, card against the CPU
+LSEG_FULL: dict = {}            # LSegNet's defaults: ViT-L/16 + DPT, the published widths
+CLIP_FULL: dict = {}            # ClipTextEncoder's defaults: CLIP ViT-B/32's text tower
+SMALL_CLIP = dict(width=64, layers=2, heads=2, embed_dim=32, vocab_size=50, context_length=12)
+SMALL_LSEG = dict(patch=8, width=64, depth=4, heads=2, taps=(0, 1, 2, 3), fusion_features=16,
+                  reassemble_dims=(16, 24, 32, 32), out_dim=8, image_size=32)
+MODEL_REL = 1e-4                # card against CPU, max abs diff / max|CPU|: small models, text tower
+LSEG_FULL_REL = 2e-5            # the same for LSeg at full width (24 blocks, the DPT head):
+                                # ~9x the fp32 reading, below the TF32 control's (PERF.md §6)
+BF16_COS_MIN = 0.999           # LSeg bf16 against its fp32, least per-pixel cosine
+LOGIT_RTOL, LABEL_GAP = 1e-5, 1e-3   # logits at rtol 1e-5, atol 1e-5·scale; labels beyond the gap
+LOGIT_SCALE = 1.0 / 0.07
+LSEG_STAGES = ("lseg.vit", "lseg.dpt")
+QUERY_STAGES = ("query.load", "query.project", "query.fetch", "query.gather", "query.npz",
+                "query.ply")
+PIPELINE_GRID_ARGS = ("--density_eps", "0.1", "--density_min_neighbors", "5")  # as phase 8c
+
+
+def clip_prompts(n: int):
+    words = ("wall", "floor", "chair", "table", "monitor", "lamp", "door", "window", "sofa",
+             "shelf", "plant", "keyboard", "mug", "book", "ceiling", "rug")
+    return [f"a photo of a {words[i % len(words)]}" + (" on the left" if i >= len(words) else "")
+            for i in range(n)]
+
+
+def close(name: str, got, ref, rel: float) -> float:
+    """Max abs diff of two tensors; raises beyond rel·max|ref| or on a non-finite value."""
+    import torch
+
+    got, ref = got.float().cpu(), ref.float().cpu()
+    err = float((got - ref).abs().max())
+    if got.shape != ref.shape or not torch.isfinite(got).all() or \
+            err > rel * float(ref.abs().max()):
+        raise AssertionError(f"{name}: card differs from CPU by {err:.3g} (shape {tuple(got.shape)} "
+                             f"vs {tuple(ref.shape)}, allowed {rel}·max|ref|)")
+    return err
+
+
+def check_logits(name: str, logits, labels, ref_logits, ref_labels) -> float:
+    """Logits at rtol 1e-5 and atol 1e-5·scale, labels equal where the top-2
+    gap of the reference exceeds 1e-3. Returns the max abs diff."""
+    import numpy as np
+
+    logits, ref_logits = np.asarray(logits), np.asarray(ref_logits)
+    diff = np.abs(logits - ref_logits)
+    if not np.isfinite(logits).all() or (
+            diff > LOGIT_RTOL * LOGIT_SCALE + LOGIT_RTOL * np.abs(ref_logits)).any():
+        raise AssertionError(f"{name}: logits differ by {diff.max():.3g}")
+    top2 = np.sort(ref_logits, axis=-1)[..., -2:]
+    clear = (top2[..., 1] - top2[..., 0]) > LABEL_GAP
+    if not np.array_equal(np.asarray(labels)[clear], np.asarray(ref_labels)[clear]):
+        raise AssertionError(f"{name}: labels differ beyond the {LABEL_GAP} top-2 gap")
+    return float(diff.max())
+
+
+def phase_query_small(results):
+    """(a) the query's pieces and the two models, narrow, card against CPU."""
+    import numpy as np
+    import torch
+
+    _tests_on_path()
+    from _torch_port import nn_index_mismatch, query_scene
+
+    from segsplat_tpu_torch.models.clip_text import TextTower, project_features_to_labels
+    from segsplat_tpu_torch.models.lseg import LSegModel
+    from segsplat_tpu_torch.ops.knn import nearest_neighbor_index
+    from segsplat_tpu_torch.pipeline.query import hash_prompt_embeddings
+
+    out = {}
+    sc = query_scene(seed=1, n_vox=600, n_gauss=9000)
+    cpu = nearest_neighbor_index(torch.from_numpy(sc["mu"]), torch.from_numpy(sc["pos"]))
+    card = nearest_neighbor_index(torch.as_tensor(sc["mu"], device=DEV),
+                                  torch.as_tensor(sc["pos"], device=DEV))
+    out["nn_index_differ"], out["nn_max_gap"] = nn_index_mismatch(
+        sc["mu"], sc["pos"], card.cpu().numpy(), cpu.numpy())
+    feats = np.random.default_rng(2).standard_normal((4000, 32)).astype(np.float32)
+    text = hash_prompt_embeddings(list(PIPELINE_PROMPTS), 32)
+    ref = project_features_to_labels(torch.from_numpy(feats), torch.from_numpy(text),
+                                     LOGIT_SCALE).numpy()
+    got = project_features_to_labels(torch.as_tensor(feats, device=DEV),
+                                     torch.as_tensor(text, device=DEV), LOGIT_SCALE).cpu().numpy()
+    out["projection_err"] = check_logits("small projection", got, got.argmax(1), ref,
+                                         ref.argmax(1))
+    tokens = np.zeros((3, SMALL_CLIP["context_length"]), np.int64)
+    tokens[0, :5] = [48, 3, 7, 12, 49]
+    tokens[1, :4] = [48, 30, 2, 49]
+    tokens[2] = [48] + list(range(1, 11)) + [49]
+    cpu_t = TextTower(config=SMALL_CLIP, device="cpu")
+    card_t = TextTower(cpu_t.model.state_dict(), config=SMALL_CLIP, device=DEV)
+    out["clip_err"] = close("small text tower", card_t.encode(tokens), cpu_t.encode(tokens),
+                            MODEL_REL)
+    cpu_l = LSegModel(device="cpu", **SMALL_LSEG)
+    card_l = LSegModel(cpu_l.net.state_dict(), device=DEV, **SMALL_LSEG)
+    img = torch.from_numpy(np.random.default_rng(4).random((2, 3, 48, 64)).astype(np.float32))
+    out["lseg_err"] = close("small LSeg", card_l.features(img), cpu_l.features(img), MODEL_REL)
+    results["query_small"] = out
+    log(f"[query] small, card vs CPU: 1-NN {out['nn_index_differ']} of 9000 indices differ, "
+        f"each a near-tie (largest distance gap {out['nn_max_gap']:.3g}); projection "
+        f"{out['projection_err']:.3g}; text tower "
+        f"{out['clip_err']:.3g}; LSeg {out['lseg_err']:.3g} (max abs diffs)")
+
+
+def phase_query_models(results):
+    """(b) the CLIP text tower and LSeg at their published widths, seeded weights."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from segsplat_tpu_torch.models.clip_text import TextTower
+    from segsplat_tpu_torch.models.lseg import LSegModel
+    from segsplat_tpu_torch.models.tokenizer import HashTokenizer
+
+    out = {}
+    t0 = time.perf_counter()
+    cpu_t = TextTower(config=CLIP_FULL, device="cpu")
+    card_t = TextTower(cpu_t.model.state_dict(), config=CLIP_FULL, device=DEV)
+    out["clip_build_s"] = time.perf_counter() - t0
+    tokens = HashTokenizer()(clip_prompts(CLIP_PROMPTS))
+    emb = card_t.encode(tokens)
+    width = card_t.model.ln_final.normalized_shape[0]
+    layers = len(card_t.model.transformer.resblocks)
+    P, T = tokens.shape
+    if tuple(emb.shape) != (CLIP_PROMPTS, card_t.model.text_projection.shape[1]):
+        raise AssertionError(f"text tower gave {tuple(emb.shape)}")
+    out["clip_err"] = close("text tower", emb, cpu_t.encode(tokens), MODEL_REL)
+    out["clip_ms"] = cuda_time_ms(lambda: card_t.encode(tokens), reps=10)
+    out["clip_trace"] = device_trace(lambda v: card_t.encode(tokens), 1)
+    # per token and layer: q, k, v, out and the 4× MLP (24·W²) and the attention (4·T·W)
+    out["clip_gflop"] = P * T * layers * (24 * width ** 2 + 4 * T * width) / 1e9
+    out["clip_shape"] = list(emb.shape)
+    del cpu_t, card_t
+
+    t0 = time.perf_counter()
+    cpu_l = LSegModel(device="cpu", **LSEG_FULL)
+    sd = cpu_l.net.state_dict()
+    nets = {"float32": LSegModel(sd, device=DEV, **LSEG_FULL),
+            "bfloat16": LSegModel(sd, device=DEV, compute_dtype=torch.bfloat16, **LSEG_FULL)}
+    out["lseg_build_s"] = time.perf_counter() - t0
+    h, w = LSEG_IMAGE
+    rng = np.random.default_rng(8)
+    img = np.zeros((1, 3, -(-h // 32) * 32, -(-w // 32) * 32), np.float32)
+    img[:, :, :h, :w] = rng.random((1, 3, h, w))
+    x = torch.as_tensor(img, device=DEV)
+    feats = {}
+    for name, m in nets.items():
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        feats[name] = m.features(x)[:, :, :h, :w]
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        out[f"lseg_{name}"] = dict(
+            ms=cuda_time_ms(lambda: m.features(x), reps=5), peak_gib=peak / 2 ** 30,
+            above_resident_gib=(peak - resident) / 2 ** 30,
+            stages=stage_profile(lambda v: m.features(x), 1, stages=LSEG_STAGES),
+            trace=device_trace(lambda v: m.features(x), 1))
+    if tuple(feats["float32"].shape) != (1, nets["float32"].net.scratch.head1.out_channels,
+                                         h, w):
+        raise AssertionError(f"LSeg gave {tuple(feats['float32'].shape)}")
+    cos = F.cosine_similarity(feats["bfloat16"], feats["float32"], dim=1)
+    out["bf16_cos_min"], out["bf16_cos_mean"] = float(cos.min()), float(cos.mean())
+    if not out["bf16_cos_min"] >= BF16_COS_MIN:
+        raise AssertionError(f"LSeg bf16 vs fp32: least per-pixel cosine {out['bf16_cos_min']}")
+    sh, sw = LSEG_SMALL_IMAGE
+    small = torch.from_numpy(rng.random((1, 3, sh, sw)).astype(np.float32))
+    t0 = time.perf_counter()
+    ref = cpu_l.features(small)
+    out["lseg_cpu_s"] = time.perf_counter() - t0
+    out["lseg_card_err"] = close("LSeg full width", nets["float32"].features(small), ref,
+                                 LSEG_FULL_REL)
+    out["lseg_card_rel"] = out["lseg_card_err"] / float(ref.abs().max())
+    # the control: the same image with TF32 allowed, the fault the limit is to catch
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+        got_tf32 = nets["float32"].features(small).float().cpu()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    out["lseg_tf32_rel"] = float((got_tf32 - ref).abs().max()) / float(ref.abs().max())
+    if not out["lseg_tf32_rel"] > LSEG_FULL_REL:
+        raise AssertionError(f"LSeg with TF32 allowed reads {out['lseg_tf32_rel']:.3g} of "
+                             f"max|CPU|, inside the {LSEG_FULL_REL} limit meant to catch it")
+    results["query_models"] = out
+    del cpu_l, nets, feats
+    torch.cuda.empty_cache()
+    log(f"[query] text tower (width {width}, {layers} layers, context {T}): {P} prompts → "
+        f"{out['clip_shape']} in {out['clip_ms']:.3f} ms ({out['clip_gflop']:.1f} GFLOP), "
+        f"vs CPU {out['clip_err']:.3g}, trace {json.dumps(out['clip_trace'])}; LSeg at {h}x{w} (padded {img.shape[2]}x{img.shape[3]}): "
+        f"fp32 {json.dumps(out['lseg_float32'])}, bf16 {json.dumps(out['lseg_bfloat16'])}, "
+        f"bf16 vs fp32 cosine min {out['bf16_cos_min']:.6f} mean {out['bf16_cos_mean']:.6f}; "
+        f"fp32 vs CPU at {sh}x{sw}: {out['lseg_card_err']:.3g} "
+        f"({out['lseg_card_rel']:.3g} of max|CPU|; limit {LSEG_FULL_REL}; with TF32 "
+        f"allowed {out['lseg_tf32_rel']:.3g})")
+
+
+def query_table(mu, seed: int = 9):
+    """QUERY_VOXELS distinct voxel centres at QUERY_VS drawn from the grid over
+    the Gaussians' bounding box, with seeded fp16 features and their coords."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lo = mu.min(0)
+    dims = np.maximum(np.ceil((mu.max(0) - lo) / QUERY_VS).astype(np.int64), 1)
+    cells = rng.choice(int(np.prod(dims)), size=QUERY_VOXELS, replace=False)
+    ii = np.stack(np.unravel_index(cells, tuple(dims)), axis=1)
+    pos = (lo + (ii + 0.5) * QUERY_VS).astype(np.float32)
+    feat = rng.standard_normal((QUERY_VOXELS, QUERY_CHANNELS)).astype(np.float16)
+    return pos, feat, ii[:, ::-1].astype(np.int64)
+
+
+def phase_query_map(results, root: str):
+    """(b) build_map on phase 6's trained PLY against a 109 000-voxel table,
+    and the query with 5 and 32 prompts."""
+    import numpy as np
+    import torch
+
+    _tests_on_path()
+    from _torch_port import nn_index_mismatch
+
+    from segsplat_tpu_torch.io.artifacts import save_voxel_features
+    from segsplat_tpu_torch.ops.knn import nearest_neighbor_index
+    from segsplat_tpu_torch.pipeline.query import (build_map, extract_gaussian_centers,
+                                                   hash_prompt_embeddings, label_voxels,
+                                                   query)
+
+    work = os.path.join(root, "query")
+    os.makedirs(work)
+    mu_path = os.path.join(work, "gaussian_mu.npy")
+    mu = extract_gaussian_centers(results["train_cli"]["ply"], mu_path)
+    pos, feat, coords = query_table(mu)
+    vox = os.path.join(work, f"ALL_nonzero_voxel_features_{QUERY_VOXELS}vox.pt")
+    save_voxel_features(vox, pos, feat, coords)
+    g2v = os.path.join(work, "gauss2voxel.npy")
+    out = {"gaussians": len(mu), "voxels": QUERY_VOXELS, "channels": QUERY_CHANNELS}
+
+    build_map(vox, mu_path, g2v, device=DEV)        # first call: cuBLAS and allocator
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    idx = build_map(vox, mu_path, g2v, device=DEV)
+    out["build_map_s"] = time.perf_counter() - t0
+    out["build_map_above_resident_gib"] = (torch.cuda.max_memory_allocated()
+                                           - resident) / 2 ** 30
+    q, r = torch.as_tensor(mu, device=DEV), torch.as_tensor(pos, device=DEV)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out["nn_ms"] = cuda_time_ms(lambda: nearest_neighbor_index(q, r), reps=3)
+    out["nn_above_resident_gib"] = (torch.cuda.max_memory_allocated() - resident) / 2 ** 30
+    out["nn_trace"] = device_trace(lambda v: nearest_neighbor_index(q, r), 1)
+    # the [M, V] distances written once and read once, in fp32
+    out["nn_distance_gb"] = 2 * 4 * len(mu) * QUERY_VOXELS / 1e9
+    sub = np.random.default_rng(10).choice(len(mu), size=min(NN_SUBSET, len(mu)), replace=False)
+    t0 = time.perf_counter()
+    cpu_idx = nearest_neighbor_index(torch.from_numpy(mu[sub]), torch.from_numpy(pos)).numpy()
+    out["nn_cpu_subset_s"] = time.perf_counter() - t0
+    differ, out["nn_max_gap"] = nn_index_mismatch(mu[sub], pos, idx[sub], cpu_idx)
+    out["nn_subset"], out["nn_equal_share"] = len(sub), 1.0 - differ / len(sub)
+    del q, r
+
+    g2v_np = np.load(g2v)
+    out["query"] = {}
+    for prompts in (list(PIPELINE_PROMPTS), clip_prompts(CLIP_PROMPTS)):
+        P = len(prompts)
+        sem = os.path.join(work, f"gaussian_semantics_{P}.npz")
+
+        def run(v=0):
+            return query(vox, g2v, mu_path, prompts, sem, device=DEV)
+        t0 = time.perf_counter()
+        got = run()
+        wall = time.perf_counter() - t0
+        # one more call under the profiler: per query() range, the device ms
+        # of its kernels and copies and the host ms spent in it
+        stages = stage_profile(run, 1, stages=QUERY_STAGES)
+        if not (np.array_equal(got["labels"], got["voxel_labels"][g2v_np])
+                and got["labels"].min() >= 0 and got["labels"].max() < P
+                and got["logits"].shape == (len(mu), P)):
+            raise AssertionError(f"query with {P} prompts: labels or logits off")
+        rows = np.random.default_rng(11).choice(len(mu), size=NN_SUBSET, replace=False)
+        ref = label_voxels(torch.from_numpy(feat[g2v_np[rows]].astype(np.float32)),
+                           torch.from_numpy(hash_prompt_embeddings(prompts, QUERY_CHANNELS)),
+                           LOGIT_SCALE)
+        err = check_logits(f"query with {P} prompts", got["logits"][rows],
+                           got["labels"][rows], ref[0].numpy(), ref[1].numpy())
+        # the projection reads the table twice (norm, product) and writes logits and labels
+        bytes_ = 2 * 4 * QUERY_VOXELS * QUERY_CHANNELS + QUERY_VOXELS * (4 * P + 8)
+        flops = QUERY_VOXELS * QUERY_CHANNELS * (2 * P + 3)
+        out["query"][P] = dict(
+            wall_s=wall, stages=stages, logits_err_vs_cpu=err,
+            projection_bound_ms=max(bytes_ / PEAK_HBM_BYTES, flops / PEAK_FP32_FLOPS) * 1e3,
+            label_histogram=np.bincount(got["labels"], minlength=P).tolist()[:8])
+    results["query_map"] = out
+    torch.cuda.empty_cache()
+    log(f"[query] build_map: {len(mu)} Gaussians x {QUERY_VOXELS} voxels in "
+        f"{out['build_map_s'] * 1e3:.1f} ms wall (nearest_neighbor_index {out['nn_ms']:.3f} ms, "
+        f"{out['nn_above_resident_gib']:.2f} GiB above the resident; {out['nn_distance_gb']:.0f} "
+        f"GB of distances; trace {json.dumps(out['nn_trace'])}), "
+        f"{out['nn_equal_share'] * 100:.3f} % of {len(sub)} indices equal the CPU's, the rest "
+        f"near-ties (largest distance gap {out['nn_max_gap']:.3g})")
+    for P, q in out["query"].items():
+        log(f"[query] query with {P} prompts: " + json.dumps(q))
+
+
+def phase_pipeline(results, root: str):
+    """(c) the LSeg twin CLI on phase 6's views, the pipeline's refusal of its
+    random-weights maps, and the pipeline twin end to end on seeded maps."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    _tests_on_path()
+    from _torch_port import blender_to_camera_json, write_seeded_maps
+
+    from segsplat_tpu_torch import extract_lseg_features as lseg_cli
+    from segsplat_tpu_torch import run_pipeline
+    from segsplat_tpu_torch.io.artifacts import load_label_map
+    from segsplat_tpu_torch.io.provenance import RANDOM, read_weights_source
+    from segsplat_tpu_torch.ops.blend import blend_tiles
+
+    src, model = os.path.join(root, "train_scene"), os.path.join(root, "train_model")
+    it = os.path.basename(os.path.dirname(results["train_cli"]["ply"])).split("_")[1]
+    work = os.path.join(root, "pipeline")
+    W, H = Image.open(os.path.join(src, "r_0.png")).size
+    scale = 360 / min(W, H)             # the twin's --short_side
+    h, w = round(H * scale), round(W * scale)
+    out = {}
+
+    # 1. the LSeg twin at full width, random weights, bf16
+    lseg_random = os.path.join(work, "lseg_random")
+    t0 = time.perf_counter()
+    written = lseg_cli.main(["--images", src, "--out_dir", lseg_random, "--device", DEV])
+    torch.cuda.synchronize()
+    out["lseg_cli_s"] = time.perf_counter() - t0
+    for path in written:
+        f = np.load(path)
+        if f.dtype != np.float16 or f.shape[1:] != (h, w) or not np.isfinite(f).all():
+            raise AssertionError(f"{path}: {f.dtype} {f.shape}, not finite fp16 [C, {h}, {w}]")
+    out["lseg_cli_files"], out["lseg_map_shape"] = len(written), list(f.shape)
+    if read_weights_source(lseg_random) != RANDOM:
+        raise AssertionError("the LSeg twin did not stamp its random weights")
+
+    def pipeline(lseg_dir, cams, run_work):
+        stdout = sys.stdout             # the render CLI's safe_state timestamps stdout
+        try:
+            return run_pipeline.main(
+                ["-s", src, "-m", model, "--iteration", it, "--lseg_dir", lseg_dir,
+                 "--camera_params", cams, "--prompt", *PIPELINE_PROMPTS, *PIPELINE_GRID_ARGS,
+                 "--work_dir", run_work, "--render_backend", "cuda", "--device", DEV])
+        finally:
+            sys.stdout = stdout
+
+    with open(os.path.join(src, "transforms_train.json")) as f:
+        fx = W / (2 * math.tan(json.load(f)["camera_angle_x"] / 2))
+    cams = os.path.join(work, "cams.json")
+    names = blender_to_camera_json(os.path.join(src, "transforms_train.json"), cams,
+                                   [fx, fx, W / 2, H / 2], size=(W, H))
+
+    # 2. the pipeline refuses the random-weights maps at its lift
+    try:
+        pipeline(lseg_random, cams, os.path.join(work, "refused"))
+    except RuntimeError as e:
+        if "RANDOM weights" not in str(e):
+            raise
+        out["refused"] = str(e).split(":")[0]
+    else:
+        raise AssertionError("the pipeline accepted a random-weights feature directory")
+
+    # 3. seeded unstamped maps of the same views, all five stages
+    lseg = os.path.join(work, "lseg_seeded")
+    write_seeded_maps(lseg, names, QUERY_CHANNELS, h, w)
+    run_work = os.path.join(work, "run")
+    blend_tiles.launches = 0
+    t0 = time.perf_counter()
+    run = pipeline(lseg, cams, run_work)
+    torch.cuda.synchronize()
+    out["wall_s"] = time.perf_counter() - t0
+    launches = blend_tiles.launches
+    results["launches"]["pipeline"] = launches
+    if launches < len(names):
+        raise AssertionError(f"stage 5 launched K1 {launches} times for {len(names)} views")
+    sem = run["semantics"]
+    for p in (run["grid_ply"], run["voxel_features"], sem, os.path.join(run_work, "gauss2voxel.npy"),
+              sem.replace(".npz", "_gaussians.ply"), sem.replace(".npz", "_voxels.ply")):
+        if not os.path.exists(p):
+            raise AssertionError(f"the pipeline wrote no {p}")
+    labels = np.load(sem)["labels"]
+    P = len(PIPELINE_PROMPTS)
+    if labels.min() < 0 or labels.max() >= P:
+        raise AssertionError(f"labels outside [0, {P})")
+    out_dir = os.path.join(model, "train", f"ours_{it}", "semantics")
+    for i in range(len(names)):
+        lab = load_label_map(os.path.join(out_dir, f"{i:05d}_labels.pt"))
+        if lab.shape != (H, W) or lab.min() < 0 or lab.max() >= P:
+            raise AssertionError(f"view {i}: label map {lab.shape}, labels outside [0, {P})")
+    out["view0_vs_plain"], out["view0_labels_held"] = view0_against_plain(
+        src, model, int(it), sem, out_dir)
+    out.update(timing=run["timing"], k1_launches=launches, gaussians=len(labels),
+               label_histogram=np.bincount(labels, minlength=P).tolist(),
+               voxels=int(os.path.basename(run["grid_ply"]).split("_")[1][:-7]))
+    results["pipeline"] = out
+    log(f"[pipeline] LSeg twin: {len(written)} views at {W}x{H} → {out['lseg_map_shape']} fp16 "
+        f"in {out['lseg_cli_s']:.1f} s, stamped random; run_pipeline refused them "
+        f"({out['refused']}); on seeded maps: [TIMING] "
+        f"{json.dumps({k: round(v, 3) for k, v in run['timing'].items()})}, {out['wall_s']:.1f} s "
+        f"wall, {out['voxels']} voxels, K1 launched {launches} times in stage 5, labels "
+        f"{out['label_histogram']}; view 0 logits vs plain max abs diff "
+        f"{out['view0_vs_plain']:.3g} (fp16 file), labels equal on "
+        f"{out['view0_labels_held']} px with top1-top2 > 1e-2")
+
+
+def phase_query(results, root: str):
+    """Phase 9: (a) small, card against CPU; (b) full width; (c) the pipeline."""
+    phase_query_small(results)
+    phase_query_models(results)
+    phase_query_map(results, root)
+    phase_pipeline(results, root)
+
+
 LIST_KEYS = ("warp_rows_read", "warp_rows_kept", "warp_rows_hit", "kept_share", "hit_share")
 
 
@@ -1666,7 +2138,8 @@ def main() -> int:
                             ("train-cli", lambda: phase_train_cli(results, root)),
                             ("logits", lambda: phase_logits_render(results)),
                             ("other-blends", lambda: phase_other_blends(results)),
-                            ("lift", lambda: phase_lift(results, root))):
+                            ("lift", lambda: phase_lift(results, root)),
+                            ("query", lambda: phase_query(results, root))):
             t0 = time.perf_counter()
             phase()
             log(f"[{name}] done in {time.perf_counter() - t0:.1f} s")
@@ -1682,9 +2155,14 @@ def main() -> int:
     headline = results["scenes"]["headline"]
     kernels = [
         kernel_entry("blend_fwd", 32, fwd_src, k1_tpu,
-                     results["launches"]["render_semantics"]["blend_fwd"],
+                     results["launches"]["render_semantics"]["blend_fwd"]
+                     + results["launches"]["pipeline"],
                      headline["max_abs_err"], headline,
-                     path="render_semantics", scenes=results["scenes"],
+                     path="render_semantics CLI + run_pipeline stage 5",
+                     launches_by_path={
+                         "render_semantics": results["launches"]["render_semantics"]["blend_fwd"],
+                         "run_pipeline stage 5": results["launches"]["pipeline"]},
+                     scenes=results["scenes"],
                      **occupancy["blend_fwd"][32]),
         kernel_entry("blend_fwd", 19, fwd_src, k1_tpu, train_launches["blend_fwd"],
                      results["train_fwd"]["max_abs_err"], results["train_fwd"],

@@ -9,8 +9,11 @@ Ported so far: semantic novel-view rendering of a trained scene (the CLI twin
 ``segsplat_tpu_torch/render_semantics_logits.py``), Unified-Lift training
 (``python -m segsplat_tpu_torch.train``, the twin of the root train.py), and
 feature lifting: the voxel grid (``minkowski_voxel_grid_from_ply_advanced.py``)
-and the multi-view lift (``aggregate_voxel_features_onthefly.py``). The tile
-blend is two hand-written CUDA kernels, forward and backward
+and the multi-view lift (``aggregate_voxel_features_onthefly.py``), and the
+open-vocabulary query (``voxeltoGaussian_logits.py``), the one-command pipeline
+(``run_pipeline.py``), the LSeg feature extraction
+(``extract_lseg_features.py``) and the CLIP text tower and LSeg in torch.nn
+(``models/``). The tile blend is two hand-written CUDA kernels, forward and backward
 (``csrc/blend_fwd.cu``, ``csrc/blend_bwd.cu``, bound in ``ops/blend.py``).
 
 Entry points run on the card (``device="cuda"``) unless the caller asks for the

@@ -8,6 +8,8 @@ are common, and another order changes the boxes) into 16-point boxes with
 AABBs, rank every box by point-to-AABB distance for each query, keep the 32
 closest (ties to the lower box index, as lax.top_k keeps them) and brute-force
 their 512 candidates. Torch ops on the points' device, chunked over queries.
+
+Also the exact 1-NN index of the query stage (``nearest_neighbor_index``).
 """
 
 from __future__ import annotations
@@ -90,3 +92,26 @@ def initial_log_scales(points: np.ndarray, device="cuda") -> torch.Tensor:
     d2 = knn_mean_sq_dist(torch.as_tensor(np.asarray(points, np.float32), device=device))
     s = torch.log(torch.sqrt(torch.clamp_min(d2, 1e-7)))
     return s[:, None].repeat(1, 3)
+
+
+def nearest_neighbor_index(queries: torch.Tensor, refs: torch.Tensor,
+                           chunk: int = 4096) -> torch.Tensor:
+    """Exact 1-NN index of each query among refs, the Gaussian→voxel map of
+    pipeline/query.build_map (the reference's voxeltoGaussian_logits.py:86-105
+    uses a CPU KD-tree). Keeps the JAX package's arithmetic: per chunk of
+    queries, d = -2·(q @ refsᵀ) + |r|² with |q|² dropped, and the first index
+    of the least d, as ``jnp.argmin`` takes it. Two refs whose squared
+    distances lie within the products' rounding (about eps₃₂·(|q|² + |r|²)) may
+    be told apart otherwise than by the JAX package.
+
+    queries [M, 3], refs [V, 3] on one device → [M] int64 on that device; one
+    [chunk, V] float32 temporary at a time.
+    """
+    r2 = (refs * refs).sum(dim=1)                              # [V]
+    out = torch.empty((queries.shape[0],), dtype=torch.int64, device=queries.device)
+    for q0 in range(0, queries.shape[0], chunk):
+        q = queries[q0:q0 + chunk]
+        d = torch.addmm(r2, q, refs.T, alpha=-2.0)               # [chunk, V]
+        out[q0:q0 + q.shape[0]] = torch.argmin(d, dim=1)
+        del d
+    return out

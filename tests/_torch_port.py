@@ -342,3 +342,93 @@ def officescene_lift_scene(n_views: int = 8, seed: int = 1) -> dict:
 
     return dict(W=W, H=H, C=C, vs=vs, origin=origin, grid_shape=(60, 44, 42),
                 centers=centers, intr=intr, c2ws=c2ws, feats=feats)
+
+
+# ─────────────────────────── query and pipeline ───────────────────────────
+
+QUERY_PROMPTS = ["wall", "chair", "floor"]
+
+
+def query_scene(seed: int = 0, n_vox: int = 300, n_gauss: int = 2000, channels: int = 16,
+                vs: float = 0.04) -> dict:
+    """A voxel table and Gaussian centres for the query stage: ``n_vox``
+    distinct voxel centres on a 0.04 m grid (12³ cells at (-1.2, -0.9, 1.0)),
+    seeded fp16 features, and ``n_gauss`` centres of which a quarter sit
+    halfway from a voxel centre to the next cell (on the bisecting plane where
+    that cell is occupied: 1-NN near-ties), a quarter on a voxel centre and the
+    rest anywhere in the box."""
+    rng = np.random.default_rng(seed)
+    cells = rng.choice(12 ** 3, size=n_vox, replace=False)
+    ii = np.stack(np.unravel_index(cells, (12, 12, 12)), axis=1)
+    origin = np.array([-1.2, -0.9, 1.0], np.float32)
+    pos = (origin + ii * vs).astype(np.float32)
+    q = n_gauss // 4
+    mid = pos[rng.integers(0, n_vox, q)].copy()
+    mid[np.arange(q), rng.integers(0, 3, q)] += vs / 2   # halfway to the next cell
+    on_voxel = pos[rng.integers(0, n_vox, q)]
+    anywhere = origin + rng.random((n_gauss - 2 * q, 3)) * 12 * vs
+    mu = np.concatenate([mid, on_voxel, anywhere]).astype(np.float32)
+    feat = rng.standard_normal((n_vox, channels)).astype(np.float16)
+    return dict(pos=pos, feat=feat, coords=ii[:, ::-1].astype(np.int64), mu=mu)
+
+
+def nn_tie_bound(queries: np.ndarray, refs: np.ndarray) -> np.ndarray:
+    """Per query, the float64 distance gap within which two 1-NN answers are a
+    near-tie of the float32 expansion -2·q·r + |r|²: 8·eps₃₂·(|q|² + max|r|²)."""
+    q2 = (queries.astype(np.float64) ** 2).sum(1)
+    return 8 * np.finfo(np.float32).eps * (q2 + (refs.astype(np.float64) ** 2).sum(1).max())
+
+
+def nn_index_mismatch(queries, refs, got, want):
+    """(how many 1-NN indices differ, the largest gap between the two answers'
+    exact squared distances to the query); raises where a gap exceeds the tie
+    bound."""
+    q = queries.astype(np.float64)
+    d = lambda i: ((q - refs[i].astype(np.float64)) ** 2).sum(1)
+    gap = np.abs(d(got) - d(want))
+    bad = gap > nn_tie_bound(queries, refs)
+    if bad.any():
+        raise AssertionError(f"{int(bad.sum())} 1-NN indices differ beyond the tie bound "
+                             f"(largest gap {gap.max():.3g})")
+    return int((np.asarray(got) != np.asarray(want)).sum()), float(gap.max())
+
+
+def blender_to_camera_json(transforms_json: str, out_path: str, params, size=None) -> list:
+    """The lift's {"images", "cameras"} camera JSON for a Blender-style scene,
+    written as tests/test_cli_e2e.py writes it: each frame's c2w in Blender axes
+    flipped to COLMAP's, inverted to (R, tvec); one camera with ``params``
+    [fx, fy, cx, cy] and, with ``size`` (W, H), its image size. Returns the
+    frames' image names without their suffix."""
+    import json
+    import os
+
+    with open(transforms_json) as f:
+        frames = json.load(f)["frames"]
+    images, names = {}, []
+    for i, fr in enumerate(frames):
+        c2w = np.array(fr["transform_matrix"], np.float64)
+        c2w[:3, 1:3] *= -1
+        w2c = np.linalg.inv(c2w)
+        name = os.path.basename(fr["file_path"])
+        names.append(name)
+        images[str(i)] = {"name": name + ".png", "camera_id": "0", "R": w2c[:3, :3].tolist(),
+                          "tvec": w2c[:3, 3].tolist()}
+    cam = {"params": [float(x) for x in params]}
+    if size is not None:
+        cam["width"], cam["height"] = int(size[0]), int(size[1])
+    with open(out_path, "w") as f:
+        json.dump({"images": images, "cameras": {"0": cam}}, f)
+    return names
+
+
+def write_seeded_maps(lseg_dir: str, names, channels: int, h: int, w: int,
+                      seed: int = 3) -> None:
+    """Seeded [channels, h, w] fp16 feature maps ``<name>.npy``, one per view,
+    with no provenance stamp."""
+    import os
+
+    os.makedirs(lseg_dir, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    for name in names:
+        np.save(os.path.join(lseg_dir, f"{name}.npy"),
+                rng.random((channels, h, w)).astype(np.float16))
