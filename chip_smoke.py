@@ -5,7 +5,8 @@
 
 Phases, each fatal on failure:
   1. device: print the card and its power limit; build the three CUDA kernels from
-     segsplat_tpu_torch/csrc with nvcc, one process per source, in parallel.
+     segsplat_tpu_torch/csrc with nvcc, one process per source, in parallel
+     (each at every width of csrc/blend_widths.cuh).
   2. kernels vs plain on small scenes, the cases of tests/_torch_port.py, at
      19, 32 and 51 channels: K = 128, 256 and 384 (one 128-row block, one
      256-row block, three 128-row blocks with the transmittance carry), an
@@ -100,16 +101,40 @@ Phases, each fatal on failure:
      (random weights, stamped), the pipeline twin's refusal of those maps, and
      ``python -m segsplat_tpu_torch.run_pipeline`` through all five stages on
      seeded unstamped maps of the same views, K1 launched in stage 5.
+  10. pseudo-labels and the LERF-Masked and ScanNet++ evaluation, in four
+     parts: (a) ``widths``: the kernels at every channel count the TPU kernels
+     take: K1 and K2 on phase 2's cases at 3, 8, 23 and 120 channels (padded
+     to the built widths 4, 8, 24 and 120), K3 at 8, 23 and 56, K1 and K2 at
+     every width 1..120 and K3 at 1..56 on one case, against their plain
+     versions, and rasterize on K1 and K2 at 3, 8, 23 and 120 channels
+     against the dense blend, forward and gradient; (b) ``slic``: the pseudo-label loop's GT sweep at 876×584 (K1 at
+     3 + 5 and 3 + 20 channels; K1 and K2 timed on a sweep frame's inputs with
+     their bounds) and SLIC at prepare_pseudo_label's defaults on the hard
+     scene's 30 frames: card against CPU (≥ 99.5 % of labels), the same bits on
+     two runs, segment.slic and segment.merge per frame from their profiler
+     ranges, one traced frame; (c) ``loop``: ``pseudo_label_loop.run_loop`` at
+     results/hard_scene/hard_slic_result.json's configuration (20 objects, 30
+     frames at 256², 2 000 iterations, capacity 8 192), every result beside
+     the recorded CPU value, tests/test_pseudo_label_loop.py's thresholds, K1
+     and K2 launches by stage, K1 and K2 at 19 channels on the trained model's
+     render; (d) render_lerf_mask with frame 0's GT mask of one object and
+     eval_lerf_mask on (c)'s model; (e) ``mesh``: render_scannetpp_gt on a
+     seeded 1 048 576-face room, 8 views at 876×584, one view against the CPU
+     (labels equal but at depth ties within 1e-5), eval_scannetpp of the GT
+     against itself (mIoU 1.0), and tests/test_miou_loop.py's closed loop
+     through K1 at 3 channels (mIoU > 0.8).
 Prints a ``{"kernels": [...]}`` line (each kernel's blocks per SM, shared
 memory and registers from the occupancy API; K1's and K3's share of warp-rows
 their row lists keep beside the share with a passing lane), then as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when CUDA
-is unavailable or the package is missing.
+is unavailable or the package is missing. ``--phases`` runs a subset (for
+iterating on one phase); it prints no result line and exits 2.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -775,15 +800,24 @@ def kernels_on_captured(results, cap, label: str):
     bounds. Returns (fwd, bwd) stats."""
     import torch
 
-    from segsplat_tpu_torch.ops import blend as B
-
     offsets, payload, bg, img, alpha = (t.detach() for t in cap["saved"])
-    tx_n, ty_n, K = cap["dims"]
-    ch = bg.shape[0]
     # a loss that does not read alpha gets zeros there from autograd
     g_img, g_alpha = (torch.zeros_like(x) if g is None else g.detach().contiguous()
                       for g, x in zip(cap["grads"], (img, alpha)))
-    fargs = (offsets, payload, bg, tx_n, ty_n, K)
+    return kernels_on_inputs(results, (offsets, payload, bg, *cap["dims"]), img, alpha,
+                             g_img, g_alpha, label, f"{TRAIN_W}x{TRAIN_H}")
+
+
+def kernels_on_inputs(results, fargs, img, alpha, g_img, g_alpha, label: str, size: str):
+    """K1 on the blend inputs ``fargs`` and K2 on them with the forward's
+    outputs and these cotangents, against their plain versions, timed with
+    CUDA events, with their bounds at the real channel count (a width the
+    kernel pads up to counts its zero columns as waste, not work). Returns
+    (fwd, bwd) stats."""
+    from segsplat_tpu_torch.ops import blend as B
+
+    offsets, payload, bg, tx_n, ty_n, K = fargs
+    ch = bg.shape[0]
     f_got = B.blend_tiles(*fargs)
     f_img, f_alpha, f_rows, f_hits, _ = B.blend_tiles_plain_with_work(*fargs)
     fwd_err = compare(f"{label} K1 CH={ch}", f_got, (f_img, f_alpha))
@@ -800,6 +834,7 @@ def kernels_on_captured(results, cap, label: str):
     fwd = dict(ms=cuda_time_ms(lambda: B.blend_tiles(*fargs), reps=10),
                plain_ms=cuda_time_ms(lambda: B.blend_tiles_plain(*fargs), reps=3, warmup=1),
                rows_read=f_rows, pixels_hit=f_hits, max_abs_err=fwd_err,
+               kernel_width=B.kernel_width(ch),
                **warp_row_shares(f"{label} K1 CH={ch}", B.blend_tiles_warp_rows(*fargs)))
     fwd["bound_ms"], fwd["bound_by"], fwd["ops"], fwd["bytes"] = k1_bound(
         offsets, f_rows, f_hits, ch, num_tiles)
@@ -807,11 +842,11 @@ def kernels_on_captured(results, cap, label: str):
                plain_ms=cuda_time_ms(lambda: B.blend_tiles_bwd_plain(*bargs), reps=3,
                                      warmup=1),
                rows_read=b_rows, pixels_hit=b_hits, payload_rows=int(payload.shape[0]),
-               max_abs_err=bwd_err)
+               max_abs_err=bwd_err, kernel_width=B.kernel_width(ch))
     bwd["bound_ms"], bwd["bound_by"], bwd["ops"], bwd["bytes"] = k2_bound(
         offsets, payload.shape[0], b_rows, b_hits, ch, num_tiles)
-    log(f"[{label}] K1 CH={ch} at {TRAIN_W}x{TRAIN_H}: " + json.dumps(fwd))
-    log(f"[{label}] K2 CH={ch} at {TRAIN_W}x{TRAIN_H}: " + json.dumps(bwd))
+    log(f"[{label}] K1 CH={ch} at {size}: " + json.dumps(fwd))
+    log(f"[{label}] K2 CH={ch} at {size}: " + json.dumps(bwd))
     return fwd, bwd
 
 
@@ -1312,7 +1347,7 @@ def phase_lift_small(results):
         f"diff {worst_sums:.3g}")
 
 
-RANGE_PREFIXES = ("lift.", "lseg.", "query.")     # the port's record_function ranges
+RANGE_PREFIXES = ("lift.", "lseg.", "query.", "segment.")   # the port's record_function ranges
 
 
 def profiled(fn, n_views: int):
@@ -2075,6 +2110,587 @@ def phase_query(results, root: str):
     phase_pipeline(results, root)
 
 
+# ──────────── phase 10: pseudo-labels, the LERF-Masked and ScanNet++ protocols ────────────
+
+WIDTH_CASES = (3, 8, 23, 120)           # K1 and K2 on phase 2's cases at these widths
+PACKED_WIDTH_CASES = (8, 23, 56)        # K3
+WIDTH_SWEEP_CASE = "k128_one_block"     # every width 1..120 (K3 1..56) on this case
+SLIC_W, SLIC_H = 876, 584               # the lift's and the train step's view
+SLIC_FRAMES = 30                        # the hard scene's frames
+SLIC_CPU_FRAMES = 3                     # card against CPU on these
+SLIC_TIMED = 8                          # segment_image timed and profiled on these
+SLIC_AGREE = 0.995
+SLIC_STAGES = ("segment.slic", "segment.merge")
+EASY_FRAMES = 8                         # the 5-object sweep (K1 at 8 channels)
+HARD_RESULT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "results", "hard_scene",
+                           "hard_slic_result.json")
+# results/hard_scene/hard_slic_result.json's configuration, tracker defaults
+HARD_LOOP = dict(frames=30, H=256, W=256, iterations=2000, capacity=8192, n_objects=20,
+                 layout="random", textured=True, slic_segments=160, max_per_tile=512, seed=0)
+# tests/test_pseudo_label_loop.py's thresholds: (result path, lower or upper bound)
+LOOP_GATES = ((("tracker_consistency",), 0.75, "gt"),
+              (("post_train_identity_miou_grouped",), 0.25, "gt"),
+              (("background_iou",), 0.8, "gt"),
+              (("lerf", "lerf_mask_iou"), 0.10, "gt"),
+              (("lerf", "control_export_px_frac"), 0.01, "lt"))
+MESH_FACES = 1 << 20                    # four chunks of render_scannetpp_gt's 262 144
+MESH_VIEWS = 8
+MESH_IMAGE = (1752, 1168)               # a ScanNet++ DSLR frame, rendered at 0.5
+MESH_DOWNSAMPLE = 0.5
+MESH_DEPTH_TIE = 1e-5                   # labels may differ only between nearer-than-this depths
+
+
+def _width_case(B, args, gen, label: str, results):
+    """K1 and K2 on one blend case against their plain versions (K1 1e-4, K2
+    compare_grad's tolerance, the rows no tile owns exactly 0)."""
+    import torch
+
+    from _torch_port import owned_rows
+
+    offsets, payload, bg, tx_n, ty_n, K = args
+    ref_img, ref_alpha = B.blend_tiles_plain(*args)
+    err = compare(f"{label} K1", B.blend_tiles(*args), (ref_img, ref_alpha))
+    g_img = torch.randn(ref_img.shape, generator=gen, device="cuda")
+    g_alpha = torch.randn(ref_alpha.shape, generator=gen, device="cuda")
+    bargs = (offsets, payload, bg, ref_img, ref_alpha, g_img, g_alpha, tx_n, ty_n, K)
+    d_pay, d_bg = B.blend_tiles_bwd(*bargs)
+    ref_pay, ref_bg = B.blend_tiles_bwd_plain(*bargs)
+    berr = max(compare_grad(f"{label} K2 d_payload", d_pay, ref_pay),
+               compare_grad(f"{label} K2 d_bg", d_bg, ref_bg))
+    owned = torch.as_tensor(owned_rows(offsets.cpu().numpy(), K, payload.shape[0]),
+                            device="cuda")
+    if bool((d_pay[~owned] != 0).any()):
+        raise AssertionError(f"{label}: K2 wrote a row no tile owns")
+    results["fwd_err"] = max(results["fwd_err"], err)
+    results["bwd_err"] = max(results["bwd_err"], berr)
+    return err, berr
+
+
+def phase_widths(results):
+    """(a) The widths the TPU kernels take: K1 and K2 on phase 2's cases at 3,
+    8, 23 and 120 channels, K3 at 8, 23 and 56; every width 1..120 (K3 1..56)
+    on one case; rasterize on K1 and K2 at 3, 8, 23 and 120 channels against
+    the dense blend, forward and gradients."""
+    import torch
+
+    from segsplat_tpu_torch.ops import blend as B
+
+    _tests_on_path()
+    from _torch_port import BLEND_CASES, PACKED_CASES, blend_case_args
+
+    gen = torch.Generator("cuda").manual_seed(10)
+    out = {"cases": {}, "sweep": {}}
+    for ch in WIDTH_CASES:
+        errs = [_width_case(B, blend_case_args(name, "cuda", ch=ch), gen,
+                            f"{name} CH={ch}", results) for name in sorted(BLEND_CASES)]
+        out["cases"][f"K1/K2 CH={ch}"] = dict(kernel_width=B.kernel_width(ch),
+                                             fwd_max_abs_err=max(e[0] for e in errs),
+                                             bwd_max_abs_err=max(e[1] for e in errs))
+    for ch in PACKED_WIDTH_CASES:
+        perr = 0.0
+        for name in sorted(PACKED_CASES):
+            args = blend_case_args(name, "cuda", ch=ch, packed=True)
+            perr = max(perr, compare(f"{name} CH={ch} K3", B.blend_tiles_packed(*args),
+                                     B.blend_tiles_packed_plain(*args)))
+        results["packed_err"] = max(results["packed_err"], perr)
+        out["cases"][f"K3 CH={ch}"] = dict(kernel_width=B.kernel_width(ch, B.PACKED_WIDTHS),
+                                          max_abs_err=perr)
+    torch.cuda.synchronize()
+    log(f"[widths] phase 2's cases: {json.dumps(out['cases'])}")
+
+    t0 = time.perf_counter()
+    worst = [0.0, 0.0, 0.0]
+    for ch in range(1, B.MAX_CH + 1):
+        args = blend_case_args(WIDTH_SWEEP_CASE, "cuda", ch=ch)
+        err, berr = _width_case(B, args, gen, f"{WIDTH_SWEEP_CASE} CH={ch}", results)
+        worst[0], worst[1] = max(worst[0], err), max(worst[1], berr)
+        if ch <= B.PACKED_MAX_CH:
+            pargs = blend_case_args(WIDTH_SWEEP_CASE, "cuda", ch=ch, packed=True)
+            worst[2] = max(worst[2], compare(f"{WIDTH_SWEEP_CASE} CH={ch} K3",
+                                             B.blend_tiles_packed(*pargs),
+                                             B.blend_tiles_packed_plain(*pargs)))
+    torch.cuda.synchronize()
+    results["packed_err"] = max(results["packed_err"], worst[2])
+    out["sweep"] = dict(case=WIDTH_SWEEP_CASE, k1_k2_channels=[1, B.MAX_CH],
+                        k3_channels=[1, B.PACKED_MAX_CH], k1_max_abs_err=worst[0],
+                        k2_max_abs_err=worst[1], k3_max_abs_err=worst[2],
+                        seconds=time.perf_counter() - t0)
+    log(f"[widths] every width: {json.dumps(out['sweep'])}")
+    for ch in WIDTH_CASES:
+        odd_k_against_dense(results, ch)
+    results["widths"] = out
+
+
+def _hard_objects():
+    import numpy as np
+
+    from segsplat_tpu_torch import pseudo_label_loop as L
+
+    return L.build_objects(np.random.default_rng(HARD_LOOP["seed"]),
+                           n_objects=HARD_LOOP["n_objects"], layout=HARD_LOOP["layout"],
+                           textured=HARD_LOOP["textured"])
+
+
+def _sweep_kernels(results, g, R, t, fx, fy, label: str):
+    """K1 and K2 on one sweep frame's own blend inputs (3 + n_objects channels,
+    rasterize's arguments in pseudo_label_loop.render_sweep), K2 with seeded
+    cotangents, timed with their bounds."""
+    import numpy as np
+    import torch
+
+    from segsplat_tpu_torch.ops import blend as B
+
+    n_obj = int(g["oid"].max())
+    onehot = np.eye(n_obj, dtype=np.float32)[g["oid"] - 1]
+    sc = dict(xyz=g["xyz"], scales=g["scales"], quats=g["quats"], opac=g["opac"],
+              colors=np.concatenate([g["rgb"], onehot], axis=1))
+    vm = np.eye(4, dtype=np.float32)
+    vm[:3, :3], vm[:3, 3] = R, t                # world→view: R's rows are the camera axes
+    _, bi = blend_inputs_on_card(sc, SLIC_W, SLIC_H, (vm, fx, fy, SLIC_W / 2, SLIC_H / 2),
+                                 6, HARD_LOOP["max_per_tile"])
+    bg = torch.zeros(3 + n_obj, device="cuda")
+    fargs = (bi.offsets, bi.sorted_payload, bg, bi.tx_n, bi.ty_n, HARD_LOOP["max_per_tile"])
+    img, alpha = B.blend_tiles_plain(*fargs)
+    gen = torch.Generator("cuda").manual_seed(3 + n_obj)
+    g_img = torch.randn(img.shape, generator=gen, device="cuda")
+    g_alpha = torch.randn(alpha.shape, generator=gen, device="cuda")
+    return kernels_on_inputs(results, fargs, img, alpha, g_img, g_alpha, label,
+                             f"{SLIC_W}x{SLIC_H}")
+
+
+def phase_slic(results):
+    """(b) The GT sweep at 876×584 (K1 at 3 + n_objects channels) and SLIC at
+    the CLI's defaults on its frames: card against CPU, the same bits twice,
+    ms per frame of segment.slic and segment.merge, one traced frame."""
+    import numpy as np
+    import torch
+
+    from segsplat_tpu_torch import pseudo_label_loop as L
+    from segsplat_tpu_torch.ops import blend as B
+    from segsplat_tpu_torch.pipeline import segment as S
+
+    out = {}
+    for label, g, n in (("sweep5", L.build_objects(np.random.default_rng(0)), EASY_FRAMES),
+                        ("sweep20", _hard_objects(), SLIC_FRAMES)):
+        Rs, ts, fx, fy = L.orbit_cameras(n, SLIC_H, SLIC_W)
+        B.blend_tiles.launches = 0
+        t0 = time.perf_counter()
+        rgbs, gts = L.render_sweep(g, Rs, ts, fx, fy, SLIC_H, SLIC_W,
+                                   max_per_tile=HARD_LOOP["max_per_tile"], device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = B.blend_tiles.launches
+        if launches != n:
+            raise AssertionError(f"[slic] the {label} sweep of {n} frames launched K1 "
+                                 f"{launches} times")
+        ch = 3 + int(g["oid"].max())
+        fwd, bwd = _sweep_kernels(results, g, Rs[0], ts[0], fx, fy, f"slic {label}")
+        out[label] = dict(ch=ch, frames=n, launches=launches, ms_per_frame=wall / n * 1e3,
+                          objects_seen=int(len(np.unique(gts)) - 1), fwd=fwd, bwd=bwd)
+        log(f"[slic] {label}: {n} frames at {SLIC_W}x{SLIC_H}, {ch} channels (K1 width "
+            f"{B.kernel_width(ch)}), {wall / n * 1e3:.1f} ms a frame, K1 launched {launches}")
+    frames = [(r * 255).astype(np.uint8) for r in rgbs]
+
+    cfg = S.SegmentConfig()                 # prepare_pseudo_label segment's defaults
+    gy, gx = S.grid_dims(SLIC_H, SLIC_W, cfg.n_segments)
+    as_float = lambda f, dev: torch.as_tensor(f.astype(np.float32) / 255.0, device=dev)
+    slic = lambda f, dev: S.slic_labels(as_float(f, dev), gy, gx, cfg.iters, cfg.compactness)
+    card = [slic(f, "cuda").cpu().numpy() for f in frames]
+    again = [slic(f, "cuda").cpu().numpy() for f in frames]
+    if any(not np.array_equal(a, b) for a, b in zip(card, again)):
+        raise AssertionError("[slic] two card runs gave different labels")
+    agree = []
+    for i in range(SLIC_CPU_FRAMES):
+        cpu = slic(frames[i], "cpu").numpy()
+        differ = int((cpu != card[i]).sum())
+        agree.append(dict(frame=i, differ=differ, share=1 - differ / cpu.size))
+        if agree[-1]["share"] < SLIC_AGREE:
+            raise AssertionError(f"[slic] frame {i}: card and CPU labels differ on {differ} "
+                                 f"of {cpu.size} pixels")
+    seg = lambda v: S.segment_image(frames[v], cfg, device="cuda")
+    seg(0)                                      # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids = [seg(v) for v in range(SLIC_TIMED)]
+    wall = (time.perf_counter() - t0) / SLIC_TIMED * 1e3
+    if min(int(m.min()) for m in ids) < 1:
+        raise AssertionError("[slic] segment_image returned an id below 1")
+    out["slic"] = dict(n_segments=cfg.n_segments, compactness=cfg.compactness,
+                       iters=cfg.iters, grid=[gy, gx], card_vs_cpu=agree,
+                       same_bits_twice=True, segment_image_ms_per_frame=wall,
+                       regions_per_frame=float(np.mean([m.max() for m in ids])),
+                       stages=stage_profile(seg, SLIC_TIMED, SLIC_STAGES),
+                       trace=device_trace(lambda v: slic(frames[v], "cuda"), 1))
+    log(f"[slic] {SLIC_FRAMES} frames at {SLIC_W}x{SLIC_H} (segment_image on {SLIC_TIMED}): "
+        + json.dumps(out["slic"]))
+    results["slic"] = out
+
+
+def _flat(d, prefix=()):
+    for k, v in d.items():
+        if isinstance(v, dict):
+            yield from _flat(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def _get(d, path):
+    for k in path:
+        d = d.get(k, {}) if isinstance(d, dict) else {}
+    return d if d != {} else None
+
+
+def phase_loop(results, root: str):
+    """(c) The loop twin at the hard scene's configuration on the card, (d)
+    render_lerf_mask and eval_lerf_mask on its model directory, and K1 and
+    K2 at 19 channels on the trained model's render."""
+    import numpy as np
+    import torch
+
+    from segsplat_tpu_torch import pseudo_label_loop as L
+    from segsplat_tpu_torch.ops import blend as B
+
+    recorded = json.load(open(HARD_RESULT))
+    work = os.path.join(root, "hard_scene")
+    os.makedirs(work)
+    stages = {}
+
+    def counted(name, fn):
+        def run(*a, **kw):
+            before = (B.blend_tiles.launches, B.blend_tiles_bwd.launches)
+            r = fn(*a, **kw)
+            torch.cuda.synchronize()
+            stages[name] = dict(blend_fwd=B.blend_tiles.launches - before[0],
+                                blend_bwd=B.blend_tiles_bwd.launches - before[1])
+            return r
+        return run
+
+    B.blend_tiles.launches = B.blend_tiles_bwd.launches = 0
+    t0 = time.perf_counter()
+    with swapped(L, render_sweep=counted("sweep", L.render_sweep),
+                 train=counted("train", L.train),
+                 predict_identity_maps=counted("predict", L.predict_identity_maps)):
+        r = L.run_loop(work, quiet=True, save_at=(HARD_LOOP["iterations"],), device="cuda",
+                       **HARD_LOOP)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"blend_fwd": B.blend_tiles.launches, "blend_bwd": B.blend_tiles_bwd.launches}
+    its, frames = HARD_LOOP["iterations"], HARD_LOOP["frames"]
+    if (stages["sweep"]["blend_fwd"] != frames or stages["predict"]["blend_fwd"] != frames
+            or min(stages["train"].values()) < its):
+        raise AssertionError(f"[loop] kernel launches by stage {stages}")
+    for path, value in _flat(r):
+        log(f"[loop] {'.'.join(path)}: {json.dumps(value)} (recorded on the CPU: "
+            f"{json.dumps(_get(recorded, path))})")
+    for path, limit, how in LOOP_GATES:
+        v = _get(r, path)
+        if not (v > limit if how == "gt" else v < limit):
+            raise AssertionError(f"[loop] {'.'.join(path)} = {v}, limit {how} {limit}")
+    timings = dict(r["timings_s"], eval=wall - sum(r["timings_s"].values()), wall=wall)
+    results["loop"] = dict(result=r, launches=launches, launches_by_stage=stages,
+                           timings_s=timings)
+    log(f"[loop] {its} iterations, {frames} frames at {HARD_LOOP['W']}²: {json.dumps(timings)}"
+        f"; launches {json.dumps(stages)}")
+
+    # K1 and K2 at 19 channels on the trained model's render of frame 0
+    from segsplat_tpu_torch.render import render
+    from segsplat_tpu_torch.scene import load_gaussian_table
+
+    table = load_gaussian_table(os.path.join(work, "model", "point_cloud", f"iteration_{its}",
+                                             "point_cloud.ply"),
+                                capacity=HARD_LOOP["capacity"], device="cuda")
+    obj = table.objects_dc.clone().requires_grad_(True)
+    table = dataclasses.replace(table, objects_dc=obj)
+    Rs, ts, fx, fy = L.orbit_cameras(frames, HARD_LOOP["H"], HARD_LOOP["W"])
+    cam = L._camera(Rs[0], ts[0], fx, fy, HARD_LOOP["H"], HARD_LOOP["W"], "cuda")
+    out = render(table, cam, torch.zeros(3, device="cuda"), max_tiles_per_axis=6,
+                 max_per_tile=HARD_LOOP["max_per_tile"], tile_chunk=16)
+    gen = torch.Generator("cuda").manual_seed(19)
+    total = sum((out[k] * torch.randn(out[k].shape, generator=gen, device="cuda")).sum()
+                for k in ("render", "render_object"))
+    cap = {}
+    capture_blend(total, cap)
+    total.backward()
+    offsets, payload, bg, img, alpha = (t.detach() for t in cap["saved"])
+    g_img, g_alpha = (torch.zeros_like(x) if g is None else g.detach().contiguous()
+                      for g, x in zip(cap["grads"], (img, alpha)))
+    fwd, bwd = kernels_on_inputs(results, (offsets, payload, bg, *cap["dims"]), img, alpha,
+                                 g_img, g_alpha, "loop", f"{HARD_LOOP['W']}x{HARD_LOOP['H']}")
+    results["loop"].update(fwd19=fwd, bwd19=bwd)
+    phase_lerf(results, work, its)
+
+
+def phase_lerf(results, work: str, its: int):
+    """(d) render_lerf_mask with frame 0's GT mask of its largest object as the
+    query, then eval_lerf_mask of its masks against the GT masks."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from segsplat_tpu_torch import eval_lerf_mask, render_lerf_mask
+    from segsplat_tpu_torch.ops import blend as B
+
+    gts = np.load(os.path.join(work, "merge_debug.npz"))["gts"]
+    obj = int(np.bincount(gts[0].ravel())[1:].argmax() + 1)
+    query = os.path.join(work, "query.png")
+    Image.fromarray((gts[0] == obj).astype(np.uint8) * 255).save(query)
+    gt_dir = os.path.join(work, "lerf_gt", "hard")
+    os.makedirs(gt_dir)
+    for i, gt in enumerate(gts):
+        Image.fromarray((gt == obj).astype(np.uint8) * 255).save(
+            os.path.join(gt_dir, f"frame_{i:03d}.png"))
+    B.blend_tiles.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        render_lerf_mask.main(["-s", work, "-m", os.path.join(work, "model"), "--iteration",
+                               str(its), "--query_mask", query, "--device", "cuda"])
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    launches = B.blend_tiles.launches
+    selected = [ln for ln in buf.getvalue().splitlines() if "selected object ids" in ln]
+    masks = os.path.join(work, "model", "test_mask", f"ours_{its}")
+    pred_root = os.path.join(work, "lerf_pred")
+    os.makedirs(pred_root)
+    os.symlink(masks, os.path.join(pred_root, "hard"))
+    csv = os.path.join(work, "lerf_eval.csv")
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        eval_lerf_mask.main(["--gt_root", os.path.dirname(gt_dir), "--pred_root", pred_root,
+                             "--scenes", "hard", "--out_csv", csv])
+    rows = open(csv).read().splitlines()
+    if launches != len(gts) + 1 or len(rows) != len(gts) + 1:
+        raise AssertionError(f"[lerf] K1 launched {launches} times for {len(gts)} views; "
+                             f"the CSV holds {len(rows) - 1} masks")
+    summary = [ln for ln in buf.getvalue().splitlines() if ln.startswith("ALL")]
+    results["lerf"] = dict(object=obj, launches=launches, seconds=render_s,
+                           selected=selected, eval=summary,
+                           exported_px=int(sum(np.asarray(Image.open(os.path.join(masks, f)))
+                                               .astype(bool).sum()
+                                               for f in os.listdir(masks) if f.endswith(".png"))))
+    log(f"[lerf] render_lerf_mask on the loop's model: {json.dumps(results['lerf'])}")
+
+
+def room_mesh(n_faces: int = MESH_FACES, seed: int = 0):
+    """A seeded annotated mesh of ``n_faces`` triangles in an 8 × 3 × 6 m room:
+    its six surfaces tessellated at 5 cm (labels 1-6) and boxes of 0.2-0.8 m
+    on the floor and in the air, each surface an n × n grid (labels 7-46),
+    cut to ``n_faces``. Every triangle has its own three vertices. Returns
+    (verts [3F, 3] float32, faces [F, 3] int32, per-vertex labels [3F] int32)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lo, hi = np.array([-4.0, -1.5, -3.0]), np.array([4.0, 1.5, 3.0])
+
+    def grid(origin, u, v, nu, nv):
+        """Triangles [2·nu·nv, 3, 3] of the parallelogram origin + [0,1]u + [0,1]v."""
+        a, b = np.meshgrid(np.arange(nu) / nu, np.arange(nv) / nv, indexing="ij")
+        p0 = origin + a.reshape(-1, 1) * u + b.reshape(-1, 1) * v
+        du, dv = u / nu, v / nv
+        return np.concatenate([np.stack([p0, p0 + du, p0 + du + dv], 1),
+                               np.stack([p0, p0 + du + dv, p0 + dv], 1)])
+
+    tris, labels = [], []
+    ext = hi - lo
+    for label, (axis, side) in enumerate(((1, 0), (1, 1), (0, 0), (0, 1), (2, 0), (2, 1)), 1):
+        i, j = [a for a in range(3) if a != axis]
+        origin = lo.copy()
+        origin[axis] = (lo if side == 0 else hi)[axis]
+        u, v = np.zeros(3), np.zeros(3)
+        u[i], v[j] = ext[i], ext[j]
+        t = grid(origin, u, v, int(ext[i] / 0.05), int(ext[j] / 0.05))
+        tris.append(t)
+        labels.append(np.full(len(t), label))
+    count, box = sum(len(t) for t in tris), 0
+    while count < n_faces:
+        size = rng.uniform(0.2, 0.8, 3)
+        while True:                      # keep the camera's 1.2 m around the centre free
+            c = rng.uniform(lo + size / 2 + 0.05, hi - size / 2 - 0.05)
+            if np.linalg.norm(c[[0, 2]]) > 1.2 + size.max():
+                break
+        b0 = c - size / 2
+        for axis in range(3):
+            i, j = [a for a in range(3) if a != axis]
+            for side in (0, 1):
+                origin = b0.copy()
+                origin[axis] += side * size[axis]
+                u, v = np.zeros(3), np.zeros(3)
+                u[i], v[j] = size[i], size[j]
+                t = grid(origin, u, v, 20, 20)
+                tris.append(t)
+                labels.append(np.full(len(t), 7 + box % 40))
+                count += len(t)
+        box += 1
+    tris = np.concatenate(tris)[:n_faces].astype(np.float32)
+    face_labels = np.concatenate(labels)[:n_faces].astype(np.int32)
+    verts = tris.reshape(-1, 3)
+    faces = np.arange(len(verts), dtype=np.int32).reshape(-1, 3)
+    return verts, faces, np.repeat(face_labels, 3)
+
+
+def write_mesh_ply(path: str, verts, faces, vlabels) -> None:
+    """Binary little-endian PLY: float x, y, z and an int label per vertex,
+    triangles as (uchar 3, int indices)."""
+    import numpy as np
+
+    header = ("ply\nformat binary_little_endian 1.0\n"
+              f"element vertex {len(verts)}\nproperty float x\nproperty float y\n"
+              "property float z\nproperty int label\n"
+              f"element face {len(faces)}\nproperty list uchar int vertex_indices\n"
+              "end_header\n")
+    v = np.zeros(len(verts), [("x", "<f4"), ("y", "<f4"), ("z", "<f4"), ("label", "<i4")])
+    v["x"], v["y"], v["z"], v["label"] = verts[:, 0], verts[:, 1], verts[:, 2], vlabels
+    f = np.zeros(len(faces), [("n", "u1"), ("i", "<i4", (3,))])
+    f["n"], f["i"] = 3, faces
+    with open(path, "wb") as fh:
+        fh.write(header.encode() + v.tobytes() + f.tobytes())
+
+
+def mesh_cameras(path: str):
+    """MESH_VIEWS cameras at the room's centre, yawing around it, in the stage
+    camera JSON (world→camera R, tvec; fx, fy, cx, cy of a 1752×1168 frame)."""
+    import numpy as np
+
+    images = {}
+    for i in range(MESH_VIEWS):
+        yaw, pitch = 2 * np.pi * i / MESH_VIEWS, 0.15 * np.sin(i)
+        ry = np.array([[np.cos(yaw), 0, -np.sin(yaw)], [0, 1, 0], [np.sin(yaw), 0, np.cos(yaw)]])
+        rx = np.array([[1, 0, 0], [0, np.cos(pitch), -np.sin(pitch)],
+                       [0, np.sin(pitch), np.cos(pitch)]])
+        R = rx @ ry
+        centre = np.array([0.2 * np.cos(i), 0.1, 0.2 * np.sin(i)])
+        images[str(i)] = {"name": f"DSC{i:05d}.JPG", "camera_id": "0", "R": R.tolist(),
+                          "tvec": (-R @ centre).tolist()}
+    w, h = MESH_IMAGE
+    with open(path, "w") as f:
+        json.dump({"images": images,
+                   "cameras": {"0": {"params": [1200.0, 1200.0, w / 2, h / 2]}}}, f)
+
+
+def phase_mesh(results, root: str):
+    """(e) render_scannetpp_gt on a 1 048 576-face room at 876×584 for 8 views,
+    its labels on one view against the CPU's, eval_scannetpp of the GT against
+    itself, and tests/test_miou_loop.py's closed loop through K1 at 3 channels."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from segsplat_tpu_torch import eval_scannetpp, render_scannetpp_gt
+    from segsplat_tpu_torch.eval.metrics import confusion_matrix, iou_per_class
+    from segsplat_tpu_torch.io.artifacts import load_label_map
+    from segsplat_tpu_torch.ops import blend as B
+    from segsplat_tpu_torch.ops.mesh_raster import MISS_LABEL, rasterize_mesh_labels_chunked
+    from segsplat_tpu_torch.ops.rasterize import rasterize
+    from segsplat_tpu_torch.pipeline.lift_features import load_camera_json
+
+    work = os.path.join(root, "scannetpp")
+    os.makedirs(work)
+    t0 = time.perf_counter()
+    verts, faces, vlabels = room_mesh()
+    mesh, cams, gt_dir = (os.path.join(work, n) for n in ("mesh.ply", "cams.json", "gt"))
+    write_mesh_ply(mesh, verts, faces, vlabels)
+    mesh_cameras(cams)
+    setup_s = time.perf_counter() - t0
+    w, h = MESH_IMAGE
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        render_scannetpp_gt.main(["--mesh", mesh, "--camera_params", cams, "--image_size",
+                                  str(w), str(h), "--downsample", str(MESH_DOWNSAMPLE),
+                                  "--out_dir", gt_dir, "--device", "cuda"])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    cli_log = buf.getvalue().splitlines()
+    warns = [ln for ln in cli_log if ln.startswith("[WARN]")]
+    coverage = [ln.strip() for ln in cli_log if "coverage" in ln]
+    if len(coverage) != MESH_VIEWS:
+        raise AssertionError(f"[mesh] the CLI rendered {len(coverage)} views: {cli_log}")
+
+    # one view on the card, timed, and on the CPU
+    entries, params, _ = load_camera_json(cams)
+    name = sorted(entries)[0]
+    e = entries[name]
+    vm = np.eye(4, dtype=np.float32)
+    vm[:3, :3], vm[:3, 3] = np.asarray(e["R"]), np.asarray(e["tvec"])
+    fx, fy, cx, cy = (float(x) * MESH_DOWNSAMPLE for x in params["0"])
+    W, H = round(w * MESH_DOWNSAMPLE), round(h * MESH_DOWNSAMPLE)
+
+    def raster(dev):
+        return rasterize_mesh_labels_chunked(
+            torch.as_tensor(verts, device=dev), torch.as_tensor(faces, device=dev),
+            torch.as_tensor(vlabels[::3].copy(), device=dev), torch.as_tensor(vm, device=dev),
+            fx, fy, cx, cy, W, H)
+
+    view_ms = cuda_time_ms(lambda: raster("cuda"), reps=3, warmup=1)
+    lab, depth, overflow = (x.cpu() for x in raster("cuda"))
+    if not np.array_equal(lab.numpy(), load_label_map(os.path.join(gt_dir, f"{name}_labels.pt"))):
+        raise AssertionError("[mesh] the CLI's label map differs from the same call's")
+    t0 = time.perf_counter()
+    c_lab, c_depth, c_over = raster("cpu")
+    cpu_s = time.perf_counter() - t0
+    differ = lab != c_lab
+    tie = (torch.isfinite(depth) & torch.isfinite(c_depth)
+           & ((depth - c_depth).abs() <= MESH_DEPTH_TIE * c_depth.abs()))
+    if bool((differ & ~tie).any()) or int(overflow) != int(c_over):
+        raise AssertionError(f"[mesh] card and CPU labels differ on {int(differ.sum())} "
+                             f"pixels, {int((differ & ~tie).sum())} of them no depth tie; "
+                             f"overflow {int(overflow)} against {int(c_over)}")
+    trace = device_trace(lambda v: raster("cuda"), 1)
+
+    n_cls = int(vlabels.max()) + 1
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        eval_scannetpp.main(["--pred_dir", gt_dir, "--gt_dir", gt_dir, "--num_classes",
+                             str(n_cls), "--ignore_label", str(MISS_LABEL)])
+    self_eval = buf.getvalue().splitlines()[0]
+    if "mIoU 1.0000" not in self_eval:
+        raise AssertionError(f"[mesh] GT against itself: {self_eval}")
+
+    # tests/test_miou_loop.py's construction: Gaussians on two labelled quads, K1
+    # at 3 channels, against the mesh GT of the quads
+    quads = np.array([[-1.4, -0.15], [0.15, 1.4]], np.float32)
+    qv = np.concatenate([np.array([[x0, -0.9, 3.0], [x1, -0.9, 3.0], [x1, 0.9, 3.0],
+                                   [x0, 0.9, 3.0]], np.float32) for x0, x1 in quads])
+    qf = np.array([[0, 1, 2], [0, 2, 3], [4, 5, 6], [4, 6, 7]], np.int32)
+    qW, qH, qfx = 96, 80, 90.0
+    eye = torch.eye(4, device="cuda")
+    d = lambda a: torch.as_tensor(a, device="cuda")
+    gt = rasterize_mesh_labels_chunked(d(qv), d(qf), d(np.array([1, 1, 2, 2], np.int32)), eye,
+                                       qfx, qfx, qW / 2, qH / 2, qW, qH,
+                                       max_tiles_per_axis=6, max_per_tile=64,
+                                       tile_chunk=5)[0].cpu().numpy()
+    xs, ys = np.meshgrid(np.linspace(0, 1, 24), np.linspace(-0.9, 0.9, 24))
+    pts = np.concatenate([np.stack([x0 + (x1 - x0) * xs.ravel(), ys.ravel(),
+                                    np.full(xs.size, 3.0)], 1) for x0, x1 in quads])
+    n = len(pts)
+    logits = np.full((n, 3), -10.0, np.float32)
+    logits[np.arange(n), np.repeat([1, 2], n // 2)] = 10.0
+    B.blend_tiles.launches = 0
+    out = rasterize(d(pts.astype(np.float32)), torch.full((n, 3), 0.05, device="cuda"),
+                    d(np.tile([1.0, 0, 0, 0], (n, 1)).astype(np.float32)),
+                    torch.full((n,), 0.95, device="cuda"), d(logits), eye, qfx, qfx,
+                    qW / 2, qH / 2, qW, qH, max_tiles_per_axis=6, max_per_tile=128)
+    pred = np.where(out["alpha"].cpu().numpy() > 0.5, out["image"].cpu().numpy().argmax(-1),
+                    MISS_LABEL)
+    mask = gt != MISS_LABEL
+    conf = confusion_matrix(np.where(pred == MISS_LABEL, 0, pred)[mask], gt[mask],
+                            num_classes=3)
+    miou = float(np.nanmean(iou_per_class(conf)[1:]))
+    if B.blend_tiles.launches != 1 or miou <= 0.8:
+        raise AssertionError(f"[mesh] mIoU loop: {miou:.4f} with K1 launched "
+                             f"{B.blend_tiles.launches} times")
+    results["mesh"] = dict(faces=len(faces), views=MESH_VIEWS, size=[W, H],
+                           setup_s=setup_s, cli_s=cli_s, cli_s_per_view=cli_s / MESH_VIEWS,
+                           view_ms=view_ms, overflow_view0=int(overflow), warnings=len(warns),
+                           coverage=coverage, cpu_view_s=cpu_s,
+                           card_vs_cpu_differ=int(differ.sum()), trace=trace,
+                           self_eval=self_eval, miou_loop=miou)
+    log(f"[mesh] {json.dumps(results['mesh'])}")
+    for ln in warns:
+        log(f"[mesh] {ln}")
+
+
 LIST_KEYS = ("warp_rows_read", "warp_rows_kept", "warp_rows_hit", "kept_share", "hit_share")
 
 
@@ -2087,9 +2703,25 @@ def kernel_entry(name, ch, source, replaces, launches, max_abs_err, t, **extra):
                 library_ms=None, **{k: t[k] for k in LIST_KEYS if k in t}, **extra)
 
 
-def main() -> int:
+PHASES = ("small", "full", "main", "train", "train-cli", "logits", "other-blends", "lift",
+          "query", "widths", "slic", "loop", "mesh")
+PSEUDO_LABEL_PHASES = ("widths", "slic", "loop", "mesh")      # phase 10 (a)-(e)
+
+
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated phases to run (all by default); the kernels "
+                         "line and the final line are printed only for all of them")
+    args = ap.parse_args(argv)
+    phases = args.phases.split(",")
+    unknown = sorted(set(phases) - set(PHASES))
+    if unknown:
+        ap.error(f"unknown phases {unknown}; choose from {PHASES}")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs "
               "an NVIDIA GPU", file=sys.stderr)
@@ -2115,36 +2747,51 @@ def main() -> int:
                 if "registers" in line or "spill" in line or "Compiling entry" in line:
                     log(f"[ptxas] {line.strip()}")
 
-    from segsplat_tpu_torch.ops.blend import (KERNEL_CHANNELS, blend_forward_occupancy,
+    from segsplat_tpu_torch.ops.blend import (KERNEL_WIDTHS, PACKED_WIDTHS,
+                                              blend_forward_occupancy,
                                               blend_tiles_bwd_occupancy)
 
     k2_occupancy = {}
-    for ch in KERNEL_CHANNELS:
+    for ch in KERNEL_WIDTHS:
         blocks, smem = blend_tiles_bwd_occupancy(ch)
         k2_occupancy[ch] = dict(blocks_per_sm=blocks, smem_bytes=smem)
     log(f"[occupancy] blend_bwd: {json.dumps(k2_occupancy)}")
-    occupancy = {k: {ch: blend_forward_occupancy(k, ch) for ch in KERNEL_CHANNELS}
-                 for k in ("blend_fwd", "blend_packed")}
+    occupancy = {k: {ch: blend_forward_occupancy(k, ch) for ch in widths}
+                 for k, widths in (("blend_fwd", KERNEL_WIDTHS),
+                                   ("blend_packed", PACKED_WIDTHS))}
     log(f"[occupancy] {json.dumps(occupancy)}")
 
     results = {"fwd_err": 0.0, "bwd_err": 0.0, "packed_err": 0.0, "scenes": {},
                "launches": {}, "packed": {}}
     root = tempfile.mkdtemp(prefix="chip_smoke_")
+    run = {"small": lambda: phase_small(results),
+           "full": lambda: phase_full(results),
+           "main": lambda: phase_main_path(results, root),
+           "train": lambda: phase_train_step(results),
+           "train-cli": lambda: phase_train_cli(results, root),
+           "logits": lambda: phase_logits_render(results),
+           "other-blends": lambda: phase_other_blends(results),
+           "lift": lambda: phase_lift(results, root),
+           "query": lambda: phase_query(results, root),
+           "widths": lambda: phase_widths(results),
+           "slic": lambda: phase_slic(results),
+           "loop": lambda: phase_loop(results, root),
+           "mesh": lambda: phase_mesh(results, root)}
+    seconds = {}
     try:
-        for name, phase in (("small", lambda: phase_small(results)),
-                            ("full", lambda: phase_full(results)),
-                            ("main", lambda: phase_main_path(results, root)),
-                            ("train", lambda: phase_train_step(results)),
-                            ("train-cli", lambda: phase_train_cli(results, root)),
-                            ("logits", lambda: phase_logits_render(results)),
-                            ("other-blends", lambda: phase_other_blends(results)),
-                            ("lift", lambda: phase_lift(results, root)),
-                            ("query", lambda: phase_query(results, root))):
+        for name in phases:
             t0 = time.perf_counter()
-            phase()
-            log(f"[{name}] done in {time.perf_counter() - t0:.1f} s")
+            run[name]()
+            seconds[name] = time.perf_counter() - t0
+            log(f"[{name}] done in {seconds[name]:.1f} s")
+        log(f"[pseudo-labels] phase 10 in "
+            f"{sum(seconds.get(p, 0.0) for p in PSEUDO_LABEL_PHASES):.1f} s")
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    if set(phases) != set(PHASES):
+        log(f"[total] {time.perf_counter() - t_all:.1f} s for phases {phases} on {smi}; "
+            "no result line: not every phase ran")
+        return 2
 
     fwd_src, bwd_src, packed_src = (f"segsplat_tpu_torch/csrc/{k}.cu" for k in KERNELS)
     k1_tpu, k2_tpu = ("segsplat_tpu/ops/blend_pallas.py:188",
@@ -2189,6 +2836,25 @@ def main() -> int:
                      path="render(semantic_logits) with USE_PACKED",
                      **occupancy["blend_packed"][51]),
     ]
+    slic, loop = results["slic"], results["loop"]
+    for key, label in (("sweep20", "hard scene, 20 objects"), ("sweep5", "5 objects")):
+        sw = slic[key]
+        width = sw["fwd"]["kernel_width"]
+        kernels.append(kernel_entry(
+            "blend_fwd", sw["ch"], fwd_src, k1_tpu, sw["launches"], sw["fwd"]["max_abs_err"],
+            sw["fwd"], path=f"pseudo_label_loop GT sweep, {label}, {SLIC_W}x{SLIC_H}",
+            kernel_width=width, k2_same_inputs=sw["bwd"], **occupancy["blend_fwd"][width]))
+    kernels.append(kernel_entry(
+        "blend_fwd", 19, fwd_src, k1_tpu,
+        loop["launches_by_stage"]["train"]["blend_fwd"]
+        + loop["launches_by_stage"]["predict"]["blend_fwd"],
+        loop["fwd19"]["max_abs_err"], loop["fwd19"],
+        path="pseudo_label_loop training + identity prediction, hard scene",
+        **occupancy["blend_fwd"][19]))
+    kernels.append(kernel_entry(
+        "blend_bwd", 19, bwd_src, k2_tpu, loop["launches_by_stage"]["train"]["blend_bwd"],
+        loop["bwd19"]["max_abs_err"], loop["bwd19"],
+        path="pseudo_label_loop training, hard scene", **k2_occupancy[19]))
     log(f"[total] {time.perf_counter() - t_all:.1f} s on {smi}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

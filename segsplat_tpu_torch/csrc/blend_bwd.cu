@@ -74,6 +74,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "blend_widths.cuh"
+
 namespace {
 
 constexpr int kTile = 16;
@@ -104,18 +106,22 @@ struct Layout {
   static constexpr int kW4 = kGeom4 + kC4;       // float4s per payload row
   static constexpr int kNV = 6 + CH;             // per-row sums: 6 geometry + CH colours
   static constexpr int kNVP = kNV | 1;           // partial row stride in floats, odd
-  static constexpr int kWarpFloats = 2 * R * kStride;   // a warp's w and dop arrays
+  // a warp's w and dop arrays, which its partials [R][kNVP] reuse (past 59
+  // channels the partials are the larger)
+  static constexpr int kWarpFloats = 2 * R * kStride > R * kNVP ? 2 * R * kStride : R * kNVP;
   static constexpr size_t kBytes =
       16 * 2 * R * kW4 + sizeof(float) * (kPx * kS + kWarps * kWarpFloats);
   static_assert(R * kHalves == 32 && RR * GR == R, "the lane grid covers the chunk");
-  static_assert(R * kNVP <= kWarpFloats, "partials fit in a warp's w / dop rows");
+  // two blocks an SM up to 51 channels; past that one, so that phase A's
+  // CHP cotangents and phase B's RR x CC sums stay in registers
+  static constexpr int kMinBlocks = CH > 51 ? 1 : 2;
   static_assert(R % kBatch == 0, "phase A's batches tile the chunk");
   static constexpr int kImgFit = kWarps * kWarpFloats / (kTile * kS);
   static constexpr int kImgRows = kImgFit < kTile ? kImgFit : kTile;  // img rows staged at once
 };
 
 template <int CH>
-__global__ void __launch_bounds__(kPx, 2)
+__global__ void __launch_bounds__(kPx, Layout<CH>::kMinBlocks)
 blend_bwd_kernel(const int32_t* __restrict__ offsets,
                  const float4* __restrict__ payload,
                  const float* __restrict__ bg,
@@ -402,17 +408,13 @@ extern "C" int segsplat_blend_bwd(const void* offsets, const void* payload,
                                   void* d_payload, int tx_n, int ty_n, int k_max,
                                   int ch, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (ch) {  // training renders 19 channels, the semantic path 32,
-                 // render(semantic_logits=...) 51
-    case 19:
-      return launch<19>(offsets, payload, bg, img, alpha, g_img, g_alpha, d_payload,
-                        tx_n, ty_n, k_max, s);
-    case 32:
-      return launch<32>(offsets, payload, bg, img, alpha, g_img, g_alpha, d_payload,
-                        tx_n, ty_n, k_max, s);
-    case 51:
-      return launch<51>(offsets, payload, bg, img, alpha, g_img, g_alpha, d_payload,
-                        tx_n, ty_n, k_max, s);
+  switch (ch) {  // ops/blend.py pads CH up to one of these widths
+#define SEGSPLAT_CASE(W)                                                           \
+    case W:                                                                        \
+      return launch<W>(offsets, payload, bg, img, alpha, g_img, g_alpha, d_payload, \
+                       tx_n, ty_n, k_max, s);
+    SEGSPLAT_WIDTHS(SEGSPLAT_CASE)
+#undef SEGSPLAT_CASE
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -423,9 +425,10 @@ extern "C" int segsplat_blend_bwd(const void* offsets, const void* payload,
 // Returns a cudaError_t.
 extern "C" int segsplat_blend_bwd_occupancy(int ch, int* blocks_per_sm, int* smem_bytes) {
   switch (ch) {
-    case 19: return occupancy<19>(blocks_per_sm, smem_bytes);
-    case 32: return occupancy<32>(blocks_per_sm, smem_bytes);
-    case 51: return occupancy<51>(blocks_per_sm, smem_bytes);
+#define SEGSPLAT_CASE(W) \
+    case W: return occupancy<W>(blocks_per_sm, smem_bytes);
+    SEGSPLAT_WIDTHS(SEGSPLAT_CASE)
+#undef SEGSPLAT_CASE
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -24,6 +24,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "blend_widths.cuh"
+
 // Per-segment cycle counters. In a build with -DSEGSPLAT_CLOCKS each warp reads
 // clock64() at the borders of its segments (SEG_MARK), counts the rows its
 // lists keep (SEG_KEPT), adds both to device counters at its end (SEG_FLUSH),
@@ -215,14 +217,17 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
 // one bit each in a warp's list; a ring of kStages chunks (28 672 / 40 960 /
 // 46 080 B at 19 / 32 / 51 channels, inside the 48 KB of static shared
 // memory); __launch_bounds__'s blocks per SM, which hold ptxas to 64 / 80 /
-// 128 registers without spills.
+// 128 registers without spills. Past 51 channels a ring of three 64-row chunks
+// would pass 48 KB, so it holds two (36 864 B at 64, 32 768 B for K3 at 56),
+// and past 64 two chunks of 32 rows (26 624 / 32 768 B at 96 / 120), with
+// one block per SM so that the CH running sums stay in registers.
 template <int CH>
 struct Layout {
   static constexpr int CHP = (CH + 3) / 4 * 4;    // colours padded to whole float4s
   static constexpr int kW4 = kGeom4 + CHP / 4;    // float4s of a row the blend reads
-  static constexpr int kRows = 64;
-  static constexpr int kStages = CH > 32 ? 3 : 4;
-  static constexpr int kMinBlocks = CH > 32 ? 2 : CH > 19 ? 3 : 4;
+  static constexpr int kRows = CH > 64 ? 32 : 64;
+  static constexpr int kStages = CH > 51 ? 2 : CH > 32 ? 3 : 4;
+  static constexpr int kMinBlocks = CH > 64 ? 1 : CH > 32 ? 2 : CH > 19 ? 3 : 4;
 };
 
 // rows in the chunk from c0: up to ``rows``, ending at count or at the end of

@@ -165,11 +165,11 @@ extern "C" int segsplat_blend_fwd(const void* offsets, const void* payload,
                                   int ch, void* stream) {
   if (g_block <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (ch) {  // training renders 19 channels, the semantic path 32,
-                 // render(semantic_logits=...) 51
-    case 19: return launch<19>(offsets, payload, bg, img, alpha, tx_n, ty_n, k_max, g_block, s);
-    case 32: return launch<32>(offsets, payload, bg, img, alpha, tx_n, ty_n, k_max, g_block, s);
-    case 51: return launch<51>(offsets, payload, bg, img, alpha, tx_n, ty_n, k_max, g_block, s);
+  switch (ch) {  // ops/blend.py pads CH up to one of these widths
+#define SEGSPLAT_CASE(W) \
+    case W: return launch<W>(offsets, payload, bg, img, alpha, tx_n, ty_n, k_max, g_block, s);
+    SEGSPLAT_WIDTHS(SEGSPLAT_CASE)
+#undef SEGSPLAT_CASE
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -180,12 +180,11 @@ extern "C" int segsplat_blend_fwd(const void* offsets, const void* payload,
 extern "C" int segsplat_blend_fwd_occupancy(int ch, int* blocks_per_sm, int* smem_bytes,
                                             int* registers, int* local_bytes) {
   switch (ch) {
-    case 19: return segsplat::occupancy(blend_fwd_kernel<19>, blocks_per_sm, smem_bytes,
-                                        registers, local_bytes);
-    case 32: return segsplat::occupancy(blend_fwd_kernel<32>, blocks_per_sm, smem_bytes,
-                                        registers, local_bytes);
-    case 51: return segsplat::occupancy(blend_fwd_kernel<51>, blocks_per_sm, smem_bytes,
-                                        registers, local_bytes);
+#define SEGSPLAT_CASE(W)                                                              \
+    case W: return segsplat::occupancy(blend_fwd_kernel<W>, blocks_per_sm, smem_bytes, \
+                                       registers, local_bytes);
+    SEGSPLAT_WIDTHS(SEGSPLAT_CASE)
+#undef SEGSPLAT_CASE
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -154,10 +154,11 @@ extern "C" int segsplat_blend_packed(const void* offsets, const void* packed,
                                      int ch, void* stream) {
   if (g_block <= 0 || g_block % 2) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (ch) {  // the channel counts blend_fwd.cu is built for
-    case 19: return launch<19>(offsets, packed, bg, img, alpha, tx_n, ty_n, k_max, g_block, s);
-    case 32: return launch<32>(offsets, packed, bg, img, alpha, tx_n, ty_n, k_max, g_block, s);
-    case 51: return launch<51>(offsets, packed, bg, img, alpha, tx_n, ty_n, k_max, g_block, s);
+  switch (ch) {  // ops/blend.py pads CH up to one of these widths
+#define SEGSPLAT_CASE(W) \
+    case W: return launch<W>(offsets, packed, bg, img, alpha, tx_n, ty_n, k_max, g_block, s);
+    SEGSPLAT_PACKED_WIDTHS(SEGSPLAT_CASE)
+#undef SEGSPLAT_CASE
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -167,12 +168,11 @@ extern "C" int segsplat_blend_packed(const void* offsets, const void* packed,
 extern "C" int segsplat_blend_packed_occupancy(int ch, int* blocks_per_sm, int* smem_bytes,
                                                int* registers, int* local_bytes) {
   switch (ch) {
-    case 19: return segsplat::occupancy(blend_packed_kernel<19>, blocks_per_sm, smem_bytes,
-                                        registers, local_bytes);
-    case 32: return segsplat::occupancy(blend_packed_kernel<32>, blocks_per_sm, smem_bytes,
-                                        registers, local_bytes);
-    case 51: return segsplat::occupancy(blend_packed_kernel<51>, blocks_per_sm, smem_bytes,
-                                        registers, local_bytes);
+#define SEGSPLAT_CASE(W)                                                                 \
+    case W: return segsplat::occupancy(blend_packed_kernel<W>, blocks_per_sm, smem_bytes, \
+                                       registers, local_bytes);
+    SEGSPLAT_PACKED_WIDTHS(SEGSPLAT_CASE)
+#undef SEGSPLAT_CASE
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

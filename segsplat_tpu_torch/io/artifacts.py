@@ -2,8 +2,9 @@
 {xyz f32, avg_feats fp16, voxel_coords int64} or .npz {pos, feat, coords}
 (aggregate_voxel_features_onthefly.py:379-453), the per-image LSeg feature maps
 (fp16 [C, H, W] .npy), the ``gaussian_semantics`` .npz {labels, logits, prompts}
-(voxeltoGaussian_logits.py:235) and the per-view ``*_labels.pt``
-{label_indices} (render_semantics_logits.py:141-143)."""
+(voxeltoGaussian_logits.py:235), the per-view ``*_labels.pt``
+{label_indices} (render_semantics_logits.py:141-143) and the identity codebook
+(``classifier.npz`` or the reference's ``classifier.pth``)."""
 
 from __future__ import annotations
 
@@ -85,3 +86,33 @@ def load_label_map(path: str) -> np.ndarray:
     if path.endswith(".pt"):
         return torch.load(path, map_location="cpu", weights_only=True)["label_indices"].numpy()
     return np.load(path)
+
+
+def load_codebook(path: str) -> np.ndarray:
+    """The [256, 16] identity codebook, from ``classifier.npz`` (key
+    ``code_book``) or the reference's torch-saved ``classifier.pth``: a raw
+    [256, 16] tensor (train_unified_lift.py:295-297, 437), the 1×1-Conv2d
+    weight [256, 16, 1, 1] it was reshaped from, or a state dict holding
+    either."""
+    if path.endswith(".npz"):
+        return np.load(path)["code_book"].astype(np.float32)
+    obj = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(obj, dict):           # state_dict-style {'weight': ...}
+        obj = next(iter(obj.values()))
+    arr = np.asarray(obj.detach().float().numpy() if hasattr(obj, "detach") else obj,
+                     np.float32)
+    if arr.ndim == 4:                   # Conv2d weight [K, 16, 1, 1]
+        arr = arr[:, :, 0, 0]
+    if arr.ndim != 2:
+        raise ValueError(f"{path}: expected a [num_classes, 16] codebook, got shape {arr.shape}")
+    return arr
+
+
+def find_codebook(model_path: str, iteration: int) -> str:
+    """The codebook beside ``point_cloud/iteration_N``: ``classifier.npz``
+    where it exists or where ``classifier.pth`` does not, else the reference's
+    ``classifier.pth``."""
+    base = os.path.join(model_path, "point_cloud", f"iteration_{iteration}")
+    npz = os.path.join(base, "classifier.npz")
+    pth = os.path.join(base, "classifier.pth")
+    return npz if os.path.exists(npz) or not os.path.exists(pth) else pth

@@ -1,5 +1,7 @@
-"""COLMAP sparse-reconstruction readers (binary + text), in COLMAP's public
-formats; the fields match the reference's scene/colmap_loader.py:125-293."""
+"""COLMAP sparse-reconstruction readers (binary + text) and the binary writers
+of synthetic scenes, in COLMAP's public formats; the fields match the
+reference's scene/colmap_loader.py:125-293. A file written here is the same
+bytes as one the JAX package writes from the same inputs."""
 
 from __future__ import annotations
 
@@ -140,3 +142,37 @@ def read_points3D_text(path: str):
             rgbs.append([int(x) for x in el[4:7]])
             errs.append(float(el[7]))
     return (np.array(xyzs), np.array(rgbs, np.uint8), np.array(errs))
+
+
+CAMERA_MODEL_NAMES = {m.model_name: m for m in CAMERA_MODELS.values()}
+
+
+def write_points3D_binary(path: str, xyz: np.ndarray, rgb: np.ndarray,
+                          err: np.ndarray = None) -> None:
+    """Minimal points3D.bin writer (for synthetic scenes): no tracks."""
+    err = np.zeros(len(xyz)) if err is None else err
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(xyz)))
+        for i in range(len(xyz)):
+            f.write(struct.pack("<QdddBBBd", i + 1, *xyz[i], *rgb[i].astype(np.uint8), err[i]))
+            f.write(struct.pack("<Q", 0))
+
+
+def write_extrinsics_binary(path: str, images: Dict[int, ColmapImage]) -> None:
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(images)))
+        for im in images.values():
+            f.write(struct.pack("<idddddddi", im.id, *im.qvec, *im.tvec, im.camera_id))
+            f.write(im.name.encode("utf-8") + b"\x00")
+            f.write(struct.pack("<Q", len(im.point3D_ids)))
+            for (x, y), pid in zip(im.xys, im.point3D_ids):
+                f.write(struct.pack("<ddq", x, y, pid))
+
+
+def write_intrinsics_binary(path: str, cameras: Dict[int, ColmapCamera]) -> None:
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(cameras)))
+        for cam in cameras.values():
+            model = CAMERA_MODEL_NAMES[cam.model]
+            f.write(struct.pack("<iiQQ", cam.id, model.model_id, cam.width, cam.height))
+            f.write(struct.pack("<" + "d" * model.num_params, *cam.params))

@@ -1,10 +1,11 @@
-"""Self-contained PLY I/O for vertex-only files: Gaussian checkpoints (x/y/z,
-nx/ny/nz, f_dc_*, f_rest_*, opacity, scale_*, rot_*, obj_dc_*; the reference's
-scene/gaussian_model.py:363-397 layout), coloured point clouds, and voxel grids
+"""Self-contained PLY I/O: Gaussian checkpoints (x/y/z, nx/ny/nz, f_dc_*,
+f_rest_*, opacity, scale_*, rot_*, obj_dc_*; the reference's
+scene/gaussian_model.py:363-397 layout), coloured point clouds, voxel grids
 whose header comments ``voxel_size v`` / ``grid_origin x y z`` / ``grid_shape
 sx sy sz`` carry the grid's metadata from one stage to the next (the
-reference's minkowski_voxel_grid_from_ply_advanced.py:173-205). The body is
-read with one ``np.frombuffer`` (binary) or one split (ascii)."""
+reference's minkowski_voxel_grid_from_ply_advanced.py:173-205), and the
+triangles of a mesh's ``face`` element (annotated ScanNet++ meshes). The vertex
+body is read with one ``np.frombuffer`` (binary) or one split (ascii)."""
 
 from __future__ import annotations
 
@@ -39,6 +40,7 @@ class PlyContent:
     voxel_size: Optional[float] = None
     grid_origin: Optional[np.ndarray] = None
     grid_shape: Optional[Tuple[int, int, int]] = None
+    faces: Optional[np.ndarray] = None   # [F, 3] int32 triangles where present
 
     def __getitem__(self, name):
         return self.vertex[name]
@@ -91,17 +93,26 @@ def read_ply(path: str) -> PlyContent:
             elements.append((tok[1], int(tok[2]), []))
         elif tok[0] == "property":
             if tok[1] == "list":
-                raise ValueError(f"{path}: list properties (meshes) are not read "
-                                 f"by this reader")
-            elements[-1][2].append((tok[-1], _PLY_TO_NUMPY[tok[1]]))
+                elements[-1][2].append((tok[-1], f"LIST:{tok[2]}:{tok[3]}"))
+            else:
+                elements[-1][2].append((tok[-1], _PLY_TO_NUMPY[tok[1]]))
 
     vertex = None
+    faces = None
     if fmt == "ascii":
         rows = [r for r in body.decode("ascii").split("\n") if r.strip()]
         row_i = 0
         for name, count, props in elements:
             if len(rows) < row_i + count:
                 raise ValueError(f"{path}: truncated ascii PLY body")
+            if any(t.startswith("LIST") for _, t in props):
+                if name == "face":
+                    tri = [[int(x) for x in tok[1:4]] for tok in
+                           (r.split() for r in rows[row_i:row_i + count])
+                           if len(tok) >= 4 and tok[0] == "3"]
+                    faces = np.asarray(tri, np.int32) if tri else None
+                row_i += count
+                continue
             flat = np.array(" ".join(rows[row_i:row_i + count]).split(),
                             dtype=np.float64).reshape(count, len(props))
             arr = np.empty(count, dtype=np.dtype(props))
@@ -114,6 +125,11 @@ def read_ply(path: str) -> PlyContent:
         byte_order = "<" if "little" in (fmt or "") else ">"
         offset = 0
         for name, count, props in elements:
+            if any(t.startswith("LIST") for _, t in props):
+                tri, offset = _read_binary_lists(body, offset, count, props, byte_order)
+                if name == "face" and len(tri):
+                    faces = tri
+                continue
             dt = np.dtype([(p, byte_order + t) for p, t in props])
             arr = np.frombuffer(body, dtype=dt, count=count, offset=offset).copy()
             offset += dt.itemsize * count
@@ -124,7 +140,37 @@ def read_ply(path: str) -> PlyContent:
         raise ValueError(f"{path}: no vertex element")
     vs, origin, shape = _parse_grid_comments(comments)
     return PlyContent(vertex=vertex, comments=comments, voxel_size=vs,
-                      grid_origin=origin, grid_shape=shape)
+                      grid_origin=origin, grid_shape=shape, faces=faces)
+
+
+def _read_binary_lists(body: bytes, offset: int, count: int, props, byte_order: str):
+    """A binary element with list properties: its rows with exactly three
+    indices as triangles [F, 3] int32 (others skipped), and the offset past
+    it. An element of one list whose rows all hold three indices is read in
+    one pass; any other, row by row."""
+    dts = [(np.dtype(byte_order + _PLY_TO_NUMPY[t.split(":")[1]]),
+            np.dtype(byte_order + _PLY_TO_NUMPY[t.split(":")[2]]))
+           if t.startswith("LIST") else np.dtype(byte_order + t) for _, t in props]
+    if len(dts) == 1 and isinstance(dts[0], tuple):
+        ln, it = dts[0]
+        row = np.dtype([("n", ln), ("i", it, (3,))])
+        if len(body) - offset >= row.itemsize * count:
+            rows = np.frombuffer(body, row, count, offset)
+            if (rows["n"] == 3).all():
+                return rows["i"].astype(np.int32), offset + row.itemsize * count
+    tri = []
+    for _ in range(count):
+        for dt in dts:
+            if isinstance(dt, tuple):
+                ln, it = dt
+                n = int(np.frombuffer(body, ln, 1, offset)[0])
+                offset += ln.itemsize
+                if n == 3:
+                    tri.append(np.frombuffer(body, it, 3, offset))
+                offset += n * it.itemsize
+            else:
+                offset += dt.itemsize
+    return np.asarray(tri, np.int32).reshape(-1, 3), offset
 
 
 def write_ply(path: str, vertex: np.ndarray, comments: Optional[List[str]] = None,

@@ -45,6 +45,15 @@ the sigma and alpha cut, so the dropped row has alpha 0 at every pixel of the
 warp and the result is the same bit for bit. ``blend_tiles_warp_rows`` and
 ``blend_tiles_packed_warp_rows`` count the warp-rows read, kept and hit.
 
+Channel widths. Each kernel is built for a ladder of widths, written once in
+``csrc/blend_widths.cuh`` and read from there as KERNEL_WIDTHS (K1, K2) and
+PACKED_WIDTHS (K3); the wrappers run CH at ``kernel_width(CH)``, the next one,
+on zero colours, bg and cotangents appended, and cut the image and d_payload
+back to CH. So K1 and K2
+take any 1 ≤ CH ≤ 120 and K3 any CH ≤ 56, as the TPU kernels do (8 + CH
+colours in one 128-lane row; K3's 64-float pair), and a CH outside raises on
+every device.
+
 Bound on the card (K1): every pair-pixel of a row read costs about 15 fp32
 operations (one exp among them), and one that passes the cut another 2·CH + 3;
 the payload is read once per pair and the image written once. Which of the two
@@ -57,6 +66,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import re
 
 import torch
 
@@ -66,9 +76,10 @@ TILE = 16
 PX = TILE * TILE
 GEOM = 8              # payload prefix: mu_x, mu_y, conic a/b/c, opacity, 0, 0
 SAT_EPS = 1e-4        # a tile stops once every pixel's transmittance is below this
-KERNEL_CHANNELS = (19, 32, 51)  # channel counts the kernels are built for
+KERNEL_CHANNELS = (19, 32, 51)  # the main paths' widths: training, semantic, one pass
 PACKED_HALF = 64      # floats per pair in K3's packed layout
 PACKED_MAX_CH = PACKED_HALF - GEOM   # colours a packed pair can hold: 56
+MAX_CH = 128 - GEOM   # K1 and K2 take what the TPU kernels take: 8 + CH ≤ 128 lanes
 _PLAIN_CHUNK_ELEMS = 1 << 24    # [tiles, G, 256] elements per plain-version chunk
 WARP_FOOTPRINT = (8, 4)         # the pixels of one warp in K1 and K3: 8 wide, 4 high
 ALPHA_MIN = 1.0 / 255.0
@@ -80,6 +91,20 @@ CULL_TAU_MARGIN = 1e-5
 CULL_BIG = 1e30
 
 
+def _width_ladder(macro: str) -> tuple:
+    """The widths of ``#define <macro>(X) X(4) X(8) ...`` in
+    ``csrc/blend_widths.cuh``, the ``case`` labels of the kernels' switches."""
+    text = (cuda_build.CSRC / "blend_widths.cuh").read_text()
+    body = re.search(rf"^#define {macro}\(X\)(.*)$", text, re.MULTILINE).group(1)
+    return tuple(int(w) for w in re.findall(r"X\((\d+)\)", body))
+
+
+# the widths each kernel is built for; a launch at CH runs the smallest width
+# ≥ CH on zero-padded colours
+KERNEL_WIDTHS = _width_ladder("SEGSPLAT_WIDTHS")
+PACKED_WIDTHS = _width_ladder("SEGSPLAT_PACKED_WIDTHS")
+
+
 def payload_width(ch: int) -> int:
     """Floats per payload row for ``ch`` colour channels."""
     return -(-(GEOM + ch) // 4) * 4
@@ -88,6 +113,34 @@ def payload_width(ch: int) -> int:
 def g_block(k_max: int) -> int:
     """Rows per early-out block, as the TPU kernel picks it."""
     return 256 if k_max % 256 == 0 else 128
+
+
+def kernel_width(ch: int, widths=KERNEL_WIDTHS) -> int:
+    """The smallest width in ``widths`` that holds ``ch`` channels. Raises for a
+    CH outside 1 .. max(widths) (120 for K1 and K2, 56 for K3), on every
+    device."""
+    if ch >= 1:
+        for w in widths:
+            if ch <= w:
+                return w
+    raise ValueError(f"the blend kernels take 1 to {widths[-1]} channels, got {ch}")
+
+
+def pad_rows(payload: torch.Tensor, ch: int, width: int) -> torch.Tensor:
+    """Payload rows of ``ch`` colours as rows of ``width`` colours. Where the
+    row's float4 padding already has room (``payload_width`` equal) the rows are
+    returned as they are, and the kernel reads their pad columns (zeros from
+    ``make_payload``) as the extra colours; else the colours are copied into
+    rows with zero columns appended. An extra colour changes neither alpha nor
+    T nor any other channel, so its image and gradient are only cut away."""
+    if payload_width(width) == payload.shape[1]:
+        return payload
+    return torch.nn.functional.pad(payload[:, :GEOM + ch], (0, payload_width(width) - GEOM - ch))
+
+
+def _pad_last(x: torch.Tensor, width: int) -> torch.Tensor:
+    """``x`` with zeros appended to its last axis up to ``width``."""
+    return torch.nn.functional.pad(x, (0, width - x.shape[-1]))
 
 
 def make_payload(means2d: torch.Tensor, conics: torch.Tensor,
@@ -118,6 +171,7 @@ def _check(offsets, sorted_payload, bg, tx_n, ty_n, k_max):
     if k_max <= 0:
         raise ValueError(f"k_max must be positive, got {k_max}")
     _check_common(offsets, sorted_payload, bg, tx_n, ty_n, "sorted_payload")
+    kernel_width(bg.shape[0])
     w = payload_width(bg.shape[0])
     if (sorted_payload.dtype != torch.float32 or sorted_payload.dim() != 2
             or sorted_payload.shape[1] != w or sorted_payload.shape[0] < k_max):
@@ -377,16 +431,49 @@ def _kernel_fn(name: str, n_ptrs: int, n_ints: int):
     return fn
 
 
+def forward_at_width(forward, offsets, payload, bg, tx_n: int, ty_n: int, k_max: int,
+                     *rest, packed: bool = False):
+    """Run ``forward`` (a kernel's launch; in the tests its plain version) at the
+    width it is built for that holds bg's CH channels (``kernel_width``): bg
+    zero-padded, K1's rows by ``pad_rows`` (K3's packed pairs hold 64 floats
+    already, zero past the colours), the image cut back to CH. Returns (img,
+    alpha)."""
+    ch = bg.shape[0]
+    width = kernel_width(ch, PACKED_WIDTHS if packed else KERNEL_WIDTHS)
+    if width == ch:
+        return forward(offsets, payload, bg, tx_n, ty_n, k_max, *rest)
+    rows = payload if packed else pad_rows(payload, ch, width)
+    img, alpha = forward(offsets, rows, _pad_last(bg, width), tx_n, ty_n, k_max, *rest)
+    return img[..., :ch].contiguous(), alpha
+
+
+def backward_at_width(backward, offsets, payload, bg, img, alpha, g_img, g_alpha,
+                      tx_n: int, ty_n: int, k_max: int):
+    """Run ``backward`` (K2's launch, or its plain version's d_payload) at the
+    width K2 is built for that holds CH: bg, img and g_img zero-padded, the rows
+    by ``pad_rows``, d_payload cut back to the caller's columns (0 past the
+    colours, as K2 leaves them). A zero cotangent channel adds nothing to
+    ⟨g, c⟩ or ⟨g, img⟩, so the real columns get the same gradient. Returns
+    d_payload."""
+    ch = bg.shape[0]
+    width = kernel_width(ch)
+    if width == ch:
+        return backward(offsets, payload, bg, img, alpha, g_img, g_alpha, tx_n, ty_n, k_max)
+    d_rows = backward(offsets, pad_rows(payload, ch, width), _pad_last(bg, width),
+                      _pad_last(img, width), alpha, _pad_last(g_img, width), g_alpha,
+                      tx_n, ty_n, k_max)
+    return _pad_last(d_rows[:, :GEOM + ch], payload.shape[1])
+
+
 def _launch_forward(name, offsets, payload, bg, tx_n, ty_n, k_max, g):
     """Launch the forward kernel of ``csrc/<name>.cu`` (K1 or K3) on CUDA
-    tensors; returns (img, alpha). Raises on a channel count it is not built
-    for, a misaligned payload, or a launch that CUDA refuses."""
+    tensors at bg's width, one it is built for; returns (img, alpha). Raises on
+    a misaligned payload or a launch that CUDA refuses (an unbuilt width among
+    them)."""
     dev = payload.device
     if dev.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu tensors, got {dev}")
     ch = bg.shape[0]
-    if ch not in KERNEL_CHANNELS:
-        raise ValueError(f"the CUDA blend is built for CH in {KERNEL_CHANNELS}, got {ch}")
     if payload.data_ptr() % 16:
         raise ValueError("the payload must be 16-byte aligned for float4 loads")
     fn = _kernel_fn(name, 5, 5)
@@ -408,8 +495,8 @@ def blend_tiles(offsets, sorted_payload, bg, tx_n: int, ty_n: int, k_max: int):
     _check(offsets, sorted_payload, bg, tx_n, ty_n, k_max)
     if sorted_payload.device.type == "cpu":
         return blend_tiles_plain(offsets, sorted_payload, bg, tx_n, ty_n, k_max)
-    out = _launch_forward("blend_fwd", offsets, sorted_payload, bg, tx_n, ty_n, k_max,
-                          g_block(k_max))
+    out = forward_at_width(functools.partial(_launch_forward, "blend_fwd"), offsets,
+                           sorted_payload, bg, tx_n, ty_n, k_max, g_block(k_max))
     blend_tiles.launches += 1
     return out
 
@@ -476,8 +563,8 @@ def blend_tiles_packed(offsets, packed_payload, bg, tx_n: int, ty_n: int, k_max:
     if packed_payload.device.type == "cpu":
         return blend_tiles_packed_plain(offsets, packed_payload, bg, tx_n, ty_n, k_max,
                                         g_block)
-    out = _launch_forward("blend_packed", offsets, packed_payload, bg, tx_n, ty_n, k_max,
-                          g_block)
+    out = forward_at_width(functools.partial(_launch_forward, "blend_packed"), offsets,
+                           packed_payload, bg, tx_n, ty_n, k_max, g_block, packed=True)
     blend_tiles_packed.launches += 1
     return out
 
@@ -619,9 +706,19 @@ def blend_tiles_bwd(offsets, sorted_payload, bg, img, alpha, g_img, g_alpha,
                                      g_img, g_alpha, tx_n, ty_n, k_max)
     if dev.type != "cuda":
         raise ValueError(f"blend_tiles_bwd runs on cuda or cpu tensors, got {dev}")
-    ch = bg.shape[0]
-    if ch not in KERNEL_CHANNELS:
-        raise ValueError(f"the CUDA blend is built for CH in {KERNEL_CHANNELS}, got {ch}")
+    d_payload = backward_at_width(_launch_backward, offsets, sorted_payload, bg, img, alpha,
+                                  g_img, g_alpha, tx_n, ty_n, k_max)
+    blend_tiles_bwd.launches += 1
+    return d_payload, _d_bg(alpha, g_img)
+
+
+blend_tiles_bwd.launches = 0
+
+
+def _launch_backward(offsets, sorted_payload, bg, img, alpha, g_img, g_alpha,
+                     tx_n, ty_n, k_max):
+    """Launch K2 on CUDA tensors at bg's width, one it is built for; returns
+    d_payload. Raises on a misaligned payload or a launch CUDA refuses."""
     if sorted_payload.data_ptr() % 16:
         raise ValueError("sorted_payload must be 16-byte aligned for float4 loads")
     # the kernel reads img and g_img as float4s: a view that starts off a
@@ -629,18 +726,15 @@ def blend_tiles_bwd(offsets, sorted_payload, bg, img, alpha, g_img, g_alpha,
     img, g_img = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (img, g_img))
     fn = _kernel_fn("blend_bwd", 8, 4)
     d_payload = torch.zeros_like(sorted_payload)     # rows no tile owns stay 0
+    dev = sorted_payload.device
     with torch.cuda.device(dev):
         err = fn(offsets.data_ptr(), sorted_payload.data_ptr(), bg.data_ptr(),
                  img.data_ptr(), alpha.data_ptr(), g_img.data_ptr(), g_alpha.data_ptr(),
-                 d_payload.data_ptr(), tx_n, ty_n, k_max, ch,
+                 d_payload.data_ptr(), tx_n, ty_n, k_max, bg.shape[0],
                  torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"blend_bwd kernel launch failed: cudaError {err}")
-    blend_tiles_bwd.launches += 1
-    return d_payload, _d_bg(alpha, g_img)
-
-
-blend_tiles_bwd.launches = 0
+    return d_payload
 
 
 def blend_tiles_bwd_occupancy(ch: int) -> tuple[int, int]:

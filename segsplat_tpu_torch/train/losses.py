@@ -8,7 +8,9 @@ after the reference's train_unified_lift.py and utils/loss_utils.py):
   * the binary confidence map,
   * virtual-GT relabelling by Hungarian assignment of codebook scores to mask
     ids — the [256, 256] cost is solved on the host (ops/assignment.py),
-  * the confidence-gated cross-entropy and the codebook clustering loss.
+  * the confidence-gated cross-entropy and the codebook clustering loss,
+  * the kNN-KL 3-D regulariser ``loss_cls_3d``, on no train step (as in the
+    JAX package).
 
 Every cluster statistic is a fixed-width (NUM_CLUSTERS = 256) reduction through
 a one-hot matrix, as in the JAX package. Random draws come from a
@@ -182,3 +184,42 @@ def clustering_loss(objects: torch.Tensor, vgt: torch.Tensor, code_book: torch.T
     d = torch.sqrt((diff * diff).sum(-1) + 1e-12)
     return torch.where(conf.sum() > 0,
                        (d * conf).sum() / torch.clamp_min(conf.sum(), 1.0), 0.0)
+
+
+def loss_cls_3d(features: torch.Tensor, predictions: torch.Tensor,
+                generator: Optional[torch.Generator] = None, k: int = 5,
+                lambda_val: float = 2.0, max_points: int = 300000,
+                sample_size: int = 1000) -> torch.Tensor:
+    """kNN-KL spatial consistency over Gaussian class probabilities
+    (utils/loss_utils.py:75-115), with fixed-size sampling: at most
+    ``max_points`` Gaussians kept, ``sample_size`` of them drawn without
+    replacement from ``generator``. On no train step, as in the JAX package.
+    The draws are ``loss_cls_3d_at``'s ``keep`` and ``idx``."""
+    n = features.shape[0]
+    dev = features.device
+    keep = None
+    if n > max_points:
+        keep = torch.randperm(n, generator=generator, device="cpu")[:max_points].to(dev)
+        n = max_points
+    idx = torch.randperm(n, generator=generator, device="cpu")[:sample_size].to(dev)
+    return loss_cls_3d_at(features, predictions, keep, idx, k, lambda_val)
+
+
+def loss_cls_3d_at(features: torch.Tensor, predictions: torch.Tensor,
+                   keep: Optional[torch.Tensor], idx: torch.Tensor, k: int = 5,
+                   lambda_val: float = 2.0) -> torch.Tensor:
+    """``loss_cls_3d`` at given draws: ``keep`` the Gaussians kept (None: all),
+    ``idx`` the sampled rows among them. Each sample's k nearest kept
+    Gaussians (squared distance by the expansion |s|² − 2 s·f + |f|², itself
+    among them) give KL(p_sample ‖ p_neighbour), summed over classes, averaged
+    over samples and neighbours and divided by the class count."""
+    if keep is not None:
+        features, predictions = features[keep], predictions[keep]
+    sf, sp = features[idx], predictions[idx]
+    d = ((sf ** 2).sum(1)[:, None] - 2 * sf @ features.T
+         + (features ** 2).sum(1)[None])
+    nbr = torch.topk(-d, k, dim=1).indices
+    nbr_p = predictions[nbr]                                    # [S, k, C]
+    kl = sp[:, None] * (torch.log(sp[:, None] + 1e-10) - torch.log(nbr_p + 1e-10))
+    loss = kl.sum(-1).mean() / predictions.shape[1]
+    return lambda_val * loss

@@ -2,6 +2,8 @@
 for chip_smoke.py: the same numpy inputs go to the JAX package and to
 segsplat_tpu_torch. Imports no JAX."""
 
+import contextlib
+
 import numpy as np
 
 W, H, F = 64, 48, 60.0          # the camera of tests/test_blend_pallas.py
@@ -432,3 +434,19 @@ def write_seeded_maps(lseg_dir: str, names, channels: int, h: int, w: int,
     for name in names:
         np.save(os.path.join(lseg_dir, f"{name}.npy"),
                 rng.random((channels, h, w)).astype(np.float16))
+
+
+@contextlib.contextmanager
+def torch_threads(n: int):
+    """torch's intra-op threads set to ``n`` for the block, then restored. The
+    suite runs test files in several worker processes at once; a worker whose
+    torch ops each take every core oversubscribes them, and its threads'
+    spin-waits slow every worker many times over."""
+    import torch
+
+    old = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(old)

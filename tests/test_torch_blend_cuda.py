@@ -169,3 +169,35 @@ def test_kernels_match_dense_blend_at_odd_k_on_card(ch):
         atol = 2e-4 * float(r.abs().max())
         torch.testing.assert_close(grads[name], r, rtol=5e-3, atol=atol,
                                    msg=lambda m, name=name: f"{name}: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ch", (1, 3, 8, 23, 60, 96, 120))
+@pytest.mark.parametrize("case", ("k200_partial_block", "k384_three_blocks_carry"))
+def test_kernels_at_padded_widths_on_card(case, ch):
+    """K1 and K2 at channel counts no kernel is built for, run padded to the
+    next width of B.KERNEL_WIDTHS (K3 up to 56 of B.PACKED_WIDTHS), against
+    their plain versions at the caller's CH."""
+    _need_card()
+    args = blend_case_args(case, "cuda", ch=ch)
+    before = (B.blend_tiles.launches, B.blend_tiles_bwd.launches)
+    img, alpha = B.blend_tiles(*args)
+    ref_img, ref_alpha = B.blend_tiles_plain(*args)
+    assert img.shape == ref_img.shape
+    torch.testing.assert_close(img, ref_img, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(alpha, ref_alpha, rtol=1e-4, atol=1e-4)
+    gen = torch.Generator("cuda").manual_seed(ch)
+    bargs = (args[0], args[1], args[2], ref_img, ref_alpha,
+             torch.randn(ref_img.shape, generator=gen, device="cuda"),
+             torch.randn(ref_alpha.shape, generator=gen, device="cuda"), *args[3:])
+    got, ref = B.blend_tiles_bwd(*bargs), B.blend_tiles_bwd_plain(*bargs)
+    torch.cuda.synchronize()
+    assert (B.blend_tiles.launches, B.blend_tiles_bwd.launches) == (before[0] + 1,
+                                                                      before[1] + 1)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape
+        torch.testing.assert_close(g, r, rtol=5e-3, atol=2e-4 * float(r.abs().max()))
+    if ch <= B.PACKED_MAX_CH:
+        pargs = blend_case_args(case, "cuda", ch=ch, packed=True)
+        for g, r in zip(B.blend_tiles_packed(*pargs), B.blend_tiles_packed_plain(*pargs)):
+            torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4)

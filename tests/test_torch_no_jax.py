@@ -1,6 +1,7 @@
-"""The port imports neither JAX nor anything of the JAX package: an AST scan of
-its sources, chip_smoke.py and the kernels' bench scripts, and an import of every port module in a
-process where JAX and segsplat_tpu cannot be imported."""
+"""The port imports neither JAX nor anything of the JAX package, its scripts or
+its tests: an AST scan of its sources, chip_smoke.py and the kernels' bench
+scripts, and an import of every port module in a process where JAX,
+segsplat_tpu, scripts and tests cannot be imported."""
 
 import ast
 import subprocess
@@ -9,7 +10,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "segsplat_tpu_torch"
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "segsplat_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "segsplat_tpu", "scripts", "tests"}
 
 
 def _top_level_imports(path: Path):
