@@ -123,6 +123,29 @@ Phases, each fatal on failure:
      (labels equal but at depth ties within 1e-5), eval_scannetpp of the GT
      against itself (mIoU 1.0), and tests/test_miou_loop.py's closed loop
      through K1 at 3 channels (mIoU > 0.8).
+  11. ``edit``: object editing, the two inpainters, LPIPS and the offline
+     pseudo-label tools: (a) push–pull and PatchMatch (patch 7, 6 × 3
+     iterations) on a seeded textured 876×584 frame under a stroke and a
+     rectangle hole of eval_inpaint_lpips: card against CPU (push–pull at
+     1e-5; PatchMatch's NNF equal at every level and its fill within 1e-5),
+     known pixels bit-equal, ms a
+     frame, launches and idle share of one traced frame, and the
+     inpaint_images twin on that frame and those holes (known pixels kept,
+     the hole filled, LPIPS reported); (b) LPIPS vgg and alex
+     on a pair of those frames, card against CPU at rtol 1e-4, ms a pair; (d)
+     on phase 10c's run, eval_hard_scene_offline.rescore equal to the loop's
+     results, eval_hard_scene_checkpoint on its snapshot within 0.05 of them,
+     and tune_class_merge's best row beside the recorded one; (c) on phase
+     10c's trained hard scene, whose objects render opaque, the removal twin
+     on the identity classes lying on its largest GT object (the PLY reloads
+     without those rows), hole masks from the removed rows' render (alpha >
+     0.5, not all empty), inpaint_images on the 30 views (some pixel
+     changed), and the inpaint twin with a 50-step finetune against the fills
+     (``--images images_inpaint``): K1 and K2 at least 50
+     launches each, the losses finite, frozen rows and the identity features
+     bit-unchanged, the new rows moved, the PLY reloads; the finetune step
+     timed part by part (render, loss, backward, Adam) and K1/K2 on its own
+     inputs.
 Prints a ``{"kernels": [...]}`` line (each kernel's blocks per SM, shared
 memory and registers from the occupancy API; K1's and K3's share of warp-rows
 their row lists keep beside the share with a passing lane), then as the last line
@@ -135,6 +158,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
@@ -794,7 +818,7 @@ def blend_node(total):
     raise AssertionError("the step's graph has no blend node")
 
 
-def kernels_on_captured(results, cap, label: str):
+def kernels_on_captured(results, cap, label: str, size: str = f"{TRAIN_W}x{TRAIN_H}"):
     """K1 and K2 on a blend node's own inputs and cotangents (captured by a
     prehook), against their plain versions, timed with CUDA events, with their
     bounds. Returns (fwd, bwd) stats."""
@@ -805,7 +829,7 @@ def kernels_on_captured(results, cap, label: str):
     g_img, g_alpha = (torch.zeros_like(x) if g is None else g.detach().contiguous()
                       for g, x in zip(cap["grads"], (img, alpha)))
     return kernels_on_inputs(results, (offsets, payload, bg, *cap["dims"]), img, alpha,
-                             g_img, g_alpha, label, f"{TRAIN_W}x{TRAIN_H}")
+                             g_img, g_alpha, label, size)
 
 
 def kernels_on_inputs(results, fargs, img, alpha, g_img, g_alpha, label: str, size: str):
@@ -2691,6 +2715,416 @@ def phase_mesh(results, root: str):
         log(f"[mesh] {ln}")
 
 
+# ───────── phase 11: object editing, the inpainters, LPIPS, the offline tools ─────────
+
+EDIT_W, EDIT_H = 876, 584               # the train step's frame (phase 5)
+EDIT_SEED = 0
+PUSHPULL_TOL = 1e-5                     # push–pull, card against CPU
+TEXTURE_TOL = 1e-5                      # PatchMatch, card against CPU: every NNF entry equal
+                                        # at every level, the fills within this
+LPIPS_RTOL = 1e-4                       # card against CPU
+EDIT_FT_ITERS = 50                      # the inpaint twin's finetune
+EDIT_TIMED = 10                         # finetune steps timed part by part
+CHECKPOINT_AGREE = 0.05                 # tests/test_eval_checkpoint.py's bound
+TUNE_RECORDED = os.path.join(os.path.dirname(os.path.abspath(__file__)), "results",
+                             "hard_scene", "tune_class_merge.json")
+FT_PARTS = ("render", "loss", "backward", "adam")
+
+
+def edit_frame(h: int, w: int, seed: int = EDIT_SEED):
+    """A seeded textured frame [h, w, 3] in [0, 1]: two crossing sine
+    gratings, blocks of flat colour and per-pixel noise."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    img = (0.5 + 0.2 * np.sin(xx / 5.0 + yy / 11.0)[..., None] * np.array([1.0, 0.6, -0.7])
+           + 0.15 * np.sin(yy / 3.0)[..., None] * np.array([0.2, 1.0, 0.5]))
+    for _ in range(12):
+        y, x = rng.integers(0, h - h // 6), rng.integers(0, w - w // 6)
+        img[y:y + h // 8, x:x + w // 8] = rng.random(3)
+    img += 0.08 * rng.standard_normal((h, w, 3))
+    return np.clip(img, 0, 1).astype(np.float32)
+
+
+def phase_inpaint(results, root: str):
+    """(a) push–pull and PatchMatch at 876×584 on a stroke and a rectangle
+    hole, card against CPU, timed, with one traced frame; then the
+    inpaint_images twin on the same frames and holes written to disk."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from segsplat_tpu_torch import inpaint_images
+    from segsplat_tpu_torch.eval_inpaint_lpips import rect_mask, stroke_mask
+    from segsplat_tpu_torch.ops import inpaint_patch as P
+    from segsplat_tpu_torch.ops.inpaint import inpaint_pushpull
+
+    img = edit_frame(EDIT_H, EDIT_W)
+    holes = {"stroke": stroke_mask(EDIT_H, EDIT_W, np.random.default_rng(EDIT_SEED + 1)),
+             "rect": rect_mask(EDIT_H, EDIT_W, np.random.default_rng(EDIT_SEED + 2))}
+    out = {}
+    for name, hole in holes.items():
+        img_t, hole_t = torch.from_numpy(img).to("cuda"), torch.from_numpy(hole).to("cuda")
+        pp = inpaint_pushpull(img_t, hole_t, device="cuda").cpu().numpy()
+        pp_cpu = inpaint_pushpull(img, hole, device="cpu").numpy()
+        pp_err = float(np.abs(pp - pp_cpu).max())
+        if not np.isfinite(pp).all() or pp_err > PUSHPULL_TOL:
+            raise AssertionError(f"[inpaint] push-pull {name}: card against CPU {pp_err:.3g}")
+        pp_ms = cuda_time_ms(lambda: inpaint_pushpull(img_t, hole_t, device="cuda"), reps=5)
+        pp_trace = device_trace(lambda v: inpaint_pushpull(img_t, hole_t, device="cuda"), 1)
+
+        t0 = time.perf_counter()
+        tex, nnfs = P.inpaint_texture_at(img, hole, P.torch_draws(EDIT_SEED), device="cuda")
+        torch.cuda.synchronize()
+        tex_first_s = time.perf_counter() - t0
+        tex_cpu, nnfs_cpu = P.inpaint_texture_at(img, hole, P.torch_draws(EDIT_SEED),
+                                                 device="cpu")
+        share = [float((a == b).all(axis=1).mean()) for a, b in zip(nnfs, nnfs_cpu)]
+        tex_diff = float(np.abs(tex - tex_cpu)[hole].mean())
+        tex_err = float(np.abs(tex - tex_cpu).max())
+        err_card = float(np.abs(tex - img)[hole].mean())
+        err_cpu = float(np.abs(tex_cpu - img)[hole].mean())
+        for label, fill in (("push-pull", pp), ("push-pull CPU", pp_cpu), ("texture", tex),
+                            ("texture CPU", tex_cpu)):
+            if not np.array_equal(fill[~hole], img[~hole]):
+                raise AssertionError(f"[inpaint] {name} {label}: known pixels changed")
+        if (not np.isfinite(tex).all() or len(nnfs) != len(nnfs_cpu) or min(share) < 1.0
+                or tex_err > TEXTURE_TOL):
+            raise AssertionError(f"[inpaint] texture {name}: NNF shares equal {share}, fill "
+                                 f"{tex_err:.3g} off the CPU's")
+        tex_ms = cuda_time_ms(lambda: P.inpaint_texture(img, hole, device="cuda"), reps=3,
+                              warmup=1)
+        tex_trace = device_trace(lambda v: P.inpaint_texture(img, hole, device="cuda"), 1)
+        out[name] = dict(
+            hole_share=float(hole.mean()), hole_px=int(hole.sum()), levels=len(nnfs),
+            pushpull=dict(max_abs_err=pp_err, ms=pp_ms, trace=pp_trace,
+                          hole_err=float(np.abs(pp - img)[hole].mean())),
+            texture=dict(nnf_share_equal=share, max_abs_err=tex_err, hole_mean_abs_diff=tex_diff,
+                         hole_err=err_card, hole_err_cpu=err_cpu, ms=tex_ms,
+                         first_call_s=tex_first_s, trace=tex_trace))
+        log(f"[inpaint] {name} hole ({hole.mean():.3f} of {EDIT_W}x{EDIT_H}): "
+            + json.dumps(out[name]))
+
+    # the CLI twin on the same frame under both holes, PatchMatch, with LPIPS
+    work = os.path.join(root, "inpaint_cli")
+    dirs = {k: os.path.join(work, k) for k in ("images", "masks", "out")}
+    for d in dirs.values():
+        os.makedirs(d)
+    frame = (img * 255).astype(np.uint8)
+    for name, hole in holes.items():
+        Image.fromarray(frame).save(os.path.join(dirs["images"], f"{name}.png"))
+        Image.fromarray(hole.astype(np.uint8) * 255).save(os.path.join(dirs["masks"],
+                                                                       f"{name}.png"))
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        n = inpaint_images.main(["--images", dirs["images"], "--masks", dirs["masks"], "--out",
+                                 dirs["out"], "--report_lpips", "--device", "cuda"])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    scores = [ln.strip() for ln in buf.getvalue().splitlines() if "lpips_vgg=" in ln]
+    if n != len(holes) or len(scores) != len(holes):
+        raise AssertionError(f"[inpaint] the CLI filled {n} frames, scored {len(scores)}")
+    for name, hole in holes.items():
+        filled = np.asarray(Image.open(os.path.join(dirs["out"], f"{name}.png")))
+        dilated = inpaint_images.dilate(hole, 12)           # the CLI's default --dilate
+        if not np.array_equal(filled[~dilated], frame[~dilated]) or not (
+                filled[hole] != frame[hole]).any():
+            raise AssertionError(f"[inpaint] the CLI's {name} fill kept no known pixels or "
+                                 f"changed no hole pixel")
+    out["cli"] = dict(seconds=cli_s, s_per_frame=cli_s / n, lpips=scores)
+    log(f"[inpaint] inpaint_images (patch, --report_lpips) on {n} frames at "
+        f"{EDIT_W}x{EDIT_H}: " + json.dumps(out["cli"]))
+    results["inpaint"] = out
+    return img, tex
+
+
+def phase_lpips(results, img, fill):
+    """(b) LPIPS vgg and alex on a pair of 876×584 frames, card against CPU,
+    timed."""
+    import torch
+
+    from segsplat_tpu_torch.convert import lpips_from_params
+    from segsplat_tpu_torch.eval.lpips import load_lpips, lpips
+
+    out = {}
+    a = torch.from_numpy(img).permute(2, 0, 1)[None].to("cuda")
+    b = torch.from_numpy(fill).permute(2, 0, 1)[None].to("cuda")
+    for net in ("vgg", "alex"):
+        params = load_lpips(net=net)
+        model = lpips_from_params(params).to("cuda")
+        card = lpips(img, fill, model, device="cuda")
+        cpu = lpips(img, fill, params, device="cpu")
+        rel = abs(card - cpu) / abs(cpu)
+        if not math.isfinite(card) or rel > LPIPS_RTOL:
+            raise AssertionError(f"[lpips] {net}: card {card} against CPU {cpu}")
+        with torch.no_grad():
+            ms = cuda_time_ms(lambda: model(a, b), reps=5)
+        out[net] = dict(card=card, cpu=cpu, rel_err=rel, ms_per_pair=ms,
+                        lins=params["lin_source"], backbone=params["backbone_source"])
+        log(f"[lpips] {net} on a {EDIT_W}x{EDIT_H} pair: " + json.dumps(out[net]))
+    results["lpips"] = out
+
+
+def edit_objects(npz: str) -> list:
+    """The identity classes of the loop's class maps (``merge_debug.npz``)
+    that lie mostly (over half their pixels) on the GT object covering the
+    most pixels: codebook indices, as ``--select_obj_id`` takes them."""
+    import numpy as np
+
+    d = np.load(npz)
+    preds, gts = d["preds"], d["gts"]
+    n = d["code_book"].shape[0] + 1                     # the maps hold class + 1, 0 = empty
+    target = int(np.bincount(gts[gts > 0]).argmax())
+    on_target = np.bincount(preds[gts == target], minlength=n)
+    classes = np.flatnonzero((on_target > 0.5 * np.bincount(preds.ravel(), minlength=n))
+                             & (np.arange(n) > 0))
+    if len(classes) == 0:
+        raise AssertionError(f"[edit] no class of the loop's maps lies on GT object {target}")
+    return [int(c) - 1 for c in classes]
+
+
+def phase_edit_clis(results, root: str):
+    """(c) The removal twin, the hole masks, inpaint_images and the inpaint
+    twin with a 50-step finetune on phase 10c's trained hard scene, whose
+    objects render opaque; the finetune step timed part by part and K1/K2 on
+    its own inputs."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from segsplat_tpu_torch import edit_object_inpaint, edit_object_removal, inpaint_images
+    from segsplat_tpu_torch.io.artifacts import load_codebook
+    from segsplat_tpu_torch.io.dataset import resolution_scale_for
+    from segsplat_tpu_torch.io.ply import load_gaussian_ply
+    from segsplat_tpu_torch.ops import blend as B
+    from segsplat_tpu_torch.render import raster_backend, render
+    from segsplat_tpu_torch.scene import Scene, load_gaussian_table, to_device_camera
+    from segsplat_tpu_torch.train.editing import inpaint_setup, mask3d_from_classes
+
+    if "loop" not in results:
+        raise AssertionError("[edit] needs phase 10c's trained hard scene (run loop first)")
+    its = HARD_LOOP["iterations"]
+    src = os.path.join(root, "hard_scene")
+    model = os.path.join(src, "model")
+    it_dir = os.path.join(model, "point_cloud", f"iteration_{its}")
+    table = load_gaussian_table(os.path.join(it_dir, "point_cloud.ply"), device=DEV)
+    code_book = load_codebook(os.path.join(it_dir, "classifier.npz"))
+    active = table.active.cpu().numpy()
+    obj = edit_objects(os.path.join(src, "merge_debug.npz"))
+    mask = mask3d_from_classes(table, code_book, obj)
+    n_removed = int(mask.sum())
+    if n_removed == 0:
+        raise AssertionError(f"[edit] classes {obj} hold no Gaussian")
+    common = ["-m", model, "--iteration", str(its), "--select_obj_id", *map(str, obj),
+              "--device", DEV]
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        path = edit_object_removal.main(["-s", src, *common, "--out_iteration", str(its + 1)])
+    removal_s = time.perf_counter() - t0
+    kept = load_gaussian_table(path, device=DEV)
+    n_kept = int(kept.active.sum())
+    keep_rows = torch.from_numpy(active & ~mask).to(DEV)
+    if n_kept != int(active.sum()) - n_removed or not torch.equal(kept.xyz[:n_kept],
+                                                                  table.xyz[keep_rows]):
+        raise AssertionError(f"[edit] removal of classes {obj} ({n_removed} rows): the PLY "
+                             f"reloads with {n_kept} of {int(active.sum())} rows")
+
+    # hole masks: the removed rows' own render, alpha > 0.5
+    scene = Scene(src, model, shuffle=False, load_iteration=its, device=DEV)
+    cams = scene.get_train_cameras()
+    scale = resolution_scale_for(cams[0].width, cams[0].height, -1)
+    removed_only = dataclasses.replace(table, active=torch.from_numpy(mask).to(DEV))
+    masks_dir = os.path.join(root, "edit_masks")
+    fills_dir = os.path.join(src, "images_inpaint")      # the finetune's --images
+    os.makedirs(masks_dir)
+    B.blend_tiles.launches = B.blend_tiles_bwd.launches = 0
+    hole_px, alpha_max = [], []
+    with torch.no_grad():
+        for c in cams:
+            alpha = render(removed_only, to_device_camera(c, scale, device=DEV),
+                           torch.zeros(3, device=DEV))["alpha"]
+            hole = (alpha > 0.5).cpu().numpy()
+            hole_px.append(int(hole.sum()))
+            alpha_max.append(float(alpha.max()))
+            Image.fromarray(hole.astype(np.uint8) * 255).save(
+                os.path.join(masks_dir, f"{c.image_name}.png"))
+    torch.cuda.synchronize()
+    mask_launches = B.blend_tiles.launches
+    if sum(hole_px) == 0:
+        raise AssertionError(f"[edit] classes {obj}' rows render no hole (alpha max "
+                             f"{max(alpha_max):.3f})")
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        n_filled = inpaint_images.main(["--images", os.path.join(src, "images"), "--masks",
+                                        masks_dir, "--out", fills_dir, "--device", DEV])
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    if n_filled != len(cams):
+        raise AssertionError(f"[edit] inpaint_images filled {n_filled} of {len(cams)} views")
+    filled_px = 0
+    for c in cams:
+        name = os.path.basename(c.image_path)
+        before = np.asarray(Image.open(os.path.join(src, "images", name)).convert("RGB"))
+        after = np.asarray(Image.open(os.path.join(fills_dir, name)).convert("RGB"))
+        filled_px += int((before != after).any(axis=-1).sum())
+    if filled_px == 0:
+        raise AssertionError("[edit] the fills changed no pixel of the source views")
+
+    # the finetune trains against the fills: the scene's --images images_inpaint
+    common = ["-s", src, "--images", "images_inpaint", *common]
+    seeded_it, tuned_it = its + 2, its + 3
+    with contextlib.redirect_stdout(io.StringIO()):
+        seeded_path = edit_object_inpaint.main([*common, "--out_iteration", str(seeded_it)])
+
+    losses = []
+
+    class Recording(edit_object_inpaint.MaskedFinetune):
+        def step(self, cam, gt):
+            loss = super().step(cam, gt)
+            losses.append(loss)
+            return loss
+
+    B.blend_tiles.launches = B.blend_tiles_bwd.launches = 0
+    t0 = time.perf_counter()
+    with swapped(edit_object_inpaint, MaskedFinetune=Recording), \
+            contextlib.redirect_stdout(io.StringIO()):
+        tuned_path = edit_object_inpaint.main([*common, "--finetune_iters", str(EDIT_FT_ITERS),
+                                               "--out_iteration", str(tuned_it)])
+    torch.cuda.synchronize()
+    inpaint_s = time.perf_counter() - t0
+    ft_launches = {"blend_fwd": B.blend_tiles.launches, "blend_bwd": B.blend_tiles_bwd.launches}
+    if min(ft_launches.values()) < EDIT_FT_ITERS or len(losses) != EDIT_FT_ITERS:
+        raise AssertionError(f"[edit] {EDIT_FT_ITERS} finetune steps launched {ft_launches} "
+                             f"({len(losses)} steps)")
+    losses = torch.stack(losses).cpu().numpy()
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"[edit] non-finite finetune losses {losses}")
+
+    # the seeded and the finetuned PLYs: only the new rows moved
+    seeded_table, new_rows = inpaint_setup(table, mask)
+    new_c = new_rows[seeded_table.active.cpu().numpy()]        # in the PLY's row order
+    before, after = load_gaussian_ply(seeded_path), load_gaussian_ply(tuned_path)
+    moved = {}
+    for k, v in before.items():
+        if not np.isfinite(after[k]).all() or not np.array_equal(after[k][~new_c], v[~new_c]):
+            raise AssertionError(f"[edit] finetune changed frozen rows of {k}")
+        moved[k] = float(np.abs(after[k][new_c] - v[new_c]).max()) if new_c.any() else 0.0
+    if not np.array_equal(after["objects_dc"], before["objects_dc"]) or moved["xyz"] == 0.0:
+        raise AssertionError(f"[edit] identity features moved or new rows did not: {moved}")
+    reloaded = load_gaussian_table(tuned_path, device=DEV)
+    if int(reloaded.active.sum()) != len(new_c):
+        raise AssertionError("[edit] the finetuned PLY does not reload")
+
+    # one finetune step part by part (CUDA events), and K1/K2 on its inputs
+    cam = to_device_camera(cams[0], scale, device=DEV)
+    gt = torch.from_numpy(np.ascontiguousarray(np.transpose(
+        np.asarray(Image.open(os.path.join(fills_dir, f"{cams[0].image_name}.png"))
+                   .convert("RGB"), np.float32) / 255.0, (2, 0, 1)))).to(DEV)
+    ft = edit_object_inpaint.MaskedFinetune(seeded_table, new_rows, raster_backend(DEV))
+    for _ in range(3):
+        ft.step(cam, gt)
+    parts = {k: [] for k in FT_PARTS}
+    for _ in range(EDIT_TIMED):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(FT_PARTS) + 1)]
+        ev[0].record()
+        image = ft.render(cam)
+        ev[1].record()
+        loss = ft.loss(image, gt)
+        ev[2].record()
+        ft.backward(loss)
+        ev[3].record()
+        ft.update()
+        ev[4].record()
+        ev[4].synchronize()
+        for i, k in enumerate(FT_PARTS):
+            parts[k].append(ev[i].elapsed_time(ev[i + 1]))
+    step_ms = {k: statistics.median(v) for k, v in parts.items()}
+    step_ms["step"] = sum(step_ms.values())
+    out = render(ft.table(), cam, ft.bg, backend=ft.backend)
+    total = ft.loss(out["render"], gt)
+    cap = {}
+    capture_blend(total, cap)
+    total.backward()
+    fwd, bwd = kernels_on_captured(results, cap, "edit finetune",
+                                   f"{HARD_LOOP['W']}x{HARD_LOOP['H']}")
+
+    results["edit"] = dict(
+        objects=obj, removed=n_removed, active=int(active.sum()), new_rows=int(new_rows.sum()),
+        removal_s=removal_s, hole_px=hole_px, views_with_hole=sum(h > 0 for h in hole_px),
+        removed_alpha_max=alpha_max, mask_launches=mask_launches, filled_px=filled_px,
+        inpaint_images_s=fill_s, inpaint_images_s_per_view=fill_s / len(cams),
+        inpaint_cli_s=inpaint_s, finetune_iters=EDIT_FT_ITERS, launches=ft_launches,
+        loss_first=float(losses[0]), loss_last=float(losses[-1]), moved=moved,
+        step_ms=step_ms, fwd19=fwd, bwd19=bwd)
+    log(f"[edit] classes {obj} of phase 10c's hard scene: " + json.dumps(
+        {k: v for k, v in results["edit"].items() if k not in ("fwd19", "bwd19")}))
+
+
+def phase_offline(results, root: str):
+    """(d) rescore, the snapshot's evaluation and the merge sweep on phase 10c's
+    run."""
+    import numpy as np
+
+    from segsplat_tpu_torch.eval_hard_scene_checkpoint import eval_checkpoint
+    from segsplat_tpu_torch.eval_hard_scene_offline import rescore
+    from segsplat_tpu_torch.ops import blend as B
+    from segsplat_tpu_torch.tune_class_merge import best_row, sweep
+
+    work = os.path.join(root, "hard_scene")
+    if "loop" not in results:
+        raise AssertionError("[offline] needs phase 10c's run (run loop first)")
+    r = results["loop"]["result"]
+    npz = os.path.join(work, "merge_debug.npz")
+    t0 = time.perf_counter()
+    got = rescore(npz, HARD_LOOP["n_objects"])
+    rescore_s = time.perf_counter() - t0
+    keys = ("post_train_identity_miou_grouped", "per_object_iou_grouped",
+            "post_train_identity_miou_1to1", "background_iou")
+    merge_keys = ("grouped", "strict_1to1", "rendered_classes_before",
+                  "rendered_classes_after", "stats")
+    differ = [k for k in keys if got[k] != r[k]] + [
+        f"class_merge.{k}" for k in merge_keys if got["class_merge"][k] != r["class_merge"][k]]
+    if differ:
+        raise AssertionError(f"[offline] rescore differs from the loop's results at {differ}")
+
+    B.blend_tiles.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        ck = eval_checkpoint(work, HARD_LOOP["iterations"], frames=HARD_LOOP["frames"],
+                             size=HARD_LOOP["H"], n_objects=HARD_LOOP["n_objects"],
+                             layout=HARD_LOOP["layout"], textured=HARD_LOOP["textured"],
+                             seed=HARD_LOOP["seed"], max_per_tile=HARD_LOOP["max_per_tile"],
+                             capacity=HARD_LOOP["capacity"], device="cuda")
+    checkpoint_s = time.perf_counter() - t0
+    gaps = {k: abs(ck[k] - r[k]) for k in ("post_train_identity_miou_grouped",
+                                           "post_train_identity_miou_1to1", "background_iou")}
+    gaps["class_merge.grouped"] = abs(ck["class_merge"]["grouped"] - r["class_merge"]["grouped"])
+    if max(gaps.values()) >= CHECKPOINT_AGREE:
+        raise AssertionError(f"[offline] the snapshot's score is off the loop's: {gaps}")
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rows = sweep(npz, HARD_LOOP["n_objects"])
+    tune_s = time.perf_counter() - t0
+    best = best_row(rows)
+    recorded = json.load(open(TUNE_RECORDED))["best"]
+    results["offline"] = dict(rescore_s=rescore_s, checkpoint_s=checkpoint_s,
+                              checkpoint_launches=B.blend_tiles.launches, checkpoint_gaps=gaps,
+                              tune_s=tune_s, tune_rows=len(rows), tune_best=best,
+                              tune_best_recorded=recorded)
+    log("[offline] " + json.dumps(results["offline"]))
+
+
+def phase_edit(results, root: str):
+    img, fill = phase_inpaint(results, root)
+    phase_lpips(results, img, fill)
+    phase_offline(results, root)          # before (c) adds its iterations to the model
+    phase_edit_clis(results, root)
+
+
 LIST_KEYS = ("warp_rows_read", "warp_rows_kept", "warp_rows_hit", "kept_share", "hit_share")
 
 
@@ -2704,7 +3138,7 @@ def kernel_entry(name, ch, source, replaces, launches, max_abs_err, t, **extra):
 
 
 PHASES = ("small", "full", "main", "train", "train-cli", "logits", "other-blends", "lift",
-          "query", "widths", "slic", "loop", "mesh")
+          "query", "widths", "slic", "loop", "mesh", "edit")
 PSEUDO_LABEL_PHASES = ("widths", "slic", "loop", "mesh")      # phase 10 (a)-(e)
 
 
@@ -2776,7 +3210,8 @@ def main(argv=None) -> int:
            "widths": lambda: phase_widths(results),
            "slic": lambda: phase_slic(results),
            "loop": lambda: phase_loop(results, root),
-           "mesh": lambda: phase_mesh(results, root)}
+           "mesh": lambda: phase_mesh(results, root),
+           "edit": lambda: phase_edit(results, root)}
     seconds = {}
     try:
         for name in phases:
@@ -2786,6 +3221,7 @@ def main(argv=None) -> int:
             log(f"[{name}] done in {seconds[name]:.1f} s")
         log(f"[pseudo-labels] phase 10 in "
             f"{sum(seconds.get(p, 0.0) for p in PSEUDO_LABEL_PHASES):.1f} s")
+        log(f"[edit] phase 11 in {seconds.get('edit', 0.0):.1f} s")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     if set(phases) != set(PHASES):
@@ -2855,6 +3291,20 @@ def main(argv=None) -> int:
         "blend_bwd", 19, bwd_src, k2_tpu, loop["launches_by_stage"]["train"]["blend_bwd"],
         loop["bwd19"]["max_abs_err"], loop["bwd19"],
         path="pseudo_label_loop training, hard scene", **k2_occupancy[19]))
+    edit = results["edit"]
+    kernels.append(kernel_entry(
+        "blend_fwd", 19, fwd_src, k1_tpu, edit["launches"]["blend_fwd"] + edit["mask_launches"],
+        edit["fwd19"]["max_abs_err"], edit["fwd19"],
+        path="edit_object_inpaint finetune + the hole masks' renders, hard scene",
+        launches_by_path={"finetune": edit["launches"]["blend_fwd"],
+                          "hole masks": edit["mask_launches"],
+                          "eval_hard_scene_checkpoint": results["offline"]["checkpoint_launches"]},
+        **occupancy["blend_fwd"][19]))
+    kernels.append(kernel_entry(
+        "blend_bwd", 19, bwd_src, k2_tpu, edit["launches"]["blend_bwd"],
+        edit["bwd19"]["max_abs_err"], edit["bwd19"],
+        path="edit_object_inpaint finetune, hard scene",
+        **k2_occupancy[19]))
     log(f"[total] {time.perf_counter() - t_all:.1f} s on {smi}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -13,8 +13,15 @@ and the multi-view lift (``aggregate_voxel_features_onthefly.py``), and the
 open-vocabulary query (``voxeltoGaussian_logits.py``), the one-command pipeline
 (``run_pipeline.py``), the LSeg feature extraction
 (``extract_lseg_features.py``) and the CLIP text tower and LSeg in torch.nn
-(``models/``). The tile blend is two hand-written CUDA kernels, forward and backward
-(``csrc/blend_fwd.cu``, ``csrc/blend_bwd.cu``, bound in ``ops/blend.py``).
+(``models/``); pseudo-labels (``prepare_pseudo_label.py``,
+``pseudo_label_loop.py``) with the LERF-Masked and ScanNet++ evaluation and the
+offline hard-scene tools; object editing (``edit_object_removal.py``,
+``edit_object_inpaint.py``: removal, the inpainting set-up and the masked
+finetune), the two 2D inpainters (``ops/inpaint.py``, ``ops/inpaint_patch.py``,
+``inpaint_images.py``) and LPIPS (``eval/lpips.py``, ``eval_inpaint_lpips.py``).
+The tile blend is hand-written CUDA kernels, forward and backward
+(``csrc/blend_fwd.cu``, ``csrc/blend_bwd.cu``, bound in ``ops/blend.py``), and
+the packed forward (``csrc/blend_packed.cu``).
 
 Entry points run on the card (``device="cuda"``) unless the caller asks for the
 CPU; they raise when CUDA is missing instead of falling back.

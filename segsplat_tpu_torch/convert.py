@@ -181,3 +181,19 @@ def lseg_from_flax(params) -> Dict[str, torch.Tensor]:
     if "__logit_scale__" in params:
         sd["logit_scale"] = np.log(np.asarray(params["__logit_scale__"], np.float32))
     return {k: _f32(v) for k, v in sd.items()}
+
+
+def lpips_from_params(params: dict):
+    """``eval/lpips.load_lpips``'s numpy parameters (HWIO convs, a [C] lin
+    vector per layer) → the ``LPIPS`` module (OIHW ``nn.Conv2d`` weights), on
+    the CPU."""
+    from segsplat_tpu_torch.eval.lpips import LPIPS
+
+    model = LPIPS(params["net"])
+    with torch.no_grad():
+        for i, conv in enumerate(model.convs()):
+            conv.weight.copy_(_f32(np.asarray(params["backbone"][f"conv{i}_w"]).transpose(3, 2, 0, 1)))
+            conv.bias.copy_(_f32(params["backbone"][f"conv{i}_b"]))
+        for k, lin in enumerate(params["lins"]):
+            getattr(model, f"lin{k}").copy_(_f32(lin))
+    return model

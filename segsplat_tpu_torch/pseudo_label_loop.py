@@ -45,7 +45,7 @@ from segsplat_tpu_torch.pipeline.consolidate import consolidate_classes
 from segsplat_tpu_torch.pipeline.query import LERF_NEGATIVES, text_query_mask
 from segsplat_tpu_torch.pipeline.train import TrainRunConfig, train
 from segsplat_tpu_torch.prepare_pseudo_label import segment_images, track_sequence
-from segsplat_tpu_torch.render import render
+from segsplat_tpu_torch.render import raster_backend, render
 from segsplat_tpu_torch.train.editing import select_obj_ioa
 from segsplat_tpu_torch.train.trainer import OptimizationConfig
 from segsplat_tpu_torch.utils.system import require_device
@@ -145,12 +145,6 @@ def orbit_cameras(F: int, H: int, W: int, radius: float = 3.0, fov: float = 0.9)
         ts.append(-Rwc @ pos)
     fx = fov2focal(fov, W)
     return Rs, ts, fx, fx
-
-
-def raster_backend(device) -> str:
-    """The kernels on the card; the dense blend where the caller asks for the
-    CPU (the JAX script's "xla")."""
-    return "dense" if torch.device(device).type == "cpu" else "cuda"
 
 
 def _camera(Rwc, t, fx, fy, H, W, device) -> Camera:

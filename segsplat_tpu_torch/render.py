@@ -23,7 +23,13 @@ from segsplat_tpu_torch.core.sh import eval_sh
 from segsplat_tpu_torch.core.types import NUM_SEMANTIC_CHANNELS, Camera, GaussianTable
 from segsplat_tpu_torch.ops.rasterize import BACKENDS, pad_logits_to_channels, rasterize
 
-__all__ = ["BACKENDS", "render", "render_semantics", "render_semantics_many", "sh_colors"]
+__all__ = ["BACKENDS", "raster_backend", "render", "render_semantics", "render_semantics_many", "sh_colors"]
+
+
+def raster_backend(device) -> str:
+    """The kernels on the card; the dense blend where the caller asks for the
+    CPU (the JAX scripts' "xla")."""
+    return "dense" if torch.device(device).type == "cpu" else "cuda"
 
 
 def sh_colors(table: GaussianTable, campos: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,7 @@
 """Shared seeded scenes for the port's parity tests (tests/test_torch_*.py) and
 for chip_smoke.py: the same numpy inputs go to the JAX package and to
-segsplat_tpu_torch. Imports no JAX."""
+segsplat_tpu_torch. Imports no JAX at module level (``jax_draws`` imports it
+when called)."""
 
 import contextlib
 
@@ -450,3 +451,70 @@ def torch_threads(n: int):
         yield
     finally:
         torch.set_num_threads(old)
+
+
+# ───────────── PatchMatch (ops/inpaint_patch.py): the JAX draws, near-ties ─────────────
+def jax_draws(seed: int):
+    """The PatchMatch draws of the JAX ``inpaint_texture(..., seed=seed)``, as
+    ``segsplat_tpu_torch.ops.inpaint_patch.torch_draws`` hands them out: per
+    level ``key, sub = split(key)``; per PatchMatch iteration ``split(sub, 4)``,
+    the key carried across the EM rounds; ``randint(k3, (2, bucket), -radius,
+    radius + 1)`` and the two restarts at the bucket size, of which the first
+    Nh columns are kept."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    key = [jax.random.PRNGKey(seed)]
+
+    def draw(h, w, n, bucket, pm_iters, em_iters):
+        key[0], k = jax.random.split(key[0])
+        local = np.empty((em_iters, pm_iters, 2, n), np.int64)
+        glob = np.empty_like(local)
+        for e in range(em_iters):
+            for it in range(pm_iters):
+                k, k2y, k2x, k3 = jax.random.split(k, 4)
+                radius = jnp.maximum((jnp.int32(max(h, w)) >> jnp.int32(it)).astype(jnp.int32), 2)
+                local[e, it] = np.asarray(jax.random.randint(k3, (2, bucket), -radius,
+                                                             radius + 1))[:, :n]
+                glob[e, it, 0] = np.asarray(jax.random.randint(k2y, (bucket,), 0, h))[:n]
+                glob[e, it, 1] = np.asarray(jax.random.randint(k2x, (bucket,), 0, w))[:n]
+        return torch.from_numpy(local), torch.from_numpy(glob)
+
+    return draw
+
+
+def patch_costs(img: np.ndarray, targets: np.ndarray, sources: np.ndarray,
+                patch: int) -> np.ndarray:
+    """Float64 patch SSD between the edge-clamped patches of ``img`` [H, W, C]
+    at ``targets`` and at ``sources`` ([N, 2] (y, x) each)."""
+    r = patch // 2
+    h, w = img.shape[:2]
+    pad = np.pad(img.astype(np.float64), ((r, r), (r, r), (0, 0)), mode="edge")
+    offs = np.arange(-r, r + 1)
+
+    def patches(yx):
+        ys = yx[:, 0, None, None] + offs[None, :, None] + r
+        xs = yx[:, 1, None, None] + offs[None, None, :] + r
+        return pad[np.clip(ys, 0, h + 2 * r - 1), np.clip(xs, 0, w + 2 * r - 1)]
+
+    return ((patches(targets) - patches(sources)) ** 2).sum(axis=(1, 2, 3))
+
+
+def nnf_near_ties(img, hole_yx, got, want, patch: int, channels: int):
+    """How many entries of two NNFs ([N, 2]) differ, and the largest gap of
+    their two sources' float64 patch costs against the hole pixel's patch on
+    ``img``; raises where a gap exceeds the float32 rounding of a
+    patch²·C-term sum, 2·patch²·C·eps₃₂ times the larger cost."""
+    diff = np.flatnonzero((got != want).any(axis=1))
+    if not len(diff):
+        return 0, 0.0
+    tgt = hole_yx[diff]
+    c_got = patch_costs(img, tgt, got[diff], patch)
+    c_want = patch_costs(img, tgt, want[diff], patch)
+    gap = np.abs(c_got - c_want)
+    bound = 2 * patch * patch * channels * np.finfo(np.float32).eps * np.maximum(c_got, c_want)
+    if (gap > bound).any():
+        raise AssertionError(f"{int((gap > bound).sum())} of {len(diff)} differing NNF entries "
+                             f"are no near-tie (largest gap {gap.max():.3g})")
+    return len(diff), float(gap.max())

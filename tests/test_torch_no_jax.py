@@ -47,8 +47,14 @@ mods = [m.name for m in pkgutil.walk_packages(segsplat_tpu_torch.__path__,
 for m in mods:
     importlib.import_module(m)
 importlib.import_module("chip_smoke")
-print(len(mods))
+print(" ".join(mods))
 """
+
+# modules of the editing slice, named so that losing one fails here
+EDIT_SLICE = ("train.editing", "ops.inpaint", "ops.inpaint_patch", "eval.lpips",
+              "utils.profiling", "edit_object_removal", "edit_object_inpaint",
+              "inpaint_images", "eval_inpaint_lpips", "eval_hard_scene_offline",
+              "eval_hard_scene_checkpoint", "tune_class_merge", "tune_tracker")
 
 
 def test_port_modules_import_with_jax_blocked():
@@ -56,4 +62,7 @@ def test_port_modules_import_with_jax_blocked():
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                        text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
-    assert int(r.stdout.strip().splitlines()[-1]) >= 15
+    mods = set(r.stdout.strip().splitlines()[-1].split())
+    assert len(mods) >= 15
+    missing = [m for m in EDIT_SLICE if f"segsplat_tpu_torch.{m}" not in mods]
+    assert not missing, missing
