@@ -146,6 +146,28 @@ Phases, each fatal on failure:
      bit-unchanged, the new rows moved, the PLY reloads; the finetune step
      timed part by part (render, loss, backward, Adam) and K1/K2 on its own
      inputs.
+  12. ``multi``: several devices on torch.distributed, here one NCCL rank on the
+     card: (a) ``parallel.multihost.initialize`` at world 1 through a
+     ``file://`` rendezvous, its topology; (b) the B-view step
+     (``parallel.train.make_parallel_train_step``) at phase 5's configuration
+     with B = 4 views at train_camera's yaws on the 1×1 NCCL mesh: step 1's
+     losses (1e-4), gradients (rtol 5e-3, atol 2e-4·max|ref|) and updated
+     parameters against the same step with both plain blends, its gradient
+     against two ranks' shares (views {0,1} and {2,3}) computed in turn and
+     added, K1 and K2 exactly 4 launches a step; 10 steps timed by part
+     (render, losses, backward, all-reduce, optimizers) beside phase 5's
+     single-view step; K1 and K2 on the step's own inputs with their bounds;
+     (c) ``torchrun --standalone --nproc_per_node 1`` of the train CLI twin
+     with --view_batch 4 for 20 iterations on a 4-view 876×584 scene, with a
+     densify step and an opacity reset: K1 and K2 ≥ 4 launches an iteration,
+     finite losses, the PLY reloads; --mesh_tensor 2 at world 1 raises; (d)
+     ``lift_views_sharded`` at phase 8's officescene scale (8 views, 512
+     channels, 109 000 voxels) on the 1×1 mesh against ``lift_views_scan``
+     (counts equal, sums 1e-5), and the halves {0..3}, {4..7} lifted in turn
+     and added; views/s; (e) the headline scene at 1920×1024 (1080 splits into
+     no TILE-aligned strips): ``rasterize_sharded`` on the 1×1 mesh and 4
+     strips rendered in turn against the whole frame at 1e-4, each strip and
+     the frame timed, K1 on each strip's inputs with its bound.
 Prints a ``{"kernels": [...]}`` line (each kernel's blocks per SM, shared
 memory and registers from the occupancy API; K1's and K3's share of warp-rows
 their row lists keep beside the share with a passing lane), then as the last line
@@ -3125,6 +3147,434 @@ def phase_edit(results, root: str):
     phase_edit_clis(results, root)
 
 
+# ───────── phase 12: several devices on torch.distributed (one card, one NCCL rank) ─────────
+
+MULTI_B = 4                              # views a step of the B-view step
+MULTI_YAWS = (0.0, 0.01, 0.02, 0.03)     # train_camera's yaws of its 4 views
+MULTI_TIMED = 10
+MULTI_CLI_ITERS = 20
+STRIP_W, STRIP_H, STRIPS = 1920, 1024, 4  # 1080 is no multiple of 4·16 (no 1080p strips)
+LIFT_SHARD_VIEWS = 8
+
+
+def multi_batch():
+    """The B-view step's inputs at phase 5's width: 4 cameras at train_camera's
+    yaws, seeded GT images and perf_train's mask ids (noise: no pixel is
+    confident, so the codebook's two losses are 0, as in phase 5)."""
+    import numpy as np
+    import torch
+
+    from segsplat_tpu_torch.core.types import stack_cameras
+
+    rng = np.random.default_rng(2)
+    gts = [torch.as_tensor(rng.random((3, TRAIN_H, TRAIN_W)).astype(np.float32), device=DEV)
+           for _ in MULTI_YAWS]
+    objs = [torch.as_tensor(rng.integers(0, 32, (TRAIN_H, TRAIN_W)).astype(np.int32),
+                            device=DEV) for _ in MULTI_YAWS]
+    return stack_cameras([train_camera(y) for y in MULTI_YAWS]), gts, objs
+
+
+def param_grads(state) -> dict:
+    from segsplat_tpu_torch.train.densify import PARAM_FIELDS
+
+    out = {f: getattr(state.table, f).grad.clone() for f in PARAM_FIELDS
+           if getattr(state.table, f).grad is not None}
+    out["code_book"] = state.code_book.grad.clone()
+    return out
+
+
+def hold_update(name, got, ref, old, g_ref) -> int:
+    """Updated parameters of the kernels' step against the plain one's:
+    within two float32 roundings of the parameter wherever the reference
+    gradient exceeds the gradient tolerance's atol (Adam's first step is
+    ±lr there); elsewhere a gradient within rounding of 0 may take either
+    sign and the update ±lr. Returns the count of such elements that part."""
+    import torch
+
+    resolved = g_ref.abs() > GRAD_ATOL_REL * float(g_ref.abs().max())
+    tol = 2 * torch.finfo(torch.float32).eps * old.abs() + 1e-6 * (ref - old).abs()
+    bad = resolved & ((got - ref).abs() > tol)
+    if bool(bad.any()):
+        raise AssertionError(f"B-view step 1 {name}: {int(bad.sum())} updated entries "
+                             f"part from the plain step where the gradient is resolved")
+    return int(((got != ref) & ~resolved).sum())
+
+
+def phase_multi_step(results, mesh):
+    """(b) The B-view step on the 1×1 NCCL mesh at phase 5's width."""
+    import torch
+
+    from segsplat_tpu_torch.ops import blend as B
+    from segsplat_tpu_torch.parallel import train as PTR
+    from segsplat_tpu_torch.parallel.mesh import Mesh
+    from segsplat_tpu_torch.train import losses as L
+    from segsplat_tpu_torch.train import trainer as T
+    from segsplat_tpu_torch.train.densify import PARAM_FIELDS
+
+    pts, cols, _, _ = train_scene()
+    table0 = T.init_table_from_pcd(pts, cols, TRAIN_CAP, max_sh_degree=3, seed=0, device=DEV)
+    cfg = T.OptimizationConfig(num_classes=256)
+    raster_kw = dict(max_tiles_per_axis=3, max_per_tile=256)
+    cams, gts, objs = multi_batch()
+    bg = torch.zeros(3, device=DEV)
+    idx = torch.randint(0, TRAIN_W * TRAIN_H, (MULTI_B, L.CONTRAST_SAMPLES),
+                        generator=torch.Generator(DEV).manual_seed(0), device=DEV)
+
+    def fresh():
+        table = dataclasses.replace(table0, **{f: getattr(table0, f).detach().clone()
+                                               for f in PARAM_FIELDS})
+        return T.init_state(table, cfg, spatial_lr_scale=3.0, seed=0)
+
+    def step1(step_mesh, plain=False, update=True):
+        """Step 1 from the initial state: (state, metrics, grads, captured blend)."""
+        state = fresh()
+        captured = {}
+        swaps = [swapped(B, blend_tiles=B.blend_tiles_plain,
+                         blend_tiles_bwd=B.blend_tiles_bwd_plain) if plain
+                 else contextlib.nullcontext(),
+                 contextlib.nullcontext() if update
+                 else swapped(T, apply_updates=lambda s: None)]
+        orig_compute = T.compute_losses
+
+        def capture_first(*a, **k):
+            total, aux = orig_compute(*a, **k)
+            if not captured:
+                capture_blend(total, captured)
+            return total, aux
+
+        with swaps[0], swaps[1], swapped(T, compute_losses=capture_first):
+            m = PTR.make_parallel_train_step(cfg, step_mesh, raster_kw)(
+                state, cams, gts, objs, bg, idx=idx)
+            torch.cuda.synchronize()
+        return state, {k: float(v) for k, v in m.items()}, param_grads(state), captured
+
+    B.blend_tiles.launches = B.blend_tiles_bwd.launches = 0
+    got, got_m, got_g, cap = step1(mesh)
+    step_launches = {"blend_fwd": B.blend_tiles.launches, "blend_bwd": B.blend_tiles_bwd.launches}
+    if step_launches != {"blend_fwd": MULTI_B, "blend_bwd": MULTI_B}:
+        raise AssertionError(f"a {MULTI_B}-view step launched {step_launches}")
+    ref, ref_m, ref_g, _ = step1(mesh, plain=True)
+    for k, v in ref_m.items():
+        if not (math.isfinite(got_m[k]) and abs(got_m[k] - v) <= 1e-4 * abs(v) + 1e-9):
+            raise AssertionError(f"B-view step 1 {k}: kernels {got_m[k]} vs plain {v}")
+    grad_err = {k: compare_grad(f"B-view step 1 grad {k}", got_g[k], ref_g[k]) for k in ref_g}
+    old = fresh()
+    flips = {}
+    for f in PARAM_FIELDS:
+        if f in ref_g:
+            flips[f] = hold_update(f, getattr(got.table, f).detach(),
+                                   getattr(ref.table, f).detach(),
+                                   getattr(old.table, f).detach(), ref_g[f])
+    del ref, old
+    # the gradient against two ranks' shares computed in turn and added by hand
+    shares = [step1(Mesh(2, 1, r, 0), update=False)[2] for r in range(2)]
+    split_err = {k: compare_grad(f"B-view step two-rank split {k}", shares[0][k] + shares[1][k],
+                                 got_g[k]) for k in got_g}
+    del shares, got
+    log(f"[multi] B={MULTI_B} step 1, kernels vs plain: {json.dumps(got_m)}; grad max abs diff "
+        f"{json.dumps(grad_err)}; updates parted only at unresolved gradients: "
+        f"{json.dumps(flips)}; two-rank split vs the step: {json.dumps(split_err)}")
+    results["multi_fwd"], results["multi_bwd"] = kernels_on_captured(results, cap, "multi")
+    del cap
+
+    # 10 steps timed part by part: render and losses (compute_losses less the
+    # render), the all-reduce, the optimizers; the backward is the rest
+    spans = {}
+
+    def timed(name, fn):
+        def run(*a, **k):
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = fn(*a, **k)
+            ev[1].record()
+            spans.setdefault(name, []).append(ev)
+            return out
+        return run
+
+    state = fresh()
+    step_fn = PTR.make_parallel_train_step(cfg, mesh, raster_kw)
+    gen = torch.Generator(DEV).manual_seed(1)
+    warm, rows, wall = 2, [], []
+    with swapped(T, render=timed("render", T.render),
+                 compute_losses=timed("compute_losses", T.compute_losses),
+                 apply_updates=timed("optimizers", T.apply_updates)), \
+            swapped(PTR, _flat_all_reduce=timed("all_reduce", PTR._flat_all_reduce)):
+        for i in range(warm + MULTI_TIMED):
+            if i == warm:
+                B.blend_tiles.launches = B.blend_tiles_bwd.launches = 0
+            spans.clear()
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            t0 = time.perf_counter()
+            ev[0].record()
+            m = step_fn(state, cams, gts, objs, bg, generator=gen)
+            ev[1].record()
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+            if not all(math.isfinite(float(v)) for v in m.values()):
+                raise AssertionError(f"B-view step {i}: non-finite metrics {m}")
+            span = {k: sum(e[0].elapsed_time(e[1]) for e in v) for k, v in spans.items()}
+            step = ev[0].elapsed_time(ev[1])
+            rows.append(dict(step=step, render=span["render"],
+                             losses=span["compute_losses"] - span["render"],
+                             all_reduce=span["all_reduce"], optimizers=span["optimizers"],
+                             backward=step - span["compute_losses"] - span["all_reduce"]
+                             - span["optimizers"]))
+    launches = {"blend_fwd": B.blend_tiles.launches, "blend_bwd": B.blend_tiles_bwd.launches}
+    if launches != {k: MULTI_B * MULTI_TIMED for k in launches}:
+        raise AssertionError(f"{MULTI_TIMED} timed {MULTI_B}-view steps launched {launches}")
+    med = {k: statistics.median(r[k] for r in rows[warm:]) for k in rows[0]}
+    med["wall"] = statistics.median(wall[warm:])
+    single = results.get("train_step", {}).get("median_ms", {}).get("step")
+    results["multi_step"] = dict(
+        B=MULTI_B, median_ms=med, steps=MULTI_TIMED, launches=launches,
+        single_view_step_ms=single, four_single_view_steps_ms=single and MULTI_B * single,
+        num_pairs=int(m["num_pairs"]), tile_overflow=int(m["tile_overflow"]),
+        total=float(m["total"]), peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"[multi] B={MULTI_B} step at {TRAIN_W}x{TRAIN_H}, capacity {TRAIN_CAP}, m=3, K=256, "
+        f"1x1 NCCL mesh: " + json.dumps(results["multi_step"]))
+    del state, table0
+    torch.cuda.empty_cache()
+
+
+def torchrun_train(root: str, argv: list, tag: str):
+    """``torchrun --standalone --nproc_per_node 1`` of this script's train child,
+    which runs the CLI twin's main (``python -m segsplat_tpu_torch.train``)
+    and writes the blends' launch counts: (returncode, stdout, stderr, counts)."""
+    out = os.path.join(root, f"{tag}.json")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "1", os.path.abspath(__file__), "--train-child", out, *argv]
+    r = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                       cwd=os.path.dirname(os.path.abspath(__file__)))
+    counts = json.load(open(out)) if os.path.exists(out) else None
+    return r.returncode, r.stdout, r.stderr, counts
+
+
+def train_child(out: str, argv: list) -> int:
+    """The rank process of ``torchrun_train``: the CLI twin's main, then the
+    blends' launches, the step and the world into ``out``."""
+    import torch.distributed as dist
+
+    from segsplat_tpu_torch.ops.blend import blend_tiles, blend_tiles_bwd
+    from segsplat_tpu_torch.train import cli
+
+    blend_tiles.launches = blend_tiles_bwd.launches = 0
+    stdout = sys.stdout
+    try:
+        state = cli.main(argv)
+    finally:
+        sys.stdout = stdout
+    with open(out, "w") as f:
+        json.dump({"blend_fwd": blend_tiles.launches, "blend_bwd": blend_tiles_bwd.launches,
+                   "step": state.step, "active": int(state.table.active.sum()),
+                   "initialized_after": dist.is_initialized()}, f)
+    return 0
+
+
+def phase_multi_cli(results, root: str):
+    """(c) The train CLI twin under torchrun with --view_batch 4."""
+    import torch
+
+    from segsplat_tpu_torch.scene import load_gaussian_table
+
+    src = write_train_scene(os.path.join(root, "multi_scene"), n_views=MULTI_B)
+    model = os.path.join(root, "multi_model")
+    argv = ["-s", src, "-m", model, "--iterations", str(MULTI_CLI_ITERS),
+            "--capacity", str(TRAIN_CAP), "--view_batch", str(MULTI_B),
+            "--densify_from_iter", "5", "--densification_interval", "10",
+            "--densify_until_iter", str(MULTI_CLI_ITERS), "--opacity_reset_interval", "15",
+            "--test_iterations", str(MULTI_CLI_ITERS), "--device", DEV]
+    t0 = time.perf_counter()
+    rc, out, err, counts = torchrun_train(root, argv, "multi_cli")
+    cli_s = time.perf_counter() - t0
+    if rc != 0 or counts is None:
+        raise AssertionError(f"torchrun train CLI exit {rc}:\n{out[-3000:]}\n{err[-5000:]}")
+    if min(counts["blend_fwd"], counts["blend_bwd"]) < MULTI_B * MULTI_CLI_ITERS:
+        raise AssertionError(f"{MULTI_CLI_ITERS} iterations of {MULTI_B} views launched {counts}")
+    if counts["initialized_after"]:
+        raise AssertionError("the CLI left its process group open")
+    metrics = [json.loads(line) for line in open(os.path.join(model, "metrics.jsonl"))]
+    steps = [m for m in metrics if "total" in m]
+    evals = [m for m in metrics if "eval_psnr" in m]
+    bad = [(m["iter"], k) for m in steps + evals for k, v in m.items()
+           if isinstance(v, float) and not math.isfinite(v)]
+    if len(steps) != MULTI_CLI_ITERS // 10 or not evals or bad:
+        raise AssertionError(f"metrics.jsonl: {len(steps)} steps, {len(evals)} evals, "
+                             f"non-finite {bad}")
+    ply = os.path.join(model, "point_cloud", f"iteration_{MULTI_CLI_ITERS}", "point_cloud.ply")
+    reloaded = load_gaussian_table(ply, capacity=TRAIN_CAP, device=DEV)
+    if int(reloaded.active.sum()) != counts["active"] or not bool(
+            torch.isfinite(reloaded.xyz).all()):
+        raise AssertionError(f"the PLY reloads {int(reloaded.active.sum())} rows, the run "
+                             f"ended with {counts['active']}")
+    # a mesh larger than the world is refused, naming both sizes
+    rc2, _, err2, _ = torchrun_train(root, argv[:4] + ["--iterations", "1", "--mesh_tensor",
+                                                       "2", "--device", DEV], "multi_cli_t2")
+    if rc2 == 0 or "view=1 x tensor=2 needs 2 ranks" not in err2:
+        raise AssertionError(f"--mesh_tensor 2 at world 1: exit {rc2}, stderr {err2[-2000:]}")
+    results["multi_cli"] = dict(seconds=cli_s, launches=counts, last=steps[-1], eval=evals[-1],
+                                num_gaussians=counts["active"], mesh_tensor_2="ValueError")
+    log(f"[multi-cli] torchrun --nproc_per_node 1 -m segsplat_tpu_torch.train --view_batch "
+        f"{MULTI_B}: {MULTI_CLI_ITERS} iterations in {cli_s:.1f} s, launches {counts}; last "
+        f"{json.dumps(steps[-1])}; eval {json.dumps(evals[-1])}; PLY reloads; "
+        f"--mesh_tensor 2 at world 1 raises ValueError")
+
+
+def phase_multi_lift(results, mesh):
+    """(d) lift_views_sharded at phase 8's officescene scale on the 1×1 mesh."""
+    import numpy as np
+    import torch
+
+    _tests_on_path()
+    from _torch_port import officescene_lift_scene
+
+    from segsplat_tpu_torch.ops import lift as PL
+    from segsplat_tpu_torch.parallel import lift_views_sharded
+    from segsplat_tpu_torch.parallel.mesh import Mesh
+    from segsplat_tpu_torch.pipeline.lift_features import LiftConfig, lift_grid, resize_features
+
+    sc = officescene_lift_scene(n_views=LIFT_SHARD_VIEWS)
+    W, H, C = sc["W"], sc["H"], sc["C"]
+    cfg = LiftConfig()
+    f32 = dict(dtype=torch.float32, device=DEV)
+    _, occ, occ_origin, _, _ = lift_grid(sc["centers"], sc["vs"], sc["origin"],
+                                         sc["grid_shape"], DEV)
+    num_ids = len(sc["centers"]) + 1
+    feats = torch.stack([resize_features(torch.as_tensor(m, device=DEV), H, W).permute(1, 2, 0)
+                         for m in sc["feats"]()])                           # [8, H, W, 512]
+    c2ws, intr = torch.as_tensor(sc["c2ws"], **f32), torch.as_tensor(sc["intr"], **f32)
+    inc = sc["vs"] * cfg.ray_increment_factor
+    fx, fy, cx, cy = (float(x) for x in sc["intr"][0])
+    steps = PL.default_max_steps(W, H, fx, fy, cfg.depth_min, cfg.depth_max, inc, cx=cx, cy=cy)
+    geo = (occ, c2ws, intr, torch.as_tensor(occ_origin, **f32), torch.tensor(sc["vs"], **f32),
+           cfg.depth_min, cfg.depth_max)
+
+    def sharded(m):
+        return lift_views_sharded(m, feats, *geo, inc, num_ids, steps)
+
+    ref_s, ref_c = PL.lift_views_scan(feats, *geo, torch.tensor(inc, **f32), num_ids, steps,
+                                      W, H)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got_s, got_c = sharded(mesh)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    halves = [sharded(Mesh(2, 1, r, 0)) for r in range(2)]
+    checks = {}
+    for name, (s, c) in (("1x1 mesh", (got_s, got_c)),
+                         ("halves in turn", (halves[0][0] + halves[1][0],
+                                             halves[0][1] + halves[1][1]))):
+        if not torch.equal(c, ref_c):
+            raise AssertionError(f"sharded lift {name}: counts part from lift_views_scan")
+        err = float((s - ref_s).abs().max())
+        if float(((s - ref_s).abs() - (1e-5 + 1e-5 * ref_s.abs())).max()) > 0:
+            raise AssertionError(f"sharded lift {name}: sums part by {err:.3g}")
+        checks[name] = err
+    hit = int((ref_c[1:] > 0).sum())
+    results["multi_lift"] = dict(views=LIFT_SHARD_VIEWS, views_per_sec=LIFT_SHARD_VIEWS / secs,
+                                 seconds=secs, voxels_hit=hit, sums_max_abs_diff=checks,
+                                 shape=[W, H, C, len(sc["centers"])])
+    log(f"[multi-lift] lift_views_sharded, {LIFT_SHARD_VIEWS} views of {W}x{H}x{C} into "
+        f"{len(sc['centers'])} voxels on the 1x1 NCCL mesh: " + json.dumps(results["multi_lift"]))
+    del feats, ref_s, got_s, halves
+    torch.cuda.empty_cache()
+
+
+def phase_multi_strips(results, mesh):
+    """(e) The headline scene at 1920×1024 in 4 strips and as one frame."""
+    import torch
+
+    from segsplat_tpu_torch.ops import blend as B
+    from segsplat_tpu_torch.ops.rasterize import TILE, build_blend_inputs, project_gaussians, rasterize
+    from segsplat_tpu_torch.parallel import rasterize_sharded
+    from segsplat_tpu_torch.parallel.render import rasterize_strip, strip_height
+
+    sc = headline_scene()
+    m, K = sc["m"], sc["K"]
+    vm, fx, fy, cx, cy = bench_camera(STRIP_W, STRIP_H)
+    t = {k: torch.as_tensor(sc[k], device=DEV) for k in ("xyz", "scales", "quats", "opac",
+                                                          "colors")}
+    args = (t["xyz"], t["scales"], t["quats"], t["opac"], t["colors"],
+            torch.as_tensor(vm, device=DEV), fx, fy, cx, cy, STRIP_W, STRIP_H)
+    bg = torch.zeros(32, device=DEV)
+    kw = dict(bg=bg, max_tiles_per_axis=m, max_per_tile=K)
+    B.blend_tiles.launches = 0
+    whole = rasterize(*args, **kw)
+    shard = rasterize_sharded(mesh, *args, **kw)
+    strips = [rasterize_strip(i, STRIPS, *args, **kw) for i in range(STRIPS)]
+    torch.cuda.synchronize()
+    launches = B.blend_tiles.launches
+    if launches != 2 + STRIPS:
+        raise AssertionError(f"the frame, the 1x1 sharded frame and {STRIPS} strips launched "
+                             f"K1 {launches} times")
+    errs = {"rasterize_sharded 1x1": compare("rasterize_sharded", (shard["image"],
+                                             shard["alpha"]), (whole["image"], whole["alpha"])),
+            "strips in turn": compare("strips", (torch.cat([s["image"] for s in strips]),
+                                                 torch.cat([s["alpha"] for s in strips])),
+                                      (whole["image"], whole["alpha"]))}
+    results["fwd_err"] = max(results["fwd_err"], *errs.values())
+    whole_ms = cuda_time_ms(lambda: rasterize(*args, **kw), reps=5)
+    strip_ms = [cuda_time_ms(lambda i=i: rasterize_strip(i, STRIPS, *args, **kw), reps=5)
+                for i in range(STRIPS)]
+    # K1 on each strip's own blend inputs, with its bound
+    strip_h = strip_height(STRIP_H, STRIPS)
+    per_strip = []
+    for i in range(STRIPS):
+        proj = project_gaussians(*args[:3], args[5], fx, fy, cx, cy, STRIP_W, strip_h,
+                                 tan_fovx=(0.5 * STRIP_W) / fx, tan_fovy=(0.5 * STRIP_H) / fy,
+                                 row0=i * strip_h)
+        bi = build_blend_inputs(proj, t["colors"], t["opac"], STRIP_W, strip_h, m, K,
+                                tile_row0=i * strip_h // TILE)
+        fargs = (bi.offsets, bi.sorted_payload, bg, bi.tx_n, bi.ty_n, K)
+        got = B.blend_tiles(*fargs)
+        r_img, r_alpha, rows, hits, _ = B.blend_tiles_plain_with_work(*fargs)
+        err = compare(f"strip {i} K1", got, (r_img, r_alpha))
+        entry = dict(strip=i, num_pairs=int(bi.num_pairs), max_abs_err=err,
+                     ms=cuda_time_ms(lambda: B.blend_tiles(*fargs), reps=10),
+                     plain_ms=cuda_time_ms(lambda: B.blend_tiles_plain(*fargs), reps=3, warmup=1),
+                     rasterize_ms=strip_ms[i], rows_read=rows, pixels_hit=hits)
+        entry["bound_ms"], entry["bound_by"], entry["ops"], entry["bytes"] = k1_bound(
+            bi.offsets, rows, hits, 32, bi.tx_n * bi.ty_n)
+        per_strip.append(entry)
+        del got, r_img, r_alpha, bi, proj
+    heaviest = max(per_strip, key=lambda e: e["num_pairs"])
+    results["multi_strips"] = dict(size=[STRIP_W, STRIP_H], strips=STRIPS, m=m, K=K,
+                                   launches=launches, max_abs_err=errs, whole_ms=whole_ms,
+                                   strip_rasterize_ms=strip_ms, per_strip=per_strip,
+                                   heaviest=heaviest)
+    log(f"[multi-strips] headline scene at {STRIP_W}x{STRIP_H}, {STRIPS} strips: "
+        + json.dumps(results["multi_strips"]))
+    del t, whole, shard, strips
+    torch.cuda.empty_cache()
+
+
+def phase_multi(results, root: str):
+    """Phase 12: (a) topology on an NCCL group of one rank; (b) the B-view step;
+    (c) the train CLI under torchrun; (d) the sharded lift; (e) strips."""
+    import torch.distributed as dist
+
+    from segsplat_tpu_torch.parallel import make_mesh, multihost
+
+    topo = multihost.initialize(f"file://{os.path.join(root, 'rendezvous')}", 1, 0,
+                                backend="nccl")
+    try:
+        mesh = make_mesh()
+        if mesh.groups is None or dist.get_backend() != "nccl":
+            raise AssertionError(f"phase 12 runs on an NCCL group, got {topo}")
+        log(f"[multi] topology {json.dumps(topo)}; mesh view={mesh.n_view} "
+            f"tensor={mesh.n_tensor}")
+        seconds = {}
+        for name, fn in (("step", lambda: phase_multi_step(results, mesh)),
+                         ("cli", lambda: phase_multi_cli(results, root)),
+                         ("lift", lambda: phase_multi_lift(results, mesh)),
+                         ("strips", lambda: phase_multi_strips(results, mesh))):
+            t0 = time.perf_counter()
+            fn()
+            seconds[name] = time.perf_counter() - t0
+        log(f"[multi] parts in s: {json.dumps(seconds)}")
+    finally:
+        dist.destroy_process_group()
+
+
 LIST_KEYS = ("warp_rows_read", "warp_rows_kept", "warp_rows_hit", "kept_share", "hit_share")
 
 
@@ -3138,7 +3588,7 @@ def kernel_entry(name, ch, source, replaces, launches, max_abs_err, t, **extra):
 
 
 PHASES = ("small", "full", "main", "train", "train-cli", "logits", "other-blends", "lift",
-          "query", "widths", "slic", "loop", "mesh", "edit")
+          "query", "widths", "slic", "loop", "mesh", "edit", "multi")
 PSEUDO_LABEL_PHASES = ("widths", "slic", "loop", "mesh")      # phase 10 (a)-(e)
 
 
@@ -3147,6 +3597,9 @@ def main(argv=None) -> int:
 
     import torch
 
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--train-child"]:         # a rank process of phase 12c's torchrun
+        return train_child(argv[1], argv[2:])
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated phases to run (all by default); the kernels "
@@ -3211,7 +3664,8 @@ def main(argv=None) -> int:
            "slic": lambda: phase_slic(results),
            "loop": lambda: phase_loop(results, root),
            "mesh": lambda: phase_mesh(results, root),
-           "edit": lambda: phase_edit(results, root)}
+           "edit": lambda: phase_edit(results, root),
+           "multi": lambda: phase_multi(results, root)}
     seconds = {}
     try:
         for name in phases:
@@ -3222,6 +3676,7 @@ def main(argv=None) -> int:
         log(f"[pseudo-labels] phase 10 in "
             f"{sum(seconds.get(p, 0.0) for p in PSEUDO_LABEL_PHASES):.1f} s")
         log(f"[edit] phase 11 in {seconds.get('edit', 0.0):.1f} s")
+        log(f"[multi] phase 12 in {seconds.get('multi', 0.0):.1f} s")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     if set(phases) != set(PHASES):
@@ -3305,6 +3760,23 @@ def main(argv=None) -> int:
         edit["bwd19"]["max_abs_err"], edit["bwd19"],
         path="edit_object_inpaint finetune, hard scene",
         **k2_occupancy[19]))
+    multi, strips = results["multi_step"], results["multi_strips"]
+    for name, src, tpu, t, occ in (("blend_fwd", fwd_src, k1_tpu, results["multi_fwd"],
+                                    occupancy["blend_fwd"][19]),
+                                   ("blend_bwd", bwd_src, k2_tpu, results["multi_bwd"],
+                                    k2_occupancy[19])):
+        kernels.append(kernel_entry(
+            name, 19, src, tpu, multi["launches"][name], t["max_abs_err"], t,
+            path=f"parallel train step, B = {MULTI_B}",
+            launches_by_path={f"{MULTI_TIMED} timed B-view steps": multi["launches"][name],
+                              "train CLI under torchrun, view_batch 4":
+                              results["multi_cli"]["launches"][name]},
+            train_step=multi, **occ))
+    kernels.append(kernel_entry(
+        "blend_fwd", 32, fwd_src, k1_tpu, strips["launches"], strips["heaviest"]["max_abs_err"],
+        strips["heaviest"], path=f"rasterize_sharded strips, {STRIP_W}x{STRIP_H} in {STRIPS}",
+        strips=[{k: e[k] for k in ("strip", "num_pairs", "ms", "bound_ms", "plain_ms")}
+                for e in strips["per_strip"]], **occupancy["blend_fwd"][32]))
     log(f"[total] {time.perf_counter() - t_all:.1f} s on {smi}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -7,15 +7,25 @@ repo's aggregate_voxel_features_onthefly.py, with the same flags plus
         --voxel_ply GRID.ply --lseg_dir FEATURES --camera_params cameras.json \\
         [--out_dir OUT] [--method splat|dda] [--device cuda|cpu]
 
-``--mesh_view`` 0 and 1 run on one device; more than one, the view-sharded
-lift over several devices, belongs to the multi-device slice of the port and
-raises NotImplementedError.
+On several cards, one process a card, each view chunk split over the ranks:
+
+    torchrun --nproc_per_node N -m segsplat_tpu_torch.aggregate_voxel_features_onthefly \
+        ... --mesh_view N
+
+``--mesh_view`` 0 means the world size of the launch, and any other value
+must equal it; a world of one takes the single-device path. Under torchrun
+the CLI joins the process group (NCCL, or gloo with ``--device cpu``), and
+only rank 0 writes.
 """
 
 from __future__ import annotations
 
 from argparse import ArgumentParser
 
+import torch.distributed as dist
+
+from segsplat_tpu_torch.parallel import multihost
+from segsplat_tpu_torch.parallel.mesh import make_mesh
 from segsplat_tpu_torch.pipeline.lift_features import LiftConfig, aggregate_voxel_features
 
 
@@ -42,19 +52,34 @@ def main(argv=None) -> dict:
                    help="splat = fast voxel-splatting first hit; dda = exact "
                         "CUDA-kernel transcription")
     p.add_argument("--mesh_view", type=int, default=0,
-                   help="0 or 1: one device; > 1 (sharding view chunks over "
-                        "devices) is not ported yet")
+                   help="shard each view chunk over N ranks (0 = the world size "
+                        "of the launch; any other value must equal it)")
     p.add_argument("--allow_random_weights", action="store_true",
                    help="accept a feature dir stamped weights_source=random "
                         "(taint propagates into the output artifacts)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="cuda (default) raises when no card is present")
     args = p.parse_args(argv)
-    if args.mesh_view > 1:
-        raise NotImplementedError(
-            "--mesh_view > 1 shards view chunks over several devices, which "
-            "belongs to slice 6 of the port (multi-device) and is not ported yet")
+    joined = not dist.is_initialized() and multihost.launched_by_torchrun()
+    if joined:
+        multihost.initialize(backend="gloo" if args.device == "cpu" else "nccl")
+    try:
+        return _lift(args)
+    finally:
+        if joined:
+            dist.destroy_process_group()
 
+
+def _lift(args) -> dict:
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    n_view = args.mesh_view or world
+    if n_view != world:
+        raise ValueError(f"--mesh_view {n_view} must equal the world size {world} "
+                         "of the launch (0 takes it)")
+    mesh = None
+    if n_view > 1:
+        mesh = make_mesh(n_view=n_view, n_tensor=1)
+        print(f"[INFO] sharding view chunks over {n_view} ranks")
     cfg = LiftConfig(depth_min=args.depth_min, depth_max=args.depth_max,
                      downsample_factor=args.downsample_factor,
                      max_views=args.max_views,
@@ -64,7 +89,7 @@ def main(argv=None) -> dict:
                                    args.camera_params, args.out_dir, cfg,
                                    image_size=(tuple(args.image_size)
                                                if args.image_size else None),
-                                   first_only=args.first_only,
+                                   mesh=mesh, first_only=args.first_only,
                                    allow_random_weights=args.allow_random_weights,
                                    device=args.device)
     print(f"[DONE] {out['views_per_sec']:.2f} views/s")

@@ -99,6 +99,14 @@ class Camera:
     width: int = 0
     height: int = 0
 
+    def __getitem__(self, v) -> "Camera":
+        """View ``v`` (an index or a slice) of a camera batch of
+        ``stack_cameras``."""
+        if self.R.ndim != 3:
+            raise TypeError("only a camera batch (stack_cameras) can be indexed")
+        return dataclasses.replace(self, R=self.R[v], T=self.T[v], fov_x=self.fov_x[v],
+                                   fov_y=self.fov_y[v])
+
     def world_view_transform(self) -> torch.Tensor:
         """[4, 4] world→view matrix (column-vector convention)."""
         w2c = torch.zeros((4, 4), dtype=torch.float32, device=self.R.device)
@@ -122,3 +130,15 @@ class Camera:
         K[0, 2] = self.width / 2.0
         K[1, 2] = self.height / 2.0
         return K
+
+
+def stack_cameras(cams) -> Camera:
+    """Same-resolution cameras as one camera batch, with a leading view axis
+    on ``R``, ``T``, ``fov_x`` and ``fov_y``; ``batch[v]`` takes view v back."""
+    if len({(c.width, c.height) for c in cams}) != 1:
+        raise ValueError("stack_cameras: mixed resolutions "
+                         f"{sorted({(c.width, c.height) for c in cams})}")
+    return Camera(R=torch.stack([c.R for c in cams]), T=torch.stack([c.T for c in cams]),
+                  fov_x=torch.stack([torch.as_tensor(c.fov_x) for c in cams]),
+                  fov_y=torch.stack([torch.as_tensor(c.fov_y) for c in cams]),
+                  width=cams[0].width, height=cams[0].height)

@@ -83,17 +83,25 @@ class BlendInputs(NamedTuple):
 
 def project_gaussians(means3d, scales, quats, viewmat, fx, fy, cx, cy,
                       width: int, height: int, znear: float = 0.2,
-                      eps2d: float = 0.3) -> Projected:
+                      eps2d: float = 0.3, tan_fovx=None, tan_fovy=None,
+                      row0: int = 0) -> Projected:
     """EWA projection of 3D Gaussians to screen space: cov2d = J W Σ Wᵀ Jᵀ with
     the frustum-clamped Jacobian, plus the 0.3-pixel low-pass. fx..cy are
-    floats or 0-dim tensors."""
+    floats or 0-dim tensors. The Jacobian's frustum clamp is 1.3·tan_fov,
+    with tan_fovx = 0.5·width/fx and tan_fovy = 0.5·height/fy unless given.
+
+    A strip of a taller frame passes the frame's tan-FoV and cy, and ``row0``,
+    its first row (a multiple of 16): the means are then the frame's less
+    row0, which is exact, so the strip's pixel offsets are the frame's bits."""
     R_w2c = viewmat[:3, :3]
     t_cam = means3d @ R_w2c.T + viewmat[:3, 3]
     z = t_cam[:, 2]
     valid = z > znear
 
-    tan_fovx = (0.5 * width) / fx
-    tan_fovy = (0.5 * height) / fy
+    if tan_fovx is None:
+        tan_fovx = (0.5 * width) / fx
+    if tan_fovy is None:
+        tan_fovy = (0.5 * height) / fy
 
     zc = torch.clamp_min(z, znear)
     lim_x = 1.3 * tan_fovx
@@ -165,6 +173,8 @@ def project_gaussians(means3d, scales, quats, viewmat, fx, fy, cx, cy,
 
     u = fx * t_cam[:, 0] * inv_z + cx
     v = fy * t_cam[:, 1] * inv_z + cy
+    if row0:
+        v = v - row0
     means2d = torch.stack([u, v], dim=1)
 
     on_screen = ((u + radius > 0) & (u - radius < width) &
@@ -176,7 +186,7 @@ def project_gaussians(means3d, scales, quats, viewmat, fx, fy, cx, cy,
 
 def bin_gaussian_ranks(proj: Projected, width: int, height: int,
                        max_tiles_per_axis: int,
-                       opacities: Optional[torch.Tensor] = None):
+                       opacities: Optional[torch.Tensor] = None, tile_row0: int = 0):
     """Depth-sort once, then sort (tile, depth rank) pairs by one unique int64
     key. Pairs outside a Gaussian's tile rectangle get the sentinel tile T and
     sort to the tail.
@@ -184,6 +194,10 @@ def bin_gaussian_ranks(proj: Projected, width: int, height: int,
     ``opacities`` turns on the exact opacity-aware tile cull: a tile whose
     pixel-centre rectangle is farther than d² > 2·ln(255·op)·r²/9 from the
     mean can only give alpha < 1/255.
+
+    ``tile_row0`` > 0 bins a strip whose first tile row is that row of a taller
+    frame: a Gaussian's m tile rows count from its top row in the frame, not in
+    the strip, so a Gaussian that the cap truncates keeps the frame's tiles.
 
     Returns (order [N] depth order, rank_sorted [N·m²] depth ranks in per-tile
     runs, offsets [T+1] int32 run starts, (tx_n, ty_n))."""
@@ -203,14 +217,14 @@ def bin_gaussian_ranks(proj: Projected, width: int, height: int,
 
     # floor → clip → int cast, in that order
     x0 = torch.clamp(torch.floor((means2d[:, 0] - radii) / TILE), 0, tx_n - 1).long()
-    y0 = torch.clamp(torch.floor((means2d[:, 1] - radii) / TILE), 0, ty_n - 1).long()
+    y0 = torch.clamp(torch.floor((means2d[:, 1] - radii) / TILE), -tile_row0, ty_n - 1).long()
     x1 = torch.clamp(torch.floor((means2d[:, 0] + radii) / TILE), 0, tx_n - 1).long()
     y1 = torch.clamp(torch.floor((means2d[:, 1] + radii) / TILE), 0, ty_n - 1).long()
 
     di = torch.arange(m, device=dev)
     txs = x0[None, :] + di.repeat(m)[:, None]                      # [m², N]
     tys = y0[None, :] + di.repeat_interleave(m)[:, None]
-    in_rect = (txs <= x1[None, :]) & (tys <= y1[None, :]) & valid[None, :]
+    in_rect = (txs <= x1[None, :]) & (tys >= 0) & (tys <= y1[None, :]) & valid[None, :]
 
     if opacities is not None:
         op_s = opacities[order]
@@ -248,19 +262,20 @@ def tile_depth_counts(means3d, scales, quats, viewmat, fx, fy, cx, cy,
 
 
 def _bin_gaussians(proj: Projected, width: int, height: int, max_tiles_per_axis: int,
-                   opacities: Optional[torch.Tensor] = None):
+                   opacities: Optional[torch.Tensor] = None, tile_row0: int = 0):
     """Binning resolved to Gaussian ids: (sorted_gid [N·m²] in per-tile runs,
     offsets [T+1] int32, (tx_n, ty_n)). Binning sees detached values."""
     order, rank_sorted, offsets, dims = bin_gaussian_ranks(
         Projected(*(x.detach() for x in proj)), width, height, max_tiles_per_axis,
-        opacities=None if opacities is None else opacities.detach())
+        opacities=None if opacities is None else opacities.detach(), tile_row0=tile_row0)
     return order[rank_sorted], offsets, dims
 
 
 def build_blend_inputs(proj: Projected, colors, opacities, width: int, height: int,
                        max_tiles_per_axis: int, max_per_tile: int,
                        pair_cap: Optional[int] = None,
-                       opacity_cull: bool = False, packed: bool = False) -> BlendInputs:
+                       opacity_cull: bool = False, packed: bool = False,
+                       tile_row0: int = 0) -> BlendInputs:
     """Bin, then gather the pairs' payload rows into per-tile runs.
 
     ``pair_cap`` truncates the sorted pair list before the gather: sentinel
@@ -268,12 +283,12 @@ def build_blend_inputs(proj: Projected, colors, opacities, width: int, height: i
     On overflow the deepest runs of the highest tile ids are dropped (offsets
     are clamped, so reads stay in bounds). The payload keeps K zero rows past
     the end; with ``packed`` it is K3's [R, 128] layout instead
-    (``pack_payload``). Binning sees detached values; the gather carries
-    gradients."""
+    (``pack_payload``). ``tile_row0``: see ``bin_gaussian_ranks``. Binning
+    sees detached values; the gather carries gradients."""
     K = max_per_tile
     sorted_gid, offsets, (tx_n, ty_n) = _bin_gaussians(
         proj, width, height, max_tiles_per_axis,
-        opacities=opacities if opacity_cull else None)
+        opacities=opacities if opacity_cull else None, tile_row0=tile_row0)
     num_pairs = offsets[-1]
     tile_overflow = torch.clamp_min(offsets[1:] - offsets[:-1] - K, 0).sum()
     if pair_cap is not None and pair_cap < sorted_gid.shape[0]:
@@ -342,7 +357,8 @@ def rasterize(means3d, scales, quats, opacities, colors, viewmat, fx, fy, cx, cy
               means2d_offset: Optional[torch.Tensor] = None,
               max_tiles_per_axis: int = 8, max_per_tile: int = 512,
               tile_chunk: int = 64, backend: str = "cuda",
-              pair_cap: Optional[int] = None, opacity_cull: bool = False) -> dict:
+              pair_cap: Optional[int] = None, opacity_cull: bool = False,
+              tan_fovx=None, tan_fovy=None, tile_row0: int = 0) -> dict:
     """Differentiable rasterization on the inputs' device: project → bin → blend.
 
     colors: [N, CH] per-Gaussian channels. means2d_offset: [N, 2] zeros added to
@@ -359,6 +375,12 @@ def rasterize(means3d, scales, quats, opacities, colors, viewmat, fx, fy, cx, cy
     an input requires grad. ``"dense"`` (the JAX package's ``"xla"``):
     ``_blend_tiles`` in torch ops, ``tile_chunk`` tiles at a time.
 
+    tile_row0 > 0: the image is ``height`` rows of a taller frame from its
+    tile row tile_row0 on (``parallel/render.rasterize_strip``); cx, cy are
+    the frame's, and tan_fovx, tan_fovy its frustum clamp's
+    (``project_gaussians``), which default to this image's; the binning
+    counts the tile cap from the frame's rows (``bin_gaussian_ranks``).
+
     Returns dict: image [H,W,CH], alpha [H,W], radii [N], visible [N] bool,
     depths [N], tile_overflow (pairs dropped past the per-tile cap K) and
     num_pairs (real pair count before pair_cap), the last two 0-dim tensors."""
@@ -367,14 +389,15 @@ def rasterize(means3d, scales, quats, opacities, colors, viewmat, fx, fy, cx, cy
     if bg is None:
         bg = torch.zeros((colors.shape[1],), dtype=colors.dtype, device=colors.device)
     proj = project_gaussians(means3d, scales, quats, viewmat, fx, fy, cx, cy,
-                             width, height)
+                             width, height, tan_fovx=tan_fovx, tan_fovy=tan_fovy,
+                             row0=tile_row0 * TILE)
     if means2d_offset is not None:
         proj = proj._replace(means2d=proj.means2d + means2d_offset)
     K = max_per_tile
     if backend == "dense":
         sorted_gid, offsets, (tx_n, ty_n) = _bin_gaussians(
             proj, width, height, max_tiles_per_axis,
-            opacities=opacities if opacity_cull else None)
+            opacities=opacities if opacity_cull else None, tile_row0=tile_row0)
         num_pairs = offsets[-1]
         tile_overflow = torch.clamp_min(offsets[1:] - offsets[:-1] - K, 0).sum()
         img, alpha = _blend_tiles(sorted_gid, offsets, proj, colors, opacities, bg,
@@ -389,7 +412,8 @@ def rasterize(means3d, scales, quats, opacities, colors, viewmat, fx, fy, cx, cy
                                "under torch.no_grad() or with inputs that need no grad")
         inputs = build_blend_inputs(proj, colors, opacities, width, height,
                                     max_tiles_per_axis, K, pair_cap=pair_cap,
-                                    opacity_cull=opacity_cull, packed=packed)
+                                    opacity_cull=opacity_cull, packed=packed,
+                                    tile_row0=tile_row0)
         blend_fn = blend_tiles_packed if packed else blend
         img, alpha = blend_fn(inputs.offsets, inputs.sorted_payload, bg,
                               inputs.tx_n, inputs.ty_n, K)

@@ -19,14 +19,22 @@ Camera conventions follow prepare_tensor_data.py:165-174: extrinsics arrive as
 world→cam (R, tvec) and are inverted to cam→world [Rᵀ | -Rᵀt]; intrinsics
 [fx, fy, cx, cy] are scaled by the downsample factor.
 
-Left out of the port: the JAX package's ``mesh`` argument, which shards view
-chunks over several devices (the multi-device slice), and its
-``_device_put_bounded``, which works around a transfer limit of the TPU host.
-The tail chunk of views is not padded, as the JAX package pads it with views
-of zero c2w and intrinsics (1, 1, -1e9, 0). Its splat lift finds no voxel in
-such a view, so the results are the same; its DDA turns their rays into NaN
-directions that round to voxel (0, 0, 0), which gains H·W hits of zero
-features per padded view where it is occupied. The port lifts only real views.
+With a ``mesh`` of more than one rank (parallel/mesh.py, one process a
+device), each view chunk splits over the view ranks, each rank lifts its
+share, and the chunk's partial sums, counts and overflow are reduced over
+the view ranks (sum, sum, max) before they join the totals, so a checkpoint
+holds the global sums; only world rank 0 writes. A mesh with a tensor axis
+> 1 raises (``parallel/lift.lift_views_sharded`` splits channels).
+
+Left out of the port: the JAX package's ``_device_put_bounded``, which works
+around a transfer limit of the TPU host. No chunk is padded, where the JAX
+package pads the tail chunk (and, over a mesh, each chunk to a multiple of
+the view axis) with views of zero c2w and intrinsics (1, 1, -1e9, 0). Its
+splat lift finds no voxel in such a view, so the results are the same; its
+DDA turns their rays into NaN directions that round to voxel (0, 0, 0), which
+gains H·W hits of zero features per padded view where it is occupied. The
+port lifts only real views, and a rank may get fewer views of a chunk than
+another, or none.
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.profiler import record_function
 
@@ -51,6 +60,7 @@ from segsplat_tpu_torch.io.provenance import (read_weights_source, require_untai
 from segsplat_tpu_torch.ops.lift import default_max_steps, first_hit_voxels, scatter_features
 from segsplat_tpu_torch.ops.lift_splat import lift_view_splat
 from segsplat_tpu_torch.ops.voxelize import occupancy_from_grid
+from segsplat_tpu_torch.parallel.mesh import VIEW_AXIS, Mesh, shard_range
 from segsplat_tpu_torch.utils.system import require_device
 
 
@@ -161,14 +171,22 @@ def lift_grid(centers: np.ndarray, vs: float, origin: np.ndarray, shape, device)
 def aggregate_voxel_features(voxel_ply: str, lseg_dir: str, camera_params: str,
                              out_dir: str, cfg: LiftConfig = LiftConfig(),
                              image_size: Optional[Tuple[int, int]] = None,
+                             mesh: Optional[Mesh] = None,
                              first_only: bool = False,
                              allow_random_weights: bool = False,
                              device: str | torch.device = "cuda") -> dict:
     """Run the multi-view lift on ``device`` (the card unless the caller asks
-    for the CPU); writes checkpoints and the final artifacts into ``out_dir``.
-    Returns {"sums", "counts" (tensors on the device), "grid", "views_per_sec",
-    "overflow" (the most slots any view truncated), "artifact" (final .pt path)}."""
+    for the CPU, or this rank's device over ``mesh``); writes checkpoints and
+    the final artifacts into ``out_dir``. Returns {"sums", "counts" (tensors
+    on the device), "grid", "views_per_sec", "overflow" (the most slots any
+    view truncated), "artifact" (final .pt path; None on ranks but 0)}."""
     device = require_device(device)
+    if mesh is not None and mesh.n_tensor > 1:
+        raise ValueError(f"the pipeline lift splits views only, not a tensor axis of "
+                         f"{mesh.n_tensor}; parallel.lift.lift_views_sharded splits "
+                         f"channels")
+    sharded = mesh is not None and mesh.size > 1
+    writer = mesh is None or mesh.is_rank0
     centers, _, vs, origin, shape = read_voxel_grid_ply(voxel_ply)
     if vs is None:
         raise RuntimeError(f"{voxel_ply}: missing voxel_size header comment")
@@ -181,7 +199,7 @@ def aggregate_voxel_features(voxel_ply: str, lseg_dir: str, camera_params: str,
 
     weights_source = read_weights_source(lseg_dir)
     require_untainted(weights_source, allow_random_weights, f"feature dir {lseg_dir}")
-    if weights_source is not None:  # carry the taint and lineage to our artifacts
+    if weights_source is not None and writer:  # carry the taint and lineage
         write_provenance(out_dir, weights_source, stage="lift")
     files = sorted(glob.glob(os.path.join(lseg_dir, "*.npy")))[:cfg.max_views]
     if first_only:
@@ -227,40 +245,59 @@ def aggregate_voxel_features(voxel_ply: str, lseg_dir: str, camera_params: str,
     counts = torch.zeros((num_ids,), dtype=torch.int32, device=device)
     overflow_max = torch.zeros((), dtype=torch.int64, device=device)
 
-    os.makedirs(out_dir, exist_ok=True)
+    def lift_into(sums, counts, overflow, i):
+        """View i's sums, counts and overflow added into the accumulators."""
+        # the fp16 map goes to the device as stored and is upcast there
+        fmap = torch.from_numpy(load_feature_map(files[i])).to(device)
+        fmap = resize_features(fmap, H, W).permute(1, 2, 0)            # [H,W,C]
+        c2w = torch.as_tensor(c2ws[i], **f32)
+        K = torch.as_tensor(intr[i], **f32)
+        if cfg.method == "splat":
+            ds, dc, dof = lift_view_splat(
+                snap_centers, snap_ids, c2w, K, vs_t, cfg.depth_min, cfg.depth_max,
+                inc_t, fmap, num_ids, W, H,
+                max_tiles_per_axis=cfg.splat_max_tiles_per_axis,
+                max_per_tile=cfg.splat_max_per_tile,
+                big_budget=cfg.splat_big_budget or None)
+            torch.maximum(overflow, dof, out=overflow)
+        else:
+            hits = first_hit_voxels(occ, c2w, K, occ_origin_t, vs_t, cfg.depth_min,
+                                    cfg.depth_max, inc_t, W, H, steps)
+            ds, dc = scatter_features(fmap, hits, num_ids)
+        sums += ds
+        counts += dc
+
+    if writer:
+        os.makedirs(out_dir, exist_ok=True)
     t0 = time.perf_counter()
     done = 0
     B = cfg.view_chunk
     for start in range(0, len(files), B):
-        batch = files[start:start + B]
-        for i, fpath in enumerate(batch):
-            # the fp16 map goes to the device as stored and is upcast there
-            fmap = torch.from_numpy(load_feature_map(fpath)).to(device)
-            fmap = resize_features(fmap, H, W).permute(1, 2, 0)        # [H,W,C]
-            c2w = torch.as_tensor(c2ws[start + i], **f32)
-            K = torch.as_tensor(intr[start + i], **f32)
-            if cfg.method == "splat":
-                ds, dc, dof = lift_view_splat(
-                    snap_centers, snap_ids, c2w, K, vs_t, cfg.depth_min, cfg.depth_max,
-                    inc_t, fmap, num_ids, W, H,
-                    max_tiles_per_axis=cfg.splat_max_tiles_per_axis,
-                    max_per_tile=cfg.splat_max_per_tile,
-                    big_budget=cfg.splat_big_budget or None)
-                overflow_max = torch.maximum(overflow_max, dof)
-            else:
-                hits = first_hit_voxels(occ, c2w, K, occ_origin_t, vs_t, cfg.depth_min,
-                                        cfg.depth_max, inc_t, W, H, steps)
-                ds, dc = scatter_features(fmap, hits, num_ids)
-            del fmap
-            sums += ds
-            counts += dc
-        nb = len(batch)
+        nb = len(files[start:start + B])
+        if sharded:
+            # this rank's share of the chunk, then the chunk's totals over the
+            # view ranks (the JAX package's psum, psum, pmax)
+            part = (torch.zeros_like(sums), torch.zeros_like(counts),
+                    torch.zeros_like(overflow_max))
+            lo, hi = shard_range(nb, mesh.n_view, mesh.view_index)
+            for i in range(start + lo, start + hi):
+                lift_into(*part, i)
+            for x, op in zip(part, (dist.ReduceOp.SUM, dist.ReduceOp.SUM,
+                                    dist.ReduceOp.MAX)):
+                mesh.all_reduce(x, VIEW_AXIS, op=op)
+            sums += part[0]
+            counts += part[1]
+            torch.maximum(overflow_max, part[2], out=overflow_max)
+        else:
+            for i in range(start, start + nb):
+                lift_into(sums, counts, overflow_max, i)
         done += nb
         # fire when done crosses a multiple of checkpoint_every
-        if cfg.checkpoint_every and done < len(files) \
+        if writer and cfg.checkpoint_every and done < len(files) \
                 and (done // cfg.checkpoint_every > (done - nb) // cfg.checkpoint_every):
             _write_artifacts(out_dir, done, sums, counts, centers, grid, vs, final=False)
-    artifact = _write_artifacts(out_dir, done, sums, counts, centers, grid, vs, final=True)
+    artifact = (_write_artifacts(out_dir, done, sums, counts, centers, grid, vs, final=True)
+                if writer else None)
     dt = time.perf_counter() - t0
     vps = done / dt if dt > 0 else float("inf")
     overflow = int(overflow_max)

@@ -14,14 +14,21 @@ train_unified_lift.py:287-586): the host-side schedule around the train step.
     at save iterations, and resumable checkpoints (``torch.save`` of the table,
     both optimizers' state, codebook, densify stats and step) at checkpoint
     iterations,
-  * metrics to ``metrics.jsonl``.
+  * metrics to ``metrics.jsonl``,
+  * ``view_batch`` > 1: B views a step (parallel/train.py), split over the
+    view ranks of a ``torch.distributed`` launch (one process a device, e.g.
+    ``torchrun``) or rendered in turn on one device; ``mesh_tensor`` splits
+    the codebook logits over that many ranks. Every rank draws the same camera
+    order and densify draws, and only world rank 0 writes.
 
-Stated limits: one view per step (``view_batch > 1`` and ``mesh_tensor > 1``
-raise NotImplementedError), and no wandb.
+Stated limits: the process group's world must equal the mesh (view ×
+tensor): a launch with idle ranks raises ValueError, where the JAX package
+takes the first devices; no wandb.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -30,10 +37,14 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from segsplat_tpu_torch.core.types import stack_cameras
 from segsplat_tpu_torch.eval.metrics import psnr_np
 from segsplat_tpu_torch.io.dataset import resolution_scale_for
 from segsplat_tpu_torch.ops.rasterize import tile_depth_counts
+from segsplat_tpu_torch.parallel.mesh import Mesh, make_mesh
+from segsplat_tpu_torch.parallel.train import make_parallel_train_step, replicate_state
 from segsplat_tpu_torch.render import render
 from segsplat_tpu_torch.scene import Scene, to_device_camera
 from segsplat_tpu_torch.train.densify import (PARAM_FIELDS, DensifyStats,
@@ -65,8 +76,11 @@ class TrainRunConfig:
     #                                 "dense" (torch ops)
     raster_pair_cap: int = 0        # >0: cap sorted raster pairs (num_pairs is
     #                                 logged, overflow warns)
-    view_batch: int = 1             # views per iteration; only 1 is ported
-    mesh_tensor: int = 1            # tensor-axis size; only 1 is ported
+    view_batch: int = 1             # views per iteration; >1 → the B-view step,
+    #                                 split over the view ranks
+    mesh_tensor: int = 1            # tensor-axis size for the codebook logits
+    mesh_view: int = 0              # view-axis size (0 = auto: the largest
+    #                                 divisor of view_batch ≤ world/mesh_tensor)
 
 
 def _resolve_auto_max_per_tile(scene, table, run, device, n_probe: int = 3,
@@ -116,24 +130,43 @@ def raster_kw_for(run: TrainRunConfig) -> dict:
     return raster_kw
 
 
+def _train_mesh(run: TrainRunConfig) -> Optional[Mesh]:
+    """The (view, tensor) mesh of ``run`` over the default process group, or
+    None for single-view steps on one device. ``n_view`` is ``mesh_view``, or
+    else the largest divisor of ``view_batch`` that is ≤ world/mesh_tensor.
+    Raises ValueError when the mesh does not cover the world, or when the
+    batch does not split over it."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if run.view_batch <= 1 and run.mesh_tensor <= 1 and run.mesh_view <= 1 and world == 1:
+        return None
+    n_view = run.mesh_view or max(
+        [d for d in range(1, world // run.mesh_tensor + 1) if run.view_batch % d == 0],
+        default=1)
+    if run.view_batch % n_view:
+        raise ValueError(f"view_batch {run.view_batch} does not split over "
+                         f"mesh_view {n_view}")
+    return make_mesh(n_view, run.mesh_tensor)
+
+
 def train(source_path: str, model_path: str, opt: Optional[OptimizationConfig] = None,
           run: Optional[TrainRunConfig] = None, images: str = "images",
           object_dir: str = "object_mask", eval_split: bool = False,
           capacity: Optional[int] = None, start_checkpoint: Optional[str] = None,
           progress_cb=None, device: str | torch.device = "cuda") -> TrainState:
-    """Train on ``device`` (the card unless the caller asks for the CPU)."""
+    """Train on ``device`` (the card unless the caller asks for the CPU). In a
+    ``torch.distributed`` launch every rank calls it alike (``device`` is
+    then its own card, or the CPU under gloo)."""
     device = require_device(device)
     opt = opt or OptimizationConfig()
     run = run or TrainRunConfig()
-    if run.view_batch > 1 or run.mesh_tensor > 1:
-        raise NotImplementedError(
-            "view_batch > 1 and mesh_tensor > 1 (data- and tensor-parallel "
-            "training) are not ported yet; train one view per step")
     if run.num_classes != opt.num_classes:
         opt = dataclasses.replace(opt, num_classes=run.num_classes)
+    mesh = _train_mesh(run)
+    writer = mesh is None or mesh.is_rank0
 
-    scene = Scene(source_path, model_path, images=images, object_dir=object_dir,
-                  eval_split=eval_split, capacity=capacity, seed=run.seed, device=device)
+    scene = Scene(source_path, model_path if writer else "", images=images,
+                  object_dir=object_dir, eval_split=eval_split, capacity=capacity,
+                  seed=run.seed, device=device)
     if run.raster_max_per_tile <= 0:
         cap = _resolve_auto_max_per_tile(scene, scene.gaussians, run, device)
         print(f"[INFO] auto max_per_tile={cap} (probed per-tile pair depth "
@@ -143,8 +176,14 @@ def train(source_path: str, model_path: str, opt: Optional[OptimizationConfig] =
     step_fn = make_train_step(opt, raster_kw)
     state = init_state(scene.gaussians, opt, spatial_lr_scale=scene.cameras_extent,
                        seed=run.seed)
+    parallel_step = None
+    if mesh is not None:
+        replicate_state(state, mesh)
+        parallel_step = make_parallel_train_step(opt, mesh, raster_kw)
+        print(f"[INFO] data-parallel training: view_batch={run.view_batch} "
+              f"over mesh view={mesh.n_view} tensor={mesh.n_tensor}")
     if start_checkpoint:
-        load_checkpoint(start_checkpoint, state)
+        load_checkpoint(start_checkpoint, state, mesh)
         print(f"[INFO] resumed from {start_checkpoint} at step {state.step}")
 
     cams = scene.get_train_cameras()
@@ -160,28 +199,45 @@ def train(source_path: str, model_path: str, opt: Optional[OptimizationConfig] =
         gt_objs.append(torch.from_numpy(obj if obj is not None
                                         else np.zeros(img.shape[:2], np.int32)))
         device_cams.append(to_device_camera(c, scale, device=device))
+    if parallel_step is not None and len({g.shape for g in gt_images}) > 1:
+        print("[WARN] view_batch>1 requires uniform camera resolutions; "
+              "falling back to single-view steps")
+        parallel_step = None
 
     bg = torch.full((3,), 1.0 if run.white_background else 0.0, device=device)
+    # every rank draws the same camera order, contrastive samples and densify
+    # draws
     gen = torch.Generator(device=device).manual_seed(run.seed)
     rng_np = np.random.default_rng(run.seed)
 
-    mkdir_p(model_path)
+    if writer:
+        mkdir_p(model_path)
     order = rng_np.permutation(len(cams))
     cursor = 0
+    batch_views = run.view_batch if parallel_step is not None else 1
     t_start = time.perf_counter()
-    with open(os.path.join(model_path, "metrics.jsonl"), "a") as metrics_f:
+    with (open(os.path.join(model_path, "metrics.jsonl"), "a") if writer
+          else contextlib.nullcontext()) as metrics_f:
         for it in range(state.step + 1, run.iterations + 1):
-            if cursor >= len(order):
-                order = rng_np.permutation(len(cams))
-                cursor = 0
-            ci = int(order[cursor])
-            cursor += 1
+            cis = []
+            for _ in range(batch_views):
+                if cursor >= len(order):
+                    order = rng_np.permutation(len(cams))
+                    cursor = 0
+                cis.append(int(order[cursor]))
+                cursor += 1
 
             if it % run.sh_up_every == 0:
                 state.table = one_up_sh_degree(state.table)
 
-            metrics = step_fn(state, device_cams[ci], gt_images[ci].to(device),
-                              gt_objs[ci].to(device), bg, generator=gen)
+            if parallel_step is not None:
+                metrics = parallel_step(state, stack_cameras([device_cams[i] for i in cis]),
+                                        [gt_images[i] for i in cis],
+                                        [gt_objs[i] for i in cis], bg, generator=gen)
+            else:
+                ci = cis[0]
+                metrics = step_fn(state, device_cams[ci], gt_images[ci].to(device),
+                                  gt_objs[ci].to(device), bg, generator=gen)
 
             # densify inside the window, strict bounds as the reference
             if (opt.densify_from_iter < it < opt.densify_until_iter
@@ -220,19 +276,18 @@ def train(source_path: str, model_path: str, opt: Optional[OptimizationConfig] =
                 bad = [k for k, v in rec.items()
                        if isinstance(v, float) and not np.isfinite(v)]
                 if bad:
-                    metrics_f.write(json.dumps({**rec, "error": "non-finite"}) + "\n")
-                    metrics_f.flush()
+                    _write_record(metrics_f, {**rec, "error": "non-finite"})
                     raise FloatingPointError(f"non-finite loss at iteration {it}: "
                                              f"{bad}; breakdown: {rec}")
-                metrics_f.write(json.dumps(rec) + "\n")
-                metrics_f.flush()
+                _write_record(metrics_f, rec)
                 if progress_cb:
                     progress_cb(rec)
 
+            if not writer:
+                continue
             if it in run.test_iterations:
                 rec = _evaluate(state.table, scene, scale, bg, raster_kw, it, device)
-                metrics_f.write(json.dumps(rec) + "\n")
-                metrics_f.flush()
+                _write_record(metrics_f, rec)
                 print(f"[ITER {it}] eval: " + ", ".join(
                     f"{k}={v:.3f}" for k, v in rec.items() if isinstance(v, float)))
 
@@ -246,6 +301,13 @@ def train(source_path: str, model_path: str, opt: Optional[OptimizationConfig] =
                 save_checkpoint(os.path.join(model_path, "chkpnts", f"chkpnt{it}.pt"),
                                 state)
     return state
+
+
+def _write_record(metrics_f, rec: dict) -> None:
+    """One metrics.jsonl line; ranks other than 0 have no file."""
+    if metrics_f is not None:
+        metrics_f.write(json.dumps(rec) + "\n")
+        metrics_f.flush()
 
 
 @torch.no_grad()
@@ -288,17 +350,25 @@ def save_checkpoint(path: str, state: TrainState) -> None:
 
 
 @torch.no_grad()
-def load_checkpoint(path: str, state: TrainState) -> TrainState:
+def load_checkpoint(path: str, state: TrainState, mesh: Optional[Mesh] = None) -> TrainState:
     """Restore a checkpoint of ``save_checkpoint`` into ``state`` in place (its
-    tensors keep their identity, so its optimizers stay bound to them)."""
-    ck = torch.load(path, map_location=state.table.xyz.device, weights_only=True)
+    tensors keep their identity, so its optimizers stay bound to them). Over a
+    mesh with a process group, world rank 0 reads the file and broadcasts it."""
+    dev = state.table.xyz.device
+    if mesh is not None and mesh.groups is not None:
+        box = [torch.load(path, map_location="cpu", weights_only=True)
+               if mesh.is_rank0 else None]
+        dist.broadcast_object_list(box, src=0)
+        ck = box[0]
+    else:
+        ck = torch.load(path, map_location=dev, weights_only=True)
     for f in PARAM_FIELDS:
         getattr(state.table, f).copy_(ck["table"][f])
-    state.table = dataclasses.replace(state.table, active=ck["active"],
+    state.table = dataclasses.replace(state.table, active=ck["active"].to(dev),
                                       active_sh_degree=int(ck["active_sh_degree"]))
     state.code_book.copy_(ck["code_book"])
     state.gauss_opt.load_state_dict(ck["gauss_opt"])
     state.cls_opt.load_state_dict(ck["cls_opt"])
-    state.stats = DensifyStats(*ck["stats"])
+    state.stats = DensifyStats(*(s.to(dev) for s in ck["stats"]))
     state.step = int(ck["step"])
     return state

@@ -3,9 +3,19 @@ with the same flags plus ``--device``:
 
     python -m segsplat_tpu_torch.train -s DATA -m OUT [--capacity N] [--device cuda]
 
+On several cards, one process a card:
+
+    torchrun --nproc_per_node N -m segsplat_tpu_torch.train --view_batch B -s DATA -m OUT
+
+``--view_batch`` B > 1 trains on B views a step. Under torchrun they split
+over the ranks: ``--mesh_tensor`` T ranks split the codebook logits, the view
+axis is the largest divisor of B that is at most N/T, and the mesh must use
+all N ranks. On one card the B views render in turn. Under torchrun the CLI
+joins the process group (NCCL, or gloo with ``--device cpu``) and only rank 0
+writes.
+
 Stated limits: ``--port`` defaults to 0 here, and a port > 0 raises because the
-viewer is not ported yet; ``--view_batch`` and ``--mesh_tensor`` above 1 raise
-(``pipeline/train.train``); ``--use_wandb`` is accepted and ignored, as in the
+viewer is not ported yet; ``--use_wandb`` is accepted and ignored, as in the
 JAX package's CLI.
 """
 
@@ -14,6 +24,9 @@ from __future__ import annotations
 import json
 from argparse import ArgumentParser
 
+import torch.distributed as dist
+
+from segsplat_tpu_torch.parallel import multihost
 from segsplat_tpu_torch.pipeline.train import TrainRunConfig, train
 from segsplat_tpu_torch.train.trainer import OptimizationConfig
 from segsplat_tpu_torch.utils.config import (ModelParams, OptimizationParams,
@@ -47,9 +60,10 @@ def main(argv=None):
                         help="per-tile blend K, any positive count (0 = auto-size "
                              "from the measured per-tile pair depth)")
     parser.add_argument("--view_batch", type=int, default=1,
-                        help="views per iteration; only 1 is ported")
+                        help="views per iteration; >1 shards the batch over all "
+                             "ranks of the launch (data parallelism)")
     parser.add_argument("--mesh_tensor", type=int, default=1,
-                        help="tensor-parallel mesh axis; only 1 is ported")
+                        help="tensor-parallel mesh axis for the codebook")
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                         help="where to train; cuda raises when no GPU is present")
     args = parser.parse_args(argv)
@@ -62,11 +76,22 @@ def main(argv=None):
         raise NotImplementedError("the SIBR viewer (--port > 0) is not ported yet; "
                                   "run with --port 0")
     device = require_device(args.device)
+    joined = not dist.is_initialized() and multihost.launched_by_torchrun()
+    if joined:
+        multihost.initialize(backend="gloo" if device.type == "cpu" else "nccl")
+    try:
+        return _train(args, lp, op, device)
+    finally:
+        if joined:
+            dist.destroy_process_group()
 
+
+def _train(args, lp, op, device):
     safe_state(args.quiet)
     dataset = lp.extract(args)
     opt_args = op.extract(args)
-    save_cfg_args(args.model_path, dataset)
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        save_cfg_args(args.model_path, dataset)
     opt = OptimizationConfig(
         iterations=opt_args.iterations,
         position_lr_init=opt_args.position_lr_init,

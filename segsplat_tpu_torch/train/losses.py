@@ -87,9 +87,13 @@ def _cluster_stats(feat_n: torch.Tensor, labels: torch.Tensor, phi_mult: float,
     return u, phi.detach(), counts
 
 
+CONTRAST_SAMPLES = 32768   # pixels the contrastive loss samples a view
+
+
 def contrastive_loss(features: torch.Tensor, gt_obj: torch.Tensor,
                      generator: Optional[torch.Generator] = None,
-                     idx: Optional[torch.Tensor] = None, batch_size: int = 32768,
+                     idx: Optional[torch.Tensor] = None,
+                     batch_size: int = CONTRAST_SAMPLES,
                      min_pixnum: int = 20) -> Tuple[torch.Tensor, torch.Tensor]:
     """(ProtoNCE, norm regularisation) over rendered identity features
     [D, H, W] and mask ids [H, W]: ``batch_size`` sampled pixels (``idx``, or

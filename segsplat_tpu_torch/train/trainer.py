@@ -159,9 +159,14 @@ def compute_losses(table: GaussianTable, code_book: torch.Tensor, camera: Camera
                    gt_image: torch.Tensor, gt_obj: torch.Tensor, bg: torch.Tensor,
                    cfg: OptimizationConfig, offset: torch.Tensor, raster_kw: dict,
                    generator: Optional[torch.Generator] = None,
-                   idx: Optional[torch.Tensor] = None):
+                   idx: Optional[torch.Tensor] = None,
+                   shard_logits: Optional[Callable] = None):
     """The loss pipeline of one view: (total, aux dict). ``idx`` is the
-    contrastive loss's pixel sample (drawn from ``generator`` when not given)."""
+    contrastive loss's pixel sample (drawn from ``generator`` when not given).
+
+    ``shard_logits(code_book, features [16, P]) → [256, P]`` computes the
+    codebook logits in place of ``code_book @ features``: the tensor-parallel
+    step (parallel/train.py) computes a rank's rows and gathers the rest."""
     out = render(table, camera, bg, means2d_offset=offset, **raster_kw)
     image, objects = out["render"], out["render_object"]
 
@@ -172,8 +177,9 @@ def compute_losses(table: GaussianTable, code_book: torch.Tensor, camera: Camera
     lab_oh = L._label_onehot(torch.clamp(gt_obj.reshape(-1), 0, L.NUM_CLUSTERS - 1))
     conf = L.confidence_map(objects, gt_obj, onehot=lab_oh)
     # codebook logits on detached features (train_unified_lift.py:371)
-    logits = (code_book @ objects.detach().reshape(NUM_OBJECTS, -1)).reshape(
-        NUM_CODEBOOK, *gt_obj.shape)
+    obj_flat = objects.detach().reshape(NUM_OBJECTS, -1)
+    logits = (code_book @ obj_flat if shard_logits is None
+              else shard_logits(code_book, obj_flat)).reshape(NUM_CODEBOOK, *gt_obj.shape)
     vgt = L.virtual_gt_labels(gt_obj, logits, onehot=lab_oh)
     cls_loss = L.gated_classification_loss(logits, vgt, conf, cfg.num_classes)
     clu_loss = L.clustering_loss(objects, vgt, code_book, conf)

@@ -518,3 +518,130 @@ def nnf_near_ties(img, hole_yx, got, want, patch: int, channels: int):
         raise AssertionError(f"{int((gap > bound).sum())} of {len(diff)} differing NNF entries "
                              f"are no near-tie (largest gap {gap.max():.3g})")
     return len(diff), float(gap.max())
+
+
+# ───────────── several ranks on the CPU (segsplat_tpu_torch/parallel/) ─────────────
+
+def run_ranks(script: str, mode: str, world: int, workdir, *args, timeout: float = 240.0):
+    """Run ``python SCRIPT worker MODE RANK WORLD INIT WORKDIR ARGS...`` as
+    ``world`` processes that meet at a ``file://`` rendezvous under
+    ``workdir`` (no ports to race for). Fails, and never skips, when a rank
+    exits non-zero, prints no WORKER_OK, or the launch outlasts ``timeout``
+    seconds. Returns each rank's stdout."""
+    import os
+    import subprocess
+    import sys
+    import time
+
+    workdir = str(workdir)
+    init = os.path.join(workdir, f"rendezvous_{mode}")
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    procs, logs = [], []
+    for rank in range(world):
+        out = open(os.path.join(workdir, f"{mode}_rank{rank}.out"), "w+")
+        err = open(os.path.join(workdir, f"{mode}_rank{rank}.err"), "w+")
+        logs.append((out, err))
+        procs.append(subprocess.Popen(
+            [sys.executable, script, "worker", mode, str(rank), str(world), init, workdir,
+             *map(str, args)], stdout=out, stderr=err, text=True, env=env))
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 0.1))
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.wait()
+        raise AssertionError(f"{mode}: {world} ranks outlasted {timeout} s")
+    texts = []
+    for p, (out, err) in zip(procs, logs):
+        out.seek(0)
+        err.seek(0)
+        texts.append((p.returncode, out.read(), err.read()))
+        out.close()
+        err.close()
+    bad = [f"rank {r}: exit {rc}\n{o[-2000:]}\n{e[-4000:]}"
+           for r, (rc, o, e) in enumerate(texts) if rc != 0 or "WORKER_OK" not in o]
+    assert not bad, f"{mode}:\n" + "\n".join(bad)
+    return [o for _, o, _ in texts]
+
+
+def worker_main(argv, modes: dict) -> None:
+    """The ``worker`` entry of a test file run by ``run_ranks``: join the gloo
+    group, run ``modes[MODE](rank, world, workdir, *args)`` on one torch
+    thread, leave the group and print WORKER_OK."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import torch
+    import torch.distributed as dist
+
+    from segsplat_tpu_torch.parallel import multihost
+
+    mode, rank, world, init, workdir, *args = argv
+    rank, world = int(rank), int(world)
+    torch.set_num_threads(1)
+    multihost.initialize(f"file://{init}", world, rank, backend="gloo")
+    try:
+        modes[mode](rank, world, workdir, *args)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    print("WORKER_OK", flush=True)
+
+
+PARALLEL_STEP = 10_000          # Adam updates already taken (see test_torch_train_step)
+
+
+def port_train_setup(n_views: int = 4, seed: int = 0, device="cpu"):
+    """A port TrainState built from numpy alone, with anisotropic Gaussians,
+    SH degree 2 and Adam moments as after PARALLEL_STEP updates (so an update
+    depends on the gradient's size, not only its sign), and ``n_views``
+    cameras of W×H with GT images and block mask ids (confident pixels, so the
+    codebook's losses are not 0). Returns (state, cfg, cameras, gts, objs)."""
+    import dataclasses
+
+    import torch
+
+    from segsplat_tpu_torch.core.types import Camera
+    from segsplat_tpu_torch.train import trainer as PT
+    from segsplat_tpu_torch.train.densify import PARAM_FIELDS
+
+    rng = np.random.default_rng(seed)
+    n, cap = 300, 384
+    pts = (rng.random((n, 3)) * np.array([3.0, 2.0, 2.0])
+           + np.array([-1.5, -1.0, 1.5])).astype(np.float32)
+    table = PT.init_table_from_pcd(pts, rng.random((n, 3)).astype(np.float32), cap,
+                                   device=device)
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+    with torch.no_grad():
+        table.scaling.add_(f32(rng.normal(0, 0.5, (cap, 3))))
+        table.features_rest.copy_(f32(rng.normal(0, 0.2, table.features_rest.shape)))
+        table.rotation.copy_(f32(rng.normal(size=(cap, 4))))
+        table.opacity.copy_(f32(rng.normal(0, 1, (cap, 1))))
+    table = dataclasses.replace(table, active_sh_degree=2)
+    # the classification weight at 1: the codebook logits' share of the
+    # codebook's gradient is then a third of it (at the default 1e-4, 5e-5)
+    cfg = PT.OptimizationConfig(num_classes=16, w_cls=1.0)
+    state = PT.init_state(table, cfg, spatial_lr_scale=2.0, seed=seed)
+    for p in [getattr(table, f) for f in PARAM_FIELDS] + [state.code_book]:
+        opt = state.gauss_opt if p is not state.code_book else state.cls_opt
+        opt.state[p] = {"step": torch.tensor(float(PARALLEL_STEP)),
+                        "exp_avg": f32(rng.random(p.shape) * 1e-3),
+                        "exp_avg_sq": f32(rng.random(p.shape) * 1e-3)}
+    state.step = PARALLEL_STEP
+    fov_x, fov_y = 2 * np.arctan(W / (2 * F)), 2 * np.arctan(H / (2 * F))
+    cams, gts, objs = [], [], []
+    for v in range(n_views):
+        a = 0.05 * v
+        R = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]],
+                     np.float32)
+        T = np.array([0.05 - 0.03 * v, -0.02, 0.1], np.float32)
+        cams.append(Camera(R=f32(R), T=f32(T), fov_x=f32(fov_x), fov_y=f32(fov_y),
+                           width=W, height=H))
+        gts.append(f32(rng.random((3, H, W))))
+        objs.append(torch.as_tensor(((np.arange(H)[:, None] // 12) * 4
+                                     + (np.arange(W)[None, :] + 8 * v) // 16) % 16,
+                                    dtype=torch.int32, device=device))
+    return state, cfg, cams, gts, objs

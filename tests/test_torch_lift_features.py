@@ -198,7 +198,8 @@ def test_cli_twin_matches_the_jax_cli(lift_scene, tmp_path, capsys):
             b = load_voxel_features(str(tmp_path / "jax" / n))
             for k in b:
                 np.testing.assert_array_equal(a[k], b[k], err_msg=k)
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    # a mesh larger than the launch's world (1 here) is refused, naming both
+    with pytest.raises(ValueError, match="--mesh_view 2 must equal the world size 1"):
         main(flags + ["--out_dir", str(tmp_path / "x"), "--mesh_view", "2", "--device", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):

@@ -57,6 +57,11 @@ EDIT_SLICE = ("train.editing", "ops.inpaint", "ops.inpaint_patch", "eval.lpips",
               "eval_hard_scene_checkpoint", "tune_class_merge", "tune_tracker")
 
 
+# the multi-device modules, which must import no JAX either
+PARALLEL_SLICE = ("parallel", "parallel.mesh", "parallel.multihost", "parallel.lift",
+                  "parallel.render", "parallel.train")
+
+
 def test_port_modules_import_with_jax_blocked():
     code = _BLOCKED_IMPORT.format(blocked=sorted(FORBIDDEN))
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -64,5 +69,6 @@ def test_port_modules_import_with_jax_blocked():
     assert r.returncode == 0, r.stderr[-3000:]
     mods = set(r.stdout.strip().splitlines()[-1].split())
     assert len(mods) >= 15
-    missing = [m for m in EDIT_SLICE if f"segsplat_tpu_torch.{m}" not in mods]
+    missing = [m for m in EDIT_SLICE + PARALLEL_SLICE[1:]
+               if f"segsplat_tpu_torch.{m}" not in mods]
     assert not missing, missing

@@ -146,3 +146,32 @@ def test_table_from_jax_arrays_round_trip():
     with pytest.raises(KeyError, match="active"):
         table_from_jax_arrays({k: v for k, v in fields.items() if k != "active"},
                               device="cpu")
+
+
+def test_rasterize_tan_fov_matches_jax():
+    """The frustum clamp's tan_fovx and tan_fovy given, as a strip of a
+    taller frame passes them, against JAX ``rasterize`` with the same; left
+    out, they are 0.5·width/fx and 0.5·height/fy, the same bits as given so."""
+    sc = scene(0, n=1500, log_scale=-2.0)
+    vm = viewmat("rotated")
+    names = ("xyz", "scales", "quats", "opac", "colors")
+    kw = dict(width=W, height=H, max_tiles_per_axis=4, max_per_tile=128)
+    targs = [t(sc[k]) for k in names] + [t(vm), F, F, W / 2, H / 2]
+    plain = Pr.rasterize(*targs, bg=t(sc["bg"]), **kw)
+    given = Pr.rasterize(*targs, bg=t(sc["bg"]), tan_fovx=(0.5 * W) / F,
+                         tan_fovy=(0.5 * H) / F, **kw)
+    for name in ("image", "alpha", "radii"):
+        assert torch.equal(given[name], plain[name]), name
+    tight = dict(tan_fovx=0.2, tan_fovy=0.15)
+    with pltpu.force_tpu_interpret_mode():
+        ref = Rz.rasterize(*(jnp.asarray(sc[k]) for k in names), jnp.asarray(vm),
+                           F, F, W / 2, H / 2, bg=jnp.asarray(sc["bg"]), backend="pallas",
+                           **tight, **kw)
+    got = Pr.rasterize(*targs, bg=t(sc["bg"]), **tight, **kw)
+    for name in ("image", "alpha"):
+        np.testing.assert_allclose(got[name].numpy(), np.asarray(ref[name]),
+                                   rtol=1e-4, atol=1e-4, err_msg=name)
+    np.testing.assert_allclose(got["radii"].numpy(), np.asarray(ref["radii"]),
+                               rtol=1e-5, atol=1e-5)
+    # the tighter clamp changed the Gaussians past 1.3·tan_fov
+    assert not torch.equal(got["radii"], plain["radii"])

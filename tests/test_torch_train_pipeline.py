@@ -125,10 +125,18 @@ def test_scene_from_point_cloud_and_auto_k_match_jax(blender_scene, tmp_path):
 
 
 def test_train_states_its_limits(blender_scene, tmp_path):
-    for kw in (dict(view_batch=2), dict(mesh_tensor=2)):
-        with pytest.raises(NotImplementedError, match="not ported"):
+    # without a process group the world is one rank: a larger mesh is refused,
+    # naming both sizes, and a view batch renders its views in turn
+    for kw, sizes in ((dict(mesh_tensor=2), "view=1 x tensor=2 needs 2 ranks"),
+                      (dict(view_batch=2, mesh_view=2), "view=2 x tensor=1 needs 2 ranks")):
+        with pytest.raises(ValueError, match=sizes + r".* has 1"):
             train(blender_scene, str(tmp_path / "m"), opt=OPT,
                   run=TrainRunConfig(iterations=1, **kw), device="cpu")
+    run = TrainRunConfig(iterations=1, test_iterations=(), save_iterations=(),
+                         checkpoint_iterations=(), log_every=1, view_batch=2, **RASTER)
+    state = train(blender_scene, str(tmp_path / "vb2"), opt=OPT, run=run, device="cpu")
+    assert state.step == 1
+    assert np.isfinite(json.loads(open(tmp_path / "vb2" / "metrics.jsonl").readline())["total"])
     # K = 64 is no multiple of the kernels' 128-row block, and trains on them
     # (their plain versions here) and on the dense blend; the JAX package's
     # "auto"/"xla" names are no backend of the port
