@@ -168,6 +168,25 @@ Phases, each fatal on failure:
      no TILE-aligned strips): ``rasterize_sharded`` on the 1×1 mesh and 4
      strips rendered in turn against the whole frame at 1e-4, each strip and
      the frame timed, K1 on each strip's inputs with its bound.
+  13. ``tools``: the SIBR viewer, the host-script twins and check_env: (a)
+     ``viewer.NetworkGUI.poll_and_render`` serving clients over loopback from
+     phase 5's 200 000-point train table: frames at 876×584 and 1920×1080 at
+     scaling_modifier 1.0 and 0.5 (render, host copy and socket ms, bytes), a
+     client that pauses training and resumes, one that drops mid-message and
+     the next one served; K1 launches equal to the frames served, every frame
+     within 1 LSB of the same render on K1's plain version (the bytes that
+     differ counted), K1 on the 1080p frame's inputs timed with its bound;
+     (b) ``python -m segsplat_tpu_torch.train --port P`` for 10 iterations on
+     phase 6's scene with a client fetching one 876×584 frame (K1 ≥ 11
+     launches, finite losses), and a second launch on a bound port, which
+     warns and trains; (c) on phase 8's work dir (written here when phase 8
+     did not run): build_sparse_occupancy, prepare_tensor_data (2 views
+     resized to 876×584 × 512 channels), project_features with splat and DDA
+     (views/s; indices equal to the CPU's and features within fp16 spacing),
+     voxeltovoxel_logits on the splat's voxels and
+     aggregate_voxel_colors_onthefly on 2 seeded images, each on the card
+     against the CPU, and ``python -m segsplat_tpu_torch.check_env`` in its
+     own process (exit 0).
 Prints a ``{"kernels": [...]}`` line (each kernel's blocks per SM, shared
 memory and registers from the occupancy API; K1's and K3's share of warp-rows
 their row lists keep beside the share with a passing lane), then as the last line
@@ -864,11 +883,7 @@ def kernels_on_inputs(results, fargs, img, alpha, g_img, g_alpha, label: str, si
 
     offsets, payload, bg, tx_n, ty_n, K = fargs
     ch = bg.shape[0]
-    f_got = B.blend_tiles(*fargs)
-    f_img, f_alpha, f_rows, f_hits, _ = B.blend_tiles_plain_with_work(*fargs)
-    fwd_err = compare(f"{label} K1 CH={ch}", f_got, (f_img, f_alpha))
-    results["fwd_err"] = max(results["fwd_err"], fwd_err)
-    del f_got, f_img, f_alpha
+    fwd = k1_on_inputs(results, fargs, label, size)
     bargs = (offsets, payload, bg, img, alpha, g_img, g_alpha, tx_n, ty_n, K)
     b_pay, b_bg = B.blend_tiles_bwd(*bargs)
     r_pay, r_bg, b_rows, b_hits = B.blend_tiles_bwd_plain_with_work(*bargs)
@@ -877,13 +892,6 @@ def kernels_on_inputs(results, fargs, img, alpha, g_img, g_alpha, label: str, si
     results["bwd_err"] = max(results["bwd_err"], bwd_err)
     del b_pay, r_pay
     num_tiles = tx_n * ty_n
-    fwd = dict(ms=cuda_time_ms(lambda: B.blend_tiles(*fargs), reps=10),
-               plain_ms=cuda_time_ms(lambda: B.blend_tiles_plain(*fargs), reps=3, warmup=1),
-               rows_read=f_rows, pixels_hit=f_hits, max_abs_err=fwd_err,
-               kernel_width=B.kernel_width(ch),
-               **warp_row_shares(f"{label} K1 CH={ch}", B.blend_tiles_warp_rows(*fargs)))
-    fwd["bound_ms"], fwd["bound_by"], fwd["ops"], fwd["bytes"] = k1_bound(
-        offsets, f_rows, f_hits, ch, num_tiles)
     bwd = dict(ms=cuda_time_ms(lambda: B.blend_tiles_bwd(*bargs), reps=10),
                plain_ms=cuda_time_ms(lambda: B.blend_tiles_bwd_plain(*bargs), reps=3,
                                      warmup=1),
@@ -891,9 +899,31 @@ def kernels_on_inputs(results, fargs, img, alpha, g_img, g_alpha, label: str, si
                max_abs_err=bwd_err, kernel_width=B.kernel_width(ch))
     bwd["bound_ms"], bwd["bound_by"], bwd["ops"], bwd["bytes"] = k2_bound(
         offsets, payload.shape[0], b_rows, b_hits, ch, num_tiles)
-    log(f"[{label}] K1 CH={ch} at {size}: " + json.dumps(fwd))
     log(f"[{label}] K2 CH={ch} at {size}: " + json.dumps(bwd))
     return fwd, bwd
+
+
+def k1_on_inputs(results, fargs, label: str, size: str) -> dict:
+    """K1 on the blend inputs ``fargs`` against its plain version, timed with
+    CUDA events, with its bound at the real channel count. Returns its stats."""
+    from segsplat_tpu_torch.ops import blend as B
+
+    offsets, payload, bg, tx_n, ty_n, K = fargs
+    ch = bg.shape[0]
+    f_got = B.blend_tiles(*fargs)
+    f_img, f_alpha, f_rows, f_hits, _ = B.blend_tiles_plain_with_work(*fargs)
+    fwd_err = compare(f"{label} K1 CH={ch}", f_got, (f_img, f_alpha))
+    results["fwd_err"] = max(results["fwd_err"], fwd_err)
+    del f_got, f_img, f_alpha
+    fwd = dict(ms=cuda_time_ms(lambda: B.blend_tiles(*fargs), reps=10),
+               plain_ms=cuda_time_ms(lambda: B.blend_tiles_plain(*fargs), reps=3, warmup=1),
+               rows_read=f_rows, pixels_hit=f_hits, max_abs_err=fwd_err,
+               kernel_width=B.kernel_width(ch),
+               **warp_row_shares(f"{label} K1 CH={ch}", B.blend_tiles_warp_rows(*fargs)))
+    fwd["bound_ms"], fwd["bound_by"], fwd["ops"], fwd["bytes"] = k1_bound(
+        offsets, f_rows, f_hits, ch, tx_n * ty_n)
+    log(f"[{label}] K1 CH={ch} at {size}: " + json.dumps(fwd))
+    return fwd
 
 
 def capture_blend(total, cap: dict):
@@ -3575,6 +3605,478 @@ def phase_multi(results, root: str):
         dist.destroy_process_group()
 
 
+# ──────── phase 13: the SIBR viewer, the host-script twins and check_env ────────
+VIEWER_SIZES = ((TRAIN_W, TRAIN_H), (FRAME_W, FRAME_H))
+VIEWER_SCALES = (1.0, 0.5)
+VIEWER_FOV_X = 1.2              # train_camera's horizontal field of view
+VIEWER_TIMEOUT = 120.0          # every socket and thread join of phase 13
+TOOLS_CLI_ITERS = 10
+TOOLS_VIEWS = 2                 # the views prepare_tensor_data packs at full width
+RESIZE_TOL = 1e-5               # prepare_tensor_data's resize, card against CPU
+
+
+def viewer_message(w: int, h: int, scale: float = 1.0, train: bool = True,
+                   keep_alive: bool = True) -> bytes:
+    """A SIBR camera message on the wire for train_camera(0.0)'s pose (R = I,
+    T = 0), fov_x 1.2 and fov_y to the aspect; w = 0 asks for no frame. The
+    row-vector view matrix carries the Y/Z flip that receive() undoes."""
+    fov_y = 2 * math.atan(math.tan(VIEWER_FOV_X / 2) * h / w) if w else 0.0
+    msg = {"resolution_x": w, "resolution_y": h, "train": train, "keep_alive": keep_alive,
+           "fov_x": VIEWER_FOV_X, "fov_y": fov_y, "z_near": 0.01, "z_far": 100.0,
+           "shs_python": False, "rot_scale_python": False, "scaling_modifier": scale,
+           "view_matrix": [1.0, 0, 0, 0, 0, -1.0, 0, 0, 0, 0, -1.0, 0, 0, 0, 0, 1.0],
+           "view_projection_matrix": [1.0, 0, 0, 0, 0, 1.0, 0, 0, 0, 0, 1.0, 0, 0, 0, 0, 1.0]}
+    payload = json.dumps(msg).encode("utf-8")
+    return len(payload).to_bytes(4, "little") + payload
+
+
+def viewer_reply(sock, n_image: int):
+    """(image bytes, verify string) of one reply of the viewer."""
+    def exact(n):
+        buf = bytearray()
+        while len(buf) < n:
+            chunk = sock.recv(min(n - len(buf), 1 << 20))
+            if not chunk:
+                raise ConnectionError("the viewer closed the connection")
+            buf += chunk
+        return bytes(buf)
+    img = exact(n_image)
+    return img, exact(int.from_bytes(exact(4), "little")).decode("ascii")
+
+
+class ViewerClient:
+    """A viewer client thread: connects to ``port`` (retrying until the server
+    listens), runs ``script(sock, replies)``; ``join`` fails if it hung or
+    raised."""
+
+    def __init__(self, port: int, script):
+        import threading
+
+        self.replies, self.error, self.port, self.script = [], None, port, script
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self):
+        import socket
+
+        try:
+            deadline = time.monotonic() + VIEWER_TIMEOUT
+            while True:
+                try:
+                    sock = socket.create_connection(("127.0.0.1", self.port),
+                                                    timeout=VIEWER_TIMEOUT)
+                    break
+                except ConnectionRefusedError:
+                    if time.monotonic() > deadline:
+                        raise
+                    time.sleep(0.05)
+            with sock:
+                self.script(sock, self.replies)
+        except Exception as e:          # raised again by join()
+            self.error = e
+
+    def join(self):
+        self.thread.join(timeout=VIEWER_TIMEOUT)
+        if self.thread.is_alive():
+            raise AssertionError("a viewer client hung")
+        if self.error is not None:
+            raise AssertionError(f"a viewer client failed: {self.error!r}")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def serve_client(gui, table, bg, script, verify: str):
+    """One client of ``gui``: wait for it, then one poll_and_render. Returns
+    (the poll's do_training, the client's replies)."""
+    if gui.conn is not None:            # the previous client's, closed at its end
+        gui.conn.close()
+    client = ViewerClient(gui.listener.getsockname()[1], script)
+    deadline = time.monotonic() + VIEWER_TIMEOUT
+    while not gui.try_connect():
+        if time.monotonic() > deadline:
+            raise AssertionError("no viewer client connected")
+        time.sleep(0.01)
+    do_training = gui.poll_and_render(table, True, verify, bg=bg)
+    client.join()
+    return do_training, client.replies
+
+
+def phase_viewer(results):
+    """(a) NetworkGUI.poll_and_render over loopback on phase 5's 200 000-point
+    train table: frames at 876×584 and 1920×1080, scaling_modifier 1.0 and
+    0.5, each against the same render on K1's plain version; a client that
+    pauses and resumes, one that drops mid-message, and the next one served;
+    K1 launches equal to the frames served; K1 on the 1080p frame's inputs."""
+    import numpy as np
+    import torch
+
+    from segsplat_tpu_torch import viewer as PV
+    from segsplat_tpu_torch.ops import blend as B
+    from segsplat_tpu_torch.train import trainer as T
+
+    pts, cols, _, _ = train_scene()
+    table = T.init_table_from_pcd(pts, cols, TRAIN_CAP, max_sh_degree=3, seed=0, device=DEV)
+    table = T.init_state(table, T.OptimizationConfig(num_classes=256), spatial_lr_scale=3.0,
+                         seed=0).table          # the training table, which requires grad
+    bg = torch.zeros(3, device=DEV)
+    plan = [(w, h, s) for w, h in VIEWER_SIZES for s in VIEWER_SCALES]
+    frames, renders = [], []          # per served frame: spans; (camera, scale)
+    real_render, real_bytes = PV.render, PV.frame_bytes
+
+    def timed_render(table, cam, bg, scaling_modifier):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = real_render(table, cam, bg, scaling_modifier=scaling_modifier)
+        ev[1].record()
+        ev[1].synchronize()
+        renders.append((cam, scaling_modifier))
+        frames.append(dict(size=f"{cam.width}x{cam.height}", scale=scaling_modifier,
+                           render_ms=ev[0].elapsed_time(ev[1]),
+                           num_pairs=int(out["num_pairs"]),
+                           tile_overflow=int(out["tile_overflow"])))
+        return out
+
+    def timed_bytes(img):
+        t = time.perf_counter()
+        data = real_bytes(img)
+        frames[-1].update(copy_ms=(time.perf_counter() - t) * 1e3, bytes=len(data))
+        return data
+
+    gui = PV.NetworkGUI()
+    gui.init("127.0.0.1", 0)
+    real_send = gui.send
+
+    def timed_send(image, verify):
+        t = time.perf_counter()
+        real_send(image, verify)
+        if image is not None:
+            frames[-1]["socket_ms"] = (time.perf_counter() - t) * 1e3
+
+    gui.send = timed_send
+
+    def frames_client(sock, replies):
+        for w, h, s in plan:
+            sock.sendall(viewer_message(w, h, s))
+            replies.append(viewer_reply(sock, w * h * 3))
+        sock.sendall(viewer_message(0, 0))                 # no camera: training goes on
+        replies.append(viewer_reply(sock, 0))
+
+    def pausing_client(sock, replies):
+        sock.sendall(viewer_message(TRAIN_W, TRAIN_H, train=False))
+        replies.append(viewer_reply(sock, TRAIN_W * TRAIN_H * 3))
+        sock.sendall(viewer_message(TRAIN_W, TRAIN_H, train=True, keep_alive=False))
+        replies.append(viewer_reply(sock, TRAIN_W * TRAIN_H * 3))
+
+    def dropping_client(sock, replies):
+        sock.sendall(viewer_message(TRAIN_W, TRAIN_H)[:40])   # then the socket closes
+
+    def one_frame_client(sock, replies):
+        sock.sendall(viewer_message(TRAIN_W, TRAIN_H, keep_alive=False))
+        replies.append(viewer_reply(sock, TRAIN_W * TRAIN_H * 3))
+
+    stdout = io.StringIO()
+    B.blend_tiles.launches = 0
+    try:
+        with swapped(PV, render=timed_render, frame_bytes=timed_bytes), \
+                contextlib.redirect_stdout(stdout):
+            served = {}
+            for name, script in (("frames", frames_client), ("pause", pausing_client),
+                                 ("drop", dropping_client), ("next", one_frame_client)):
+                do_training, served[name] = serve_client(gui, table, bg, script, name)
+                if not do_training or gui.conn is not None and name == "drop":
+                    raise AssertionError(f"viewer client {name}: the poll returned "
+                                         f"do_training={do_training}, conn={gui.conn}")
+            torch.cuda.synchronize()
+            launches = B.blend_tiles.launches
+    finally:
+        gui.close()
+    got_frames = [r for name in ("frames", "pause", "next") for r in served[name] if r[0]]
+    if not launches == len(frames) == len(got_frames) == len(plan) + 3:
+        raise AssertionError(f"{len(frames)} frames served, {len(got_frames)} received, "
+                             f"K1 launched {launches} times")
+    for name, (_, verify) in ((n, r) for n in served for r in served[n]):
+        if verify != name:
+            raise AssertionError(f"viewer client {name} read the verify string {verify!r}")
+
+    # each frame against the same render on K1's plain version, converted alike
+    captured = {}
+
+    def plain(*fargs):
+        captured["fargs"] = fargs
+        return B.blend_tiles_plain(*fargs)
+
+    diffs = []
+    for i, (cam, scale) in enumerate(renders):
+        with swapped(B, blend_tiles=plain), torch.no_grad():
+            ref = np.frombuffer(real_bytes(real_render(table, cam, bg,
+                                                       scaling_modifier=scale)["render"]),
+                                np.uint8)
+        got = np.frombuffer(got_frames[i][0], np.uint8)
+        delta = np.abs(got.astype(np.int16) - ref.astype(np.int16))
+        diffs.append(dict(max_lsb=int(delta.max()), bytes_differ=int((delta > 0).sum())))
+        frames[i].update(diffs[-1])
+        if delta.max() > 1:
+            raise AssertionError(f"viewer frame {i} ({frames[i]['size']}, scale {scale}) "
+                                 f"parts from the plain blend by {int(delta.max())} LSB")
+        if i == plan.index((FRAME_W, FRAME_H, 1.0)):
+            fargs = captured["fargs"]
+    k1 = k1_on_inputs(results, fargs, "viewer", f"{FRAME_W}x{FRAME_H}")
+    results["viewer"] = dict(frames=frames, launches=launches, k1_1080p=k1,
+                             clients={k: len(v) for k, v in served.items()})
+    for f in frames:
+        log(f"[viewer] frame {json.dumps(f)}")
+    log(f"[viewer] {len(frames)} frames served to 4 clients (a pause and resume, a drop "
+        f"mid-message, the next client served), K1 launched {launches} times; every frame "
+        f"within {max(d['max_lsb'] for d in diffs)} LSB of the plain blend "
+        f"({sum(d['bytes_differ'] for d in diffs)} bytes differ)")
+    del table
+    torch.cuda.empty_cache()
+
+
+def phase_viewer_cli(results, root: str):
+    """(b) ``python -m segsplat_tpu_torch.train --port P`` for 10 iterations at
+    phase 6's configuration, a client fetching one 876×584 frame; a second
+    launch on a port that is already bound warns and trains."""
+    import socket
+
+    import torch
+
+    from segsplat_tpu_torch.ops.blend import blend_tiles
+    from segsplat_tpu_torch.train import cli
+
+    src = os.path.join(root, "train_scene")
+    if not os.path.exists(src):
+        write_train_scene(src)
+    port = free_port()
+
+    def client(sock, replies):
+        sock.sendall(viewer_message(TRAIN_W, TRAIN_H, keep_alive=False))
+        replies.append(viewer_reply(sock, TRAIN_W * TRAIN_H * 3))
+
+    viewer = ViewerClient(port, client)
+    model = os.path.join(root, "viewer_model")
+    stdout = sys.stdout
+    blend_tiles.launches = 0
+    t0 = time.perf_counter()
+    try:
+        state = cli.main(["-s", src, "-m", model, "--iterations", str(TOOLS_CLI_ITERS),
+                          "--capacity", str(TRAIN_CAP), "--port", str(port),
+                          "--test_iterations", str(TOOLS_CLI_ITERS), "--device", DEV])
+        torch.cuda.synchronize()
+    finally:
+        sys.stdout = stdout
+    cli_s = time.perf_counter() - t0
+    launches = blend_tiles.launches
+    viewer.join()
+    (img, verify), = viewer.replies
+    metrics = [json.loads(line) for line in open(os.path.join(model, "metrics.jsonl"))]
+    steps = [m for m in metrics if "total" in m]
+    bad = [(m["iter"], k) for m in metrics for k, v in m.items()
+           if isinstance(v, float) and not math.isfinite(v)]
+    if (state.step != TOOLS_CLI_ITERS or launches < TOOLS_CLI_ITERS + 1 or bad or not steps
+            or len(img) != TRAIN_W * TRAIN_H * 3 or verify != src):
+        raise AssertionError(f"train CLI with --port: step {state.step}, K1 launched "
+                             f"{launches}, non-finite {bad}, frame of {len(img)} bytes, "
+                             f"verify {verify!r}")
+
+    # a port that is already bound: the warning, then training without a viewer
+    buf = io.StringIO()
+    with socket.socket() as busy:
+        busy.bind(("127.0.0.1", 0))
+        busy.listen()
+        try:
+            with contextlib.redirect_stdout(buf):
+                busy_state = cli.main(["-s", src, "-m", os.path.join(root, "viewer_busy"),
+                                       "--iterations", "2", "--capacity", str(TRAIN_CAP),
+                                       "--port", str(busy.getsockname()[1]),
+                                       "--device", DEV])
+        finally:
+            sys.stdout = stdout
+    if "[WARN] viewer port unavailable" not in buf.getvalue() or busy_state.step != 2:
+        raise AssertionError("a busy --port did not warn and train")
+    results["viewer_cli"] = dict(seconds=cli_s, launches=launches, frame_bytes=len(img),
+                                 last=steps[-1])
+    log(f"[viewer-cli] {TOOLS_CLI_ITERS} iterations with --port {port} in {cli_s:.1f} s: "
+        f"one {TRAIN_W}x{TRAIN_H} frame served ({len(img)} bytes), K1 launched {launches} "
+        f"times; last {json.dumps(results['viewer_cli']['last'])}; a busy port warned and "
+        f"trained 2 iterations")
+
+
+def run_twin(name: str, argv: list, device: str):
+    """``python -m segsplat_tpu_torch.<name>`` in process, with ``--device``;
+    returns (its main's result, its stdout, its seconds to a synchronised end)."""
+    import importlib
+
+    import torch
+
+    mod = importlib.import_module(f"segsplat_tpu_torch.{name}")
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = mod.main(argv + ["--device", device])
+    torch.cuda.synchronize()
+    return out, buf.getvalue(), time.perf_counter() - t
+
+
+def phase_tool_scripts(results, root: str):
+    """(c) The device-side host-script twins at full width on phase 8's
+    officescene-scale work dir (512 channels, 876×584 rays, 109 000 voxels),
+    each on the card against the CPU, and check_env as a subprocess."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from segsplat_tpu_torch.io.artifacts import save_voxel_features
+    from segsplat_tpu_torch.io.ply import read_voxel_grid_ply
+
+    sides = (("card", DEV), ("cpu", "cpu"))
+    work = os.path.join(root, "lift")
+    if not os.path.exists(os.path.join(work, "grid.ply")):
+        _tests_on_path()
+        from _torch_port import officescene_lift_scene
+        work = os.path.join(root, "tools_lift")
+        write_lift_workdir(work, officescene_lift_scene(n_views=TOOLS_VIEWS))
+    grid, lseg, cams = (os.path.join(work, n) for n in ("grid.ply", "lseg", "cameras.json"))
+    out = os.path.join(root, "tools")
+    os.makedirs(out)
+    path = lambda n: os.path.join(out, n)
+    report = {}
+
+    # build_sparse_occupancy
+    occ = {}
+    for side, dev in sides:
+        occ[side], _, sec = run_twin("build_sparse_occupancy",
+                                     ["--voxel_ply", grid, "--output", path(f"occ_{side}.pt")],
+                                     dev)
+        report.setdefault("build_sparse_occupancy", {})[f"{side}_s"] = sec
+    if not np.array_equal(occ["card"], occ["cpu"]):
+        raise AssertionError("build_sparse_occupancy: the card's occupancy differs")
+    origin = torch.load(path("occ_card.pt"))["grid_origin"].tolist()
+    report["build_sparse_occupancy"]["occupied"] = int((occ["card"] > 0).sum())
+
+    # prepare_tensor_data: two views resized to the 876×584 ray grid
+    vs = read_voxel_grid_ply(grid)[2]
+    prep = {}
+    for side, dev in sides:
+        prep[side], _, sec = run_twin("prepare_tensor_data", [
+            "--lseg_dir", lseg, "--scaled_camera_params", cams,
+            "--occupancy", path("occ_card.pt"), "--voxel_size", str(vs),
+            "--grid_origin", *map(str, origin), "--max_images", str(TOOLS_VIEWS),
+            "--output", path(f"td_{side}.pt"), "--image_size", str(TRAIN_H), str(TRAIN_W),
+            "--downsample_factor", "0.5"], dev)
+        report.setdefault("prepare_tensor_data", {})[f"{side}_s"] = sec
+    a, b = (prep[side]["encoded_2d_features"] for side in ("card", "cpu"))
+    resize_err = float((a - b).abs().max())
+    if a.shape != (1, TOOLS_VIEWS, TRAIN_H, TRAIN_W, 512) or resize_err > RESIZE_TOL:
+        raise AssertionError(f"prepare_tensor_data: {tuple(a.shape)}, card against CPU "
+                             f"{resize_err:.3g}")
+    report["prepare_tensor_data"]["resize_max_abs_diff"] = resize_err
+    del prep, a, b
+    os.remove(path("td_cpu.pt"))
+
+    # project_features, splat and DDA, from the card's tensor data
+    for method in ("splat", "dda"):
+        proj, secs = {}, {}
+        for side, dev in sides:
+            proj[side], _, secs[side] = run_twin("project_features", [
+                "--tensor_data", path("td_card.pt"), "--method", method,
+                "--output", path(f"proj_{method}_{side}.pt")], dev)
+        ia, ib = (proj[side]["projected_indices"] for side in ("card", "cpu"))
+        fa, fb = (proj[side]["projected_feats"].float() for side in ("card", "cpu"))
+        same_idx = ia.shape == ib.shape and torch.equal(ia, ib)
+        spacing = torch.as_tensor(np.spacing(np.abs(proj["cpu"]["projected_feats"].numpy())),
+                                  dtype=torch.float32)
+        within = float(((fa - fb).abs() <= spacing).float().mean()) if same_idx else 0.0
+        r = dict(voxels_hit=int(ia.shape[0]), cpu_voxels_hit=int(ib.shape[0]),
+                 indices_equal=same_idx, share_within_fp16_spacing=within,
+                 feats_max_abs_diff=float((fa - fb).abs().max()) if same_idx else None,
+                 card_s=secs["card"], cpu_s=secs["cpu"],
+                 views_per_sec=TOOLS_VIEWS / secs["card"])
+        report[f"project_features_{method}"] = r
+        log(f"[tools] project_features --method {method}: {json.dumps(r)}")
+        if not same_idx or within < 1.0:
+            raise AssertionError(f"project_features --method {method}: the card parts from "
+                                 f"the CPU ({json.dumps(r)})")
+    os.remove(path("td_card.pt"))
+
+    # voxeltovoxel_logits on the splat projection's voxels (the query of the
+    # single-view chain's output)
+    p = torch.load(path("proj_splat_card.pt"))
+    xyz = np.ascontiguousarray(p["projected_indices"].numpy()[:, ::-1])
+    save_voxel_features(path("vox.pt"), xyz * vs + np.asarray(origin),
+                        p["projected_feats"].numpy(), xyz)
+    q = {}
+    for side, dev in sides:
+        q[side], _, sec = run_twin("voxeltovoxel_logits", [
+            "--vox", path("vox.pt"), "--prompt", *PIPELINE_PROMPTS,
+            "--out", path(f"sem_{side}.npz")], dev)
+    la, lb = q["card"]["logits"], q["cpu"]["logits"]
+    scale = float(np.abs(lb).max())
+    top2 = np.sort(lb, axis=1)
+    clear = top2[:, -1] - top2[:, -2] > 1e-3 * scale
+    if (not np.allclose(la, lb, rtol=1e-5, atol=1e-5 * scale)
+            or not np.array_equal(q["card"]["labels"][clear], q["cpu"]["labels"][clear])):
+        raise AssertionError("voxeltovoxel_logits: the card parts from the CPU")
+    report["voxeltovoxel_logits"] = dict(
+        seconds=sec, voxels=len(la), logits_max_abs_diff=float(np.abs(la - lb).max()),
+        labels_equal=int((q["card"]["labels"] == q["cpu"]["labels"]).sum()))
+
+    # aggregate_voxel_colors_onthefly: two seeded images at the cameras' size
+    images = path("images")
+    os.makedirs(images)
+    rng = np.random.default_rng(13)
+    with open(cams) as f:
+        cam0 = json.load(f)["cameras"]["0"]
+    for i in range(TOOLS_VIEWS):
+        Image.fromarray(rng.integers(0, 256, (cam0["height"], cam0["width"], 3),
+                                     np.uint8)).save(os.path.join(images, f"view_{i:03d}.png"))
+    plys = {}
+    for side, dev in sides:
+        plys[side], _, sec = run_twin("aggregate_voxel_colors_onthefly", [
+            "--voxel_ply", grid, "--images_dir", images, "--camera_params", cams,
+            "--out_dir", path(f"colors_{side}"), "--max_views", str(TOOLS_VIEWS)], dev)
+        report.setdefault("aggregate_voxel_colors_onthefly", {})[f"{side}_s"] = sec
+    ca, cb = (read_voxel_grid_ply(plys[side])[1].astype(np.int16) for side in ("card", "cpu"))
+    if os.path.basename(plys["card"]) != os.path.basename(plys["cpu"]) or \
+            np.abs(ca - cb).max() > 1:
+        raise AssertionError(f"aggregate_voxel_colors_onthefly: {plys}, colours up to "
+                             f"{np.abs(ca - cb).max()} apart")
+    report["aggregate_voxel_colors_onthefly"].update(
+        ply=os.path.basename(plys["card"]), colours_max_lsb=int(np.abs(ca - cb).max()))
+
+    # check_env in its own process
+    t = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "segsplat_tpu_torch.check_env"],
+                       capture_output=True, text=True, timeout=600,
+                       cwd=os.path.dirname(os.path.abspath(__file__)))
+    for line in r.stdout.splitlines():
+        log(f"[check_env] {line}")
+    if r.returncode != 0 or not r.stdout.rstrip().endswith("ALL OK"):
+        raise AssertionError(f"check_env exited {r.returncode}: {r.stderr[-2000:]}")
+    report["check_env_s"] = time.perf_counter() - t
+    results["tool_scripts"] = report
+    log(f"[tools] {json.dumps(report)}")
+
+
+def phase_tools(results, root: str):
+    """Phase 13: (a) the viewer, (b) the train CLI with --port, (c) the
+    device-side host-script twins and check_env."""
+    seconds = {}
+    for name, fn in (("viewer", lambda: phase_viewer(results)),
+                     ("viewer-cli", lambda: phase_viewer_cli(results, root)),
+                     ("scripts", lambda: phase_tool_scripts(results, root))):
+        t0 = time.perf_counter()
+        fn()
+        seconds[name] = time.perf_counter() - t0
+    log(f"[tools] parts in s: {json.dumps(seconds)}")
+
+
 LIST_KEYS = ("warp_rows_read", "warp_rows_kept", "warp_rows_hit", "kept_share", "hit_share")
 
 
@@ -3588,7 +4090,7 @@ def kernel_entry(name, ch, source, replaces, launches, max_abs_err, t, **extra):
 
 
 PHASES = ("small", "full", "main", "train", "train-cli", "logits", "other-blends", "lift",
-          "query", "widths", "slic", "loop", "mesh", "edit", "multi")
+          "query", "widths", "slic", "loop", "mesh", "edit", "multi", "tools")
 PSEUDO_LABEL_PHASES = ("widths", "slic", "loop", "mesh")      # phase 10 (a)-(e)
 
 
@@ -3665,7 +4167,8 @@ def main(argv=None) -> int:
            "loop": lambda: phase_loop(results, root),
            "mesh": lambda: phase_mesh(results, root),
            "edit": lambda: phase_edit(results, root),
-           "multi": lambda: phase_multi(results, root)}
+           "multi": lambda: phase_multi(results, root),
+           "tools": lambda: phase_tools(results, root)}
     seconds = {}
     try:
         for name in phases:
@@ -3677,6 +4180,7 @@ def main(argv=None) -> int:
             f"{sum(seconds.get(p, 0.0) for p in PSEUDO_LABEL_PHASES):.1f} s")
         log(f"[edit] phase 11 in {seconds.get('edit', 0.0):.1f} s")
         log(f"[multi] phase 12 in {seconds.get('multi', 0.0):.1f} s")
+        log(f"[tools] phase 13 in {seconds.get('tools', 0.0):.1f} s")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     if set(phases) != set(PHASES):
@@ -3777,6 +4281,15 @@ def main(argv=None) -> int:
         strips["heaviest"], path=f"rasterize_sharded strips, {STRIP_W}x{STRIP_H} in {STRIPS}",
         strips=[{k: e[k] for k in ("strip", "num_pairs", "ms", "bound_ms", "plain_ms")}
                 for e in strips["per_strip"]], **occupancy["blend_fwd"][32]))
+    viewer = results["viewer"]
+    kernels.append(kernel_entry(
+        "blend_fwd", 19, fwd_src, k1_tpu, viewer["launches"], viewer["k1_1080p"]["max_abs_err"],
+        viewer["k1_1080p"], path=f"viewer frames (NetworkGUI.poll_and_render), the "
+                                 f"{FRAME_W}x{FRAME_H} frame's inputs",
+        launches_by_path={f"{viewer['launches']} viewer frames": viewer["launches"],
+                          f"train CLI with --port, {TOOLS_CLI_ITERS} iterations":
+                          results["viewer_cli"]["launches"]},
+        **occupancy["blend_fwd"][19]))
     log(f"[total] {time.perf_counter() - t_all:.1f} s on {smi}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

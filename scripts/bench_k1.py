@@ -74,7 +74,7 @@ def build(kernel: str, name: str, src: Path, flags):
     out = ROOT / "build" / "k1_bench" / f"{kernel}-{name}-{cuda_build.source_key(src, all_flags)}.so"
     if not out.exists():
         out.parent.mkdir(parents=True, exist_ok=True)
-        r = subprocess.run([cuda_build._nvcc(), *all_flags, "-o", str(out), str(src)],
+        r = subprocess.run([cuda_build.nvcc(), *all_flags, "-o", str(out), str(src)],
                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if r.returncode != 0:
             raise RuntimeError(f"nvcc failed for {src} {flags}:\n{r.stdout}")

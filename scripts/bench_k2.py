@@ -49,7 +49,7 @@ def build(name: str, src: Path):
     out = ROOT / "build" / "k2_bench" / f"{name}-{hashlib.sha256(text).hexdigest()[:16]}.so"
     if not out.exists():
         out.parent.mkdir(parents=True, exist_ok=True)
-        r = subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(out),
+        r = subprocess.run([cuda_build.nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(out),
                             str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                            text=True)
         if r.returncode != 0:

@@ -20,7 +20,9 @@ offline hard-scene tools; object editing (``edit_object_removal.py``,
 finetune), the two 2D inpainters (``ops/inpaint.py``, ``ops/inpaint_patch.py``,
 ``inpaint_images.py``) and LPIPS (``eval/lpips.py``, ``eval_inpaint_lpips.py``);
 several devices on torch.distributed (``parallel/``: the B-view train step, the
-view-split lift and the strip render; the train and lift CLIs under torchrun).
+view-split lift and the strip render; the train and lift CLIs under torchrun);
+the SIBR network viewer polled from training (``viewer.py``), twins of the
+host tools under ``scripts/`` and the port's own ``check_env``.
 The tile blend is hand-written CUDA kernels, forward and backward
 (``csrc/blend_fwd.cu``, ``csrc/blend_bwd.cu``, bound in ``ops/blend.py``), and
 the packed forward (``csrc/blend_packed.cu``).

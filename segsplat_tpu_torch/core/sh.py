@@ -56,3 +56,12 @@ def eval_sh(degree: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
                   + C3[5] * z * (xx - yy) * sh[..., 14, :]
                   + C3[6] * x * (xx - 3 * yy) * sh[..., 15, :])
     return result
+
+
+def sh_to_color(degree: int, sh: torch.Tensor, means: torch.Tensor,
+                campos: torch.Tensor) -> torch.Tensor:
+    """Per-Gaussian view-dependent RGB: SH evaluated toward the camera, clamped
+    at 0 (the rasterizer's SH→RGB contract, gaussian_renderer/__init__.py:67-72)."""
+    dirs = means - campos
+    dirs = dirs / (torch.linalg.norm(dirs, dim=-1, keepdim=True) + 1e-12)
+    return torch.clamp_min(eval_sh(degree, sh, dirs) + 0.5, 0.0)

@@ -26,6 +26,21 @@ def get_world2view(R: np.ndarray, t: np.ndarray, translate=None,
     return Rt.astype(np.float32)
 
 
+def get_projection_matrix(znear: float, zfar: float, fov_x: float, fov_y: float) -> np.ndarray:
+    """3DGS-style perspective matrix, z mapped to [0, zfar/(zfar-znear)]
+    (utils/graphics_utils.py:51-71)."""
+    tan_y = math.tan(fov_y / 2)
+    tan_x = math.tan(fov_x / 2)
+    top, right = tan_y * znear, tan_x * znear
+    P = np.zeros((4, 4), np.float32)
+    P[0, 0] = znear / right
+    P[1, 1] = znear / top
+    P[3, 2] = 1.0
+    P[2, 2] = zfar / (zfar - znear)
+    P[2, 3] = -(zfar * znear) / (zfar - znear)
+    return P
+
+
 def fov2focal(fov: float, pixels: float) -> float:
     return pixels / (2 * math.tan(fov / 2))
 
@@ -74,6 +89,25 @@ def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
         2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y),
     ], dim=-1)
     return R.reshape(q.shape[:-1] + (3, 3))
+
+
+def build_scaling_rotation(s: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """L = R @ diag(s): [..., 3, 3] (utils/general_utils.py:101-110)."""
+    return quat_to_rotmat(q) * s[..., None, :]
+
+
+def build_covariance_3d(scaling: torch.Tensor, rotation: torch.Tensor,
+                        modifier: float = 1.0) -> torch.Tensor:
+    """Σ = L Lᵀ with L = R diag(modifier·s), full [..., 3, 3]."""
+    L = build_scaling_rotation(modifier * scaling, rotation)
+    return L @ L.transpose(-1, -2)
+
+
+def strip_symmetric(cov: torch.Tensor) -> torch.Tensor:
+    """[..., 3, 3] → [..., 6] upper-triangular packing (xx, xy, xz, yy, yz, zz),
+    the reference's on-disk covariance layout (utils/general_utils.py:64-76)."""
+    return torch.stack([cov[..., 0, 0], cov[..., 0, 1], cov[..., 0, 2],
+                        cov[..., 1, 1], cov[..., 1, 2], cov[..., 2, 2]], dim=-1)
 
 
 def inverse_sigmoid(x):

@@ -15,6 +15,7 @@ import torch
 
 NUM_OBJECTS = 16            # identity-feature channels
 NUM_SEMANTIC_CHANNELS = 32  # logit raster channels (the reference's NUM_CHANNELS)
+NUM_CODEBOOK = 256          # codebook rows (train_unified_lift.py:295-297)
 
 
 @dataclasses.dataclass(frozen=True)

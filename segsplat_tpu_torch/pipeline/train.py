@@ -14,7 +14,10 @@ train_unified_lift.py:287-586): the host-side schedule around the train step.
     at save iterations, and resumable checkpoints (``torch.save`` of the table,
     both optimizers' state, codebook, densify stats and step) at checkpoint
     iterations,
-  * metrics to ``metrics.jsonl``,
+  * metrics to ``metrics.jsonl``, and to wandb where ``SEGSPLAT_WANDB=1``
+    and wandb imports (``_maybe_init_wandb``),
+  * the SIBR viewer (``gui``, a ``viewer.NetworkGUI``) polled at the top of
+    each iteration,
   * ``view_batch`` > 1: B views a step (parallel/train.py), split over the
     view ranks of a ``torch.distributed`` launch (one process a device, e.g.
     ``torchrun``) or rendered in turn on one device; ``mesh_tensor`` splits
@@ -23,7 +26,7 @@ train_unified_lift.py:287-586): the host-side schedule around the train step.
 
 Stated limits: the process group's world must equal the mesh (view ×
 tensor): a launch with idle ranks raises ValueError, where the JAX package
-takes the first devices; no wandb.
+takes the first devices.
 """
 
 from __future__ import annotations
@@ -152,10 +155,17 @@ def train(source_path: str, model_path: str, opt: Optional[OptimizationConfig] =
           run: Optional[TrainRunConfig] = None, images: str = "images",
           object_dir: str = "object_mask", eval_split: bool = False,
           capacity: Optional[int] = None, start_checkpoint: Optional[str] = None,
-          progress_cb=None, device: str | torch.device = "cuda") -> TrainState:
+          progress_cb=None, gui=None, device: str | torch.device = "cuda") -> TrainState:
     """Train on ``device`` (the card unless the caller asks for the CPU). In a
     ``torch.distributed`` launch every rank calls it alike (``device`` is
-    then its own card, or the CPU under gloo)."""
+    then its own card, or the CPU under gloo).
+
+    ``gui`` (a ``viewer.NetworkGUI``, or None) is polled at the top of each
+    iteration, before the step; under torch.distributed only world rank 0
+    passes one. While a client pauses training, rank 0 stays in the poll and
+    the other ranks wait at the step's next all-reduce, as in the JAX
+    package; there is no timeout. ``train`` closes the gui when its loop ends,
+    however it ends."""
     device = require_device(device)
     opt = opt or OptimizationConfig()
     run = run or TrainRunConfig()
@@ -212,12 +222,14 @@ def train(source_path: str, model_path: str, opt: Optional[OptimizationConfig] =
 
     if writer:
         mkdir_p(model_path)
+    wandb_run = _maybe_init_wandb(model_path) if writer else None
     order = rng_np.permutation(len(cams))
     cursor = 0
     batch_views = run.view_batch if parallel_step is not None else 1
     t_start = time.perf_counter()
     with (open(os.path.join(model_path, "metrics.jsonl"), "a") if writer
-          else contextlib.nullcontext()) as metrics_f:
+          else contextlib.nullcontext()) as metrics_f, \
+            (contextlib.closing(gui) if gui is not None else contextlib.nullcontext()):
         for it in range(state.step + 1, run.iterations + 1):
             cis = []
             for _ in range(batch_views):
@@ -226,6 +238,10 @@ def train(source_path: str, model_path: str, opt: Optional[OptimizationConfig] =
                     cursor = 0
                 cis.append(int(order[cursor]))
                 cursor += 1
+
+            if gui is not None:
+                # SIBR viewer poll (train_unified_lift.py:319-332)
+                gui.poll_and_render(state.table, True, source_path, bg=bg)
 
             if it % run.sh_up_every == 0:
                 state.table = one_up_sh_degree(state.table)
@@ -280,6 +296,8 @@ def train(source_path: str, model_path: str, opt: Optional[OptimizationConfig] =
                     raise FloatingPointError(f"non-finite loss at iteration {it}: "
                                              f"{bad}; breakdown: {rec}")
                 _write_record(metrics_f, rec)
+                if wandb_run is not None:
+                    wandb_run.log(rec, step=it)
                 if progress_cb:
                     progress_cb(rec)
 
@@ -301,6 +319,24 @@ def train(source_path: str, model_path: str, opt: Optional[OptimizationConfig] =
                 save_checkpoint(os.path.join(model_path, "chkpnts", f"chkpnt{it}.pt"),
                                 state)
     return state
+
+
+def _maybe_init_wandb(model_path: str):
+    """Opt-in wandb logging (``SEGSPLAT_WANDB=1``; project from
+    ``SEGSPLAT_WANDB_PROJECT``), as the JAX package's hook: the reference
+    always logs to wandb (train_unified_lift.py:569-574); metrics.jsonl is
+    written either way. Training goes on without wandb where it cannot
+    start, with a warning."""
+    if os.environ.get("SEGSPLAT_WANDB") != "1":
+        return None
+    try:
+        import wandb
+
+        return wandb.init(project=os.environ.get("SEGSPLAT_WANDB_PROJECT", "segsplat_tpu"),
+                          name=os.path.basename(model_path) or None)
+    except Exception as e:      # the boundary: a logging service must not stop training
+        print(f"[WARN] wandb unavailable ({e}); metrics.jsonl only")
+        return None
 
 
 def _write_record(metrics_f, rec: dict) -> None:

@@ -19,7 +19,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from segsplat_tpu_torch.core.sh import eval_sh
+from segsplat_tpu_torch.core.sh import sh_to_color
 from segsplat_tpu_torch.core.types import NUM_SEMANTIC_CHANNELS, Camera, GaussianTable
 from segsplat_tpu_torch.ops.rasterize import BACKENDS, pad_logits_to_channels, rasterize
 
@@ -39,10 +39,7 @@ def sh_colors(table: GaussianTable, campos: torch.Tensor) -> torch.Tensor:
     coeff_ids = torch.arange(sh.shape[1], device=sh.device)
     band = torch.floor(torch.sqrt(coeff_ids.float())).long()
     mask = (band <= table.active_sh_degree).to(sh.dtype)
-    sh = sh * mask[None, :, None]
-    dirs = table.xyz - campos
-    dirs = dirs / (torch.linalg.norm(dirs, dim=-1, keepdim=True) + 1e-12)
-    return torch.clamp_min(eval_sh(table.max_sh_degree, sh, dirs) + 0.5, 0.0)
+    return sh_to_color(table.max_sh_degree, sh * mask[None, :, None], table.xyz, campos)
 
 
 def render(table: GaussianTable, camera: Camera, bg_color: torch.Tensor,

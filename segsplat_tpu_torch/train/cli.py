@@ -14,14 +14,14 @@ all N ranks. On one card the B views render in turn. Under torchrun the CLI
 joins the process group (NCCL, or gloo with ``--device cpu``) and only rank 0
 writes.
 
-Stated limits: ``--port`` defaults to 0 here, and a port > 0 raises because the
-viewer is not ported yet; ``--use_wandb`` is accepted and ignored, as in the
-JAX package's CLI.
+``--ip``/``--port`` (default 6009; 0 turns it off) serve the SIBR viewer from
+world rank 0 while training (``viewer.NetworkGUI``); a port that cannot be
+bound warns and trains without it. ``--use_wandb`` is accepted and ignored, as
+in the JAX package's CLI: wandb is opted into with ``SEGSPLAT_WANDB=1``.
 """
 
 from __future__ import annotations
 
-import json
 from argparse import ArgumentParser
 
 import torch.distributed as dist
@@ -30,8 +30,10 @@ from segsplat_tpu_torch.parallel import multihost
 from segsplat_tpu_torch.pipeline.train import TrainRunConfig, train
 from segsplat_tpu_torch.train.trainer import OptimizationConfig
 from segsplat_tpu_torch.utils.config import (ModelParams, OptimizationParams,
-                                             PipelineParams, save_cfg_args)
+                                             PipelineParams, load_json_config,
+                                             save_cfg_args)
 from segsplat_tpu_torch.utils.system import require_device, safe_state
+from segsplat_tpu_torch.viewer import NetworkGUI
 
 
 def main(argv=None):
@@ -42,8 +44,8 @@ def main(argv=None):
     PipelineParams(parser)
     parser.add_argument("--config_file", type=str, default="")
     parser.add_argument("--ip", type=str, default="127.0.0.1")
-    parser.add_argument("--port", type=int, default=0,
-                        help="viewer port; the viewer is not ported, so only 0 runs")
+    parser.add_argument("--port", type=int, default=6009,
+                        help="SIBR viewer port (0: no viewer)")
     parser.add_argument("--detect_anomaly", action="store_true")
     parser.add_argument("--test_iterations", nargs="+", type=int, default=[7_000, 30_000])
     parser.add_argument("--save_iterations", nargs="+", type=int, default=[7_000, 30_000])
@@ -69,12 +71,7 @@ def main(argv=None):
     args = parser.parse_args(argv)
     args.save_iterations.append(args.iterations)
     if args.config_file:
-        with open(args.config_file) as f:
-            for k, v in json.load(f).items():
-                setattr(args, k, v)
-    if args.port > 0:
-        raise NotImplementedError("the SIBR viewer (--port > 0) is not ported yet; "
-                                  "run with --port 0")
+        load_json_config(args.config_file, args)
     device = require_device(args.device)
     joined = not dist.is_initialized() and multihost.launched_by_torchrun()
     if joined:
@@ -124,10 +121,20 @@ def _train(args, lp, op, device):
         view_batch=args.view_batch,
         mesh_tensor=args.mesh_tensor,
     )
+    gui = None
+    if args.port > 0 and (not dist.is_initialized() or dist.get_rank() == 0):
+        gui = NetworkGUI()
+        try:
+            gui.init(args.ip, args.port)
+            print(f"GUI server at {args.ip}:{args.port}")
+        except OSError as e:
+            print(f"[WARN] viewer port unavailable ({e}); GUI disabled")
+            gui = None
+
     print(f"Optimizing {dataset.model_path}")
     state = train(dataset.source_path, dataset.model_path, opt=opt, run=run,
                   images=dataset.images, object_dir=dataset.object_path,
                   eval_split=dataset.eval, capacity=args.capacity or None,
-                  start_checkpoint=args.start_checkpoint, device=device)
+                  start_checkpoint=args.start_checkpoint, gui=gui, device=device)
     print("\nTraining complete.")
     return state

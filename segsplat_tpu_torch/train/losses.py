@@ -35,6 +35,10 @@ def l1_loss(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
     return (pred - gt).abs().mean()
 
 
+def l2_loss(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+    return ((pred - gt) ** 2).mean()
+
+
 def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11,
          sigma: float = 1.5) -> torch.Tensor:
     """Mean windowed SSIM of [C, H, W] images, C1 = 0.01², C2 = 0.03²."""

@@ -23,14 +23,12 @@ import torch
 
 from segsplat_tpu_torch.core.sh import rgb2sh
 from segsplat_tpu_torch.core.transforms import get_expon_lr_func, inverse_sigmoid
-from segsplat_tpu_torch.core.types import NUM_OBJECTS, Camera, GaussianTable
+from segsplat_tpu_torch.core.types import NUM_CODEBOOK, NUM_OBJECTS, Camera, GaussianTable
 from segsplat_tpu_torch.ops.knn import knn_mean_sq_dist
 from segsplat_tpu_torch.render import render
 from segsplat_tpu_torch.train import losses as L
 from segsplat_tpu_torch.train.densify import PARAM_FIELDS, DensifyStats, add_stats
 from segsplat_tpu_torch.utils.system import require_device
-
-NUM_CODEBOOK = 256      # codebook rows (train_unified_lift.py:295-297)
 
 # parameter group of each table field, as the JAX package labels them
 GROUP_OF_FIELD = {"xyz": "xyz", "features_dc": "f_dc", "features_rest": "f_rest",

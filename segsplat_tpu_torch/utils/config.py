@@ -6,6 +6,7 @@ same on-disk format, no code execution."""
 from __future__ import annotations
 
 import ast
+import json
 import os
 from argparse import ArgumentParser, Namespace
 
@@ -150,3 +151,13 @@ def get_combined_args(parser: ArgumentParser, argv=None) -> Namespace:
     for k, v in getattr(parser, "_sentinel_defaults", {}).items():
         merged.setdefault(k, v)
     return Namespace(**merged)
+
+
+def load_json_config(path: str, args: Namespace) -> Namespace:
+    """Overlay a JSON config file onto ``args`` (the reference's
+    train_unified_lift.py:549-566)."""
+    with open(path) as f:
+        cfg = json.load(f)
+    for k, v in cfg.items():
+        setattr(args, k, v)
+    return args

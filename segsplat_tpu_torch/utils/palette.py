@@ -21,3 +21,12 @@ def bit_shuffle_palette(num_classes: int) -> np.ndarray:
             lab >>= 3
         out[j] = (r, g, b)
     return out
+
+
+def colorize_labels(labels: np.ndarray, num_classes: int | None = None) -> np.ndarray:
+    """[...] int labels → [..., 3] uint8 colours by the bit-shuffle palette;
+    labels past the last class take its colour."""
+    labels = np.asarray(labels)
+    n = int(num_classes if num_classes is not None else labels.max() + 1)
+    pal = bit_shuffle_palette(max(n, 1))
+    return pal[np.clip(labels, 0, n - 1)]

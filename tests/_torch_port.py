@@ -453,6 +453,41 @@ def torch_threads(n: int):
         torch.set_num_threads(old)
 
 
+def write_blender_scene(root, n_views: int = 3, size: int = 32, n_points: int = 96,
+                        seed: int = 0) -> str:
+    """tests/test_train_pipeline.py's Blender-style scene under ``root``:
+    ``n_views`` noise images of size² around the origin, ``n_points`` random
+    points in [-1, 1]³. Returns ``root`` as a string."""
+    import json
+    import os
+
+    from PIL import Image
+
+    from segsplat_tpu_torch.io.dataset import store_point_cloud_ply
+
+    rng = np.random.default_rng(seed)
+    frames = []
+    for i in range(n_views):
+        ang = 2 * np.pi * i / n_views
+        pos = np.array([3 * np.sin(ang), 0.0, 3 * np.cos(ang)])
+        fwd = -pos / np.linalg.norm(pos)
+        right = np.cross([0.0, 1.0, 0.0], fwd)
+        right = right / np.linalg.norm(right)
+        up = np.cross(fwd, right)
+        c2w = np.eye(4)
+        c2w[:3, 0], c2w[:3, 1], c2w[:3, 2], c2w[:3, 3] = right, up, fwd, pos
+        c2w[:3, 1:3] *= -1
+        Image.fromarray((rng.random((size, size, 3)) * 255).astype(np.uint8)).save(
+            os.path.join(root, f"r_{i}.png"))
+        frames.append({"file_path": f"r_{i}", "transform_matrix": c2w.tolist()})
+    with open(os.path.join(root, "transforms_train.json"), "w") as f:
+        json.dump({"camera_angle_x": 0.9, "frames": frames}, f)
+    xyz = (rng.random((n_points, 3)) * 2 - 1).astype(np.float32)
+    store_point_cloud_ply(os.path.join(root, "points3d.ply"), xyz,
+                          (rng.random((n_points, 3)) * 255).astype(np.uint8))
+    return str(root)
+
+
 # ───────────── PatchMatch (ops/inpaint_patch.py): the JAX draws, near-ties ─────────────
 def jax_draws(seed: int):
     """The PatchMatch draws of the JAX ``inpaint_texture(..., seed=seed)``, as

@@ -62,6 +62,18 @@ PARALLEL_SLICE = ("parallel", "parallel.mesh", "parallel.multihost", "parallel.l
                   "parallel.render", "parallel.train")
 
 
+# the viewer, the host-script twins and check_env, named so that losing one
+# fails here
+TOOLS_SLICE = ("viewer", "check_env", "prepare_tensor_data", "project_features",
+               "build_sparse_occupancy", "aggregate_voxel_colors_onthefly",
+               "voxeltovoxel_logits", "extract_gaussian_centers", "logit_confidence_map",
+               "analyze_gaussian_semantics", "minkowski_voxel_grid",
+               "minkowski_voxel_grid_from_ply", "minkowski_voxel_grid_density_filtered",
+               "minkowski_mesh_voxel_grid", "detect_surface", "export_gaussians",
+               "export_gaussian_ellipsoids", "gaussian_color_stats", "scale_sparsity_filter",
+               "dist_to_mesh_filter", "debug_tools", "visualize_lseg_features")
+
+
 def test_port_modules_import_with_jax_blocked():
     code = _BLOCKED_IMPORT.format(blocked=sorted(FORBIDDEN))
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -69,6 +81,6 @@ def test_port_modules_import_with_jax_blocked():
     assert r.returncode == 0, r.stderr[-3000:]
     mods = set(r.stdout.strip().splitlines()[-1].split())
     assert len(mods) >= 15
-    missing = [m for m in EDIT_SLICE + PARALLEL_SLICE[1:]
+    missing = [m for m in EDIT_SLICE + PARALLEL_SLICE[1:] + TOOLS_SLICE
                if f"segsplat_tpu_torch.{m}" not in mods]
     assert not missing, missing
