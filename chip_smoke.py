@@ -180,13 +180,31 @@ Phases, each fatal on failure:
      phase 6's scene with a client fetching one 876×584 frame (K1 ≥ 11
      launches, finite losses), and a second launch on a bound port, which
      warns and trains; (c) on phase 8's work dir (written here when phase 8
-     did not run): build_sparse_occupancy, prepare_tensor_data (2 views
+     did not run): build_sparse_occupancy, prepare_tensor_data (1 view
      resized to 876×584 × 512 channels), project_features with splat and DDA
      (views/s; indices equal to the CPU's and features within fp16 spacing),
      voxeltovoxel_logits on the splat's voxels and
-     aggregate_voxel_colors_onthefly on 2 seeded images, each on the card
+     aggregate_voxel_colors_onthefly on 1 seeded image, each on the card
      against the CPU, and ``python -m segsplat_tpu_torch.check_env`` in its
      own process (exit 0).
+  14. ``scale``: the production run, ``segsplat_tpu_torch.officescene_scale_run``
+     at FULL (200 000 Gaussians in a fabricated room, 216 orbit views, one
+     [512, 360, 540] fp16 map symlinked for every view): (a) every view
+     lifted at 876×584 × 512 channels and every view rendered through K1,
+     each stage's time and peak device memory above what it found resident,
+     the voxels, the lift's and the render's [WARN]s counted, K1 exactly 216
+     launches in stage 5, the host's peak RSS and the bytes written; (b)
+     every returned artifact reloads, every label map is [584, 876] in [0,
+     13), view 0's logits against the plain blend, view 0's map resized on
+     the card and the CPU within 4 ulps of its larger side times its largest
+     step (the fp32 source coordinate's rounding), the first 2 views lifted
+     on the card and the CPU (counts equal, sums at rtol 1e-5 and an atol of
+     a voxel's count times that bound), 20 000 entries of the 1-NN map
+     against the CPU's (equal or near-ties), the query against the CPU's
+     (logits rtol 1e-5, labels beyond a 1e-3 top-2 gap); (c) stage 5's loop
+     traced over 2 views (kernels, device idle share, K1's share); (d) K1 on
+     view 0's inputs at the 32 channels stage 5 blends, timed with its bound;
+     the work dir removed at the end.
 Prints a ``{"kernels": [...]}`` line (each kernel's blocks per SM, shared
 memory and registers from the occupancy API; K1's and K3's share of warp-rows
 their row lists keep beside the share with a passing lane), then as the last line
@@ -701,18 +719,13 @@ def write_model_dir(root: str, n_views: int = 4):
     return model, sem
 
 
-def view0_against_plain(src: str, model: str, iteration: int, sem: str, out_dir: str):
-    """View 0 of a render CLI's output held against K1's plain version: the
-    scene, its Gaussians and the semantics loaded again on the card, the
-    blend inputs rebuilt as ``render_semantic_views`` builds them (m = 6,
-    K = 256, its pair cap, bg 0), blended by ``blend_tiles_plain``. The saved
-    fp16 logits must lie within 1e-4 + |ref|·2^-10 (fp16's rounding on top of
-    1e-4), the labels must equal the argmax where the top-2 gap > 1e-2.
-    Returns (max abs diff, labelled pixels held)."""
-    import numpy as np
+def view0_blend_inputs(src: str, model: str, iteration: int, sem: str):
+    """View 0's blend inputs as ``render_semantic_views`` builds them (m = 6,
+    K = 256, its pair cap, bg 0): the scene, its Gaussians and the semantics
+    loaded again on the card. Returns (scene, logits [capacity, P] on the card,
+    camera, BlendInputs, bg, K)."""
     import torch
 
-    from segsplat_tpu_torch.ops.blend import blend_tiles_plain
     from segsplat_tpu_torch.ops.rasterize import build_blend_inputs, project_gaussians
     from segsplat_tpu_torch.pipeline.render_semantics import (PAIR_CAP_MAX,
                                                               attach_logits_for_table)
@@ -720,18 +733,34 @@ def view0_against_plain(src: str, model: str, iteration: int, sem: str, out_dir:
     from segsplat_tpu_torch.scene import Scene, to_device_camera
 
     m, K = 6, 256                       # render_semantic_views' defaults
-    saved = np.load(os.path.join(out_dir, "00000_logits.npy")).astype(np.float32)
-    P = saved.shape[0]
-    scene = Scene(src, model, shuffle=False, load_iteration=iteration, device="cuda")
+    scene = Scene(src, model, shuffle=False, load_iteration=iteration, device=DEV)
     table = scene.gaussians
-    cam = to_device_camera(scene.get_train_cameras()[0], 1.0, device="cuda")
-    logits = torch.as_tensor(attach_logits_for_table(table, sem), device="cuda")
+    cam = to_device_camera(scene.get_train_cameras()[0], 1.0, device=DEV)
+    logits = torch.as_tensor(attach_logits_for_table(table, sem), device=DEV)
     (xyz, scaling, rotation, opac, payload), bg = _semantic_inputs(table, logits, 0.0)
     Kc = cam.intrinsics()
     proj = project_gaussians(xyz, scaling, rotation, cam.world_view_transform(), Kc[0, 0],
                              Kc[1, 1], Kc[0, 2], Kc[1, 2], cam.width, cam.height)
     bi = build_blend_inputs(proj, payload, opac, cam.width, cam.height, m, K,
                             pair_cap=min(table.capacity * m * m, PAIR_CAP_MAX))
+    return scene, logits, cam, bi, bg, K
+
+
+def view0_against_plain(src: str, model: str, iteration: int, sem: str, out_dir: str,
+                        inputs=None):
+    """View 0 of a render CLI's output held against K1's plain version on
+    ``inputs``, ``view0_blend_inputs``' result (loaded here if None). The
+    saved fp16 logits must lie within 1e-4 + |ref|·2^-10 (fp16's rounding on
+    top of 1e-4), the labels must equal the argmax where the top-2 gap >
+    1e-2. Returns (max abs diff, labelled pixels held)."""
+    import numpy as np
+    import torch
+
+    from segsplat_tpu_torch.ops.blend import blend_tiles_plain
+
+    saved = np.load(os.path.join(out_dir, "00000_logits.npy")).astype(np.float32)
+    P = saved.shape[0]
+    _, _, cam, bi, bg, K = inputs or view0_blend_inputs(src, model, iteration, sem)
     ref, _ = blend_tiles_plain(bi.offsets, bi.sorted_payload, bg, bi.tx_n, bi.ty_n, K)
     ref = ref[:cam.height, :cam.width, :P].permute(2, 0, 1).cpu().numpy()
     if saved.shape != ref.shape or not np.isfinite(saved).all():
@@ -1473,12 +1502,14 @@ def stage_profile(fn, n_views: int, stages=LIFT_STAGES) -> dict:
     return out
 
 
-def device_trace(fn, n_views: int) -> dict:
+def device_trace(fn, n_views: int, share_of: str = "") -> dict:
     """``fn(v)`` for n views under torch.profiler: kernels launched and their
     device time per view, the device's idle share between the first kernel's
-    start and the last one's end, and the five kernels that take most time.
-    The profiler's own host cost widens the gaps, so the idle share is an
-    upper bound. Device times are "not measured" if the trace holds none."""
+    start and the last one's end, and the five kernels that take most time;
+    with ``share_of``, the kernels whose name holds it: launches, ms per view
+    and their share of the busy time. The profiler's own host cost widens the
+    gaps, so the idle share is an upper bound. Device times are "not
+    measured" if the trace holds none."""
     _, kernels = profiled(fn, n_views)
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     if not spans:
@@ -1496,10 +1527,16 @@ def device_trace(fn, n_views: int) -> dict:
         entry[0] += 1
         entry[1] += e.time_range.end - e.time_range.start
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:5]
-    return dict(kernels_per_view=len(spans) / n_views, busy_ms_per_view=busy / 1e3 / n_views,
-                window_ms_per_view=window / 1e3 / n_views, idle_share=1.0 - busy / window,
-                top_per_view={k: {"launches": n / n_views, "ms": t / 1e3 / n_views}
-                              for k, (n, t) in top})
+    out = dict(kernels_per_view=len(spans) / n_views, busy_ms_per_view=busy / 1e3 / n_views,
+               window_ms_per_view=window / 1e3 / n_views, idle_share=1.0 - busy / window,
+               top_per_view={k: {"launches": n / n_views, "ms": t / 1e3 / n_views}
+                             for k, (n, t) in top})
+    if share_of:
+        mine = [e.time_range.end - e.time_range.start for e in kernels if share_of in e.name]
+        out[share_of] = dict(launches_per_view=len(mine) / n_views,
+                             ms_per_view=sum(mine) / 1e3 / n_views,
+                             share_of_busy=sum(mine) / busy)
+    return out
 
 
 def write_lift_workdir(root: str, sc: dict) -> dict:
@@ -3611,7 +3648,8 @@ VIEWER_SCALES = (1.0, 0.5)
 VIEWER_FOV_X = 1.2              # train_camera's horizontal field of view
 VIEWER_TIMEOUT = 120.0          # every socket and thread join of phase 13
 TOOLS_CLI_ITERS = 10
-TOOLS_VIEWS = 2                 # the views prepare_tensor_data packs at full width
+TOOLS_VIEWS = 1                 # the views prepare_tensor_data packs at full width: one keeps
+#                                 13c's CPU sides short (its DDA took 30.5 s for two)
 RESIZE_TOL = 1e-5               # prepare_tensor_data's resize, card against CPU
 
 
@@ -4077,6 +4115,273 @@ def phase_tools(results, root: str):
     log(f"[tools] parts in s: {json.dumps(seconds)}")
 
 
+# ──────────── phase 14: the production run at officescene scale ────────────
+
+SCALE_VIEWS = 216               # lifted and rendered: every view of the orbit
+SCALE_CPU_LIFT_VIEWS = 2        # the lift's first views, card against the CPU
+SCALE_LIFT_RTOL = 1e-5          # their sums: rtol, and an atol of the resize's bound a pixel
+SCALE_RESIZE_ULPS = 4           # the resize, card against CPU: ulps of the map's larger side
+SCALE_TRACED_VIEWS = 2          # stage 5's per-view loop under torch.profiler
+SCALE_WARNINGS = (("lift_overflow", "lift coverage overflow"), ("pair_cap", "> pair_cap"),
+                  ("tile_cap", "beyond per-tile K"))
+SCALE_ECHOED = 2                # [WARN] lines echoed of each kind; the rest only counted
+
+
+def dir_bytes(root: str) -> int:
+    """Bytes of the files under ``root``, a symlink counted as itself."""
+    return sum(os.lstat(os.path.join(d, f)).st_size
+               for d, _, files in os.walk(root) for f in files)
+
+
+def peak_rss_gib() -> float:
+    """This process's peak resident set so far (ru_maxrss, KiB on Linux)."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+
+
+def echo_run_log(text: str) -> dict:
+    """Echo a captured run's lines but its [WARN]s, of which the first
+    SCALE_ECHOED of each kind; returns the [WARN] count of each kind."""
+    counts = {}
+    for line in text.splitlines():
+        if "[WARN]" in line:
+            kind = next((k for k, part in SCALE_WARNINGS if part in line), "other")
+            counts[kind] = counts.get(kind, 0) + 1
+            if counts[kind] > SCALE_ECHOED:
+                continue
+        log(f"[scale] {line}")
+    return counts
+
+
+def phase_scale(results, root: str):
+    """Phase 14: (a) officescene_scale_run at FULL, every view lifted and
+    rendered, stage by stage; (b) the run held against the plain blend and the
+    CPU; (c) stage 5's per-view loop traced; (d) K1 on view 0's inputs."""
+    import numpy as np
+    import torch
+
+    _tests_on_path()
+    from _torch_port import nn_index_mismatch
+
+    from segsplat_tpu_torch import officescene_scale_run as osr
+    from segsplat_tpu_torch import render_semantics_logits, run_pipeline
+    from segsplat_tpu_torch.io.artifacts import (load_label_map, load_semantics,
+                                                 load_voxel_features)
+    from segsplat_tpu_torch.io.ply import read_voxel_grid_ply
+    from segsplat_tpu_torch.ops.blend import blend_tiles
+    from segsplat_tpu_torch.ops.knn import nearest_neighbor_index
+    from segsplat_tpu_torch.pipeline.lift_features import (LiftConfig, aggregate_voxel_features,
+                                                           resize_features)
+    from segsplat_tpu_torch.pipeline.query import query
+    from segsplat_tpu_torch.pipeline.render_semantics import render_semantic_views
+    from segsplat_tpu_torch.scene import to_device_camera
+
+    dims = osr.FULL
+    work = os.path.join(root, "officescene_scale")
+    out = dict(disk_free_gb=shutil.disk_usage(root).free / 1e9, dims=dataclasses.asdict(dims))
+    stages = {}                 # per stage: peak device memory above the resident, K1 so far
+    resident = {}
+
+    def staged(name, fn, first=True, last=True):
+        def call(*a, **k):
+            if first:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                resident[name] = torch.cuda.memory_allocated()
+            r = fn(*a, **k)
+            if last:
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated() - resident[name]
+                stages[name] = dict(peak_gib=peak / 2 ** 30, k1_launches=blend_tiles.launches)
+            return r
+        return call
+
+    swaps = dict(build_voxel_grid=staged("voxel_grid", run_pipeline.build_voxel_grid),
+                 aggregate_voxel_features=staged("lift", run_pipeline.aggregate_voxel_features),
+                 extract_gaussian_centers=staged("centers_map",
+                                                 run_pipeline.extract_gaussian_centers,
+                                                 last=False),
+                 build_map=staged("centers_map", run_pipeline.build_map, first=False),
+                 query=staged("query", run_pipeline.query))
+    try:
+        # (a) the run, its stdout captured: the [WARN]s counted, not all echoed
+        captured = io.StringIO()
+        out["host_peak_rss_gib_before"] = peak_rss_gib()
+        blend_tiles.launches = 0
+        t0 = time.perf_counter()
+        try:
+            with swapped(run_pipeline, **swaps), \
+                    swapped(render_semantics_logits,
+                            main=staged("render", render_semantics_logits.main)), \
+                    contextlib.redirect_stdout(captured):
+                run = osr.run(work, dims, lift_views=SCALE_VIEWS, render_views=SCALE_VIEWS,
+                              device=DEV)
+                torch.cuda.synchronize()
+        finally:
+            out["warnings"] = echo_run_log(captured.getvalue())
+        out["wall_s"] = time.perf_counter() - t0
+        launches = blend_tiles.launches
+        results["launches"]["scale"] = launches
+        k1_stage5 = stages["render"]["k1_launches"] - stages["query"]["k1_launches"]
+        out.update(timing=run["timing"], k1_launches_stage5=k1_stage5, k1_launches=launches,
+                   peak_gib={k: v["peak_gib"] for k, v in stages.items()},
+                   host_peak_rss_gib=peak_rss_gib())
+        if k1_stage5 != SCALE_VIEWS or launches != SCALE_VIEWS:
+            raise AssertionError(f"stage 5 launched K1 {k1_stage5} times ({launches} in the "
+                                 f"run) for {SCALE_VIEWS} views")
+        model, src = os.path.join(work, "model"), os.path.join(work, "scene")
+        out["bytes_written"] = {k: dir_bytes(p) for k, p in (
+            ("scene", src), ("features", os.path.join(work, "lseg_features")),
+            ("model_ply", os.path.join(model, "point_cloud")), ("pipeline", run["work_dir"]),
+            ("render", os.path.join(model, "train")), ("total", work))}
+        voxels = int(os.path.basename(run["grid_ply"]).split("_")[1][:-len("vox.ply")])
+        hit = int(os.path.basename(run["voxel_features"]).rsplit("_", 1)[1][:-len("vox.pt")])
+        out.update(voxels=voxels, voxels_hit=hit,
+                   lift_views_per_s=SCALE_VIEWS / run["timing"]["lift"],
+                   render_s_per_view=run["timing"]["render"] / SCALE_VIEWS)
+        log(f"[scale] (a) {SCALE_VIEWS} views lifted and rendered at "
+            f"{dims.render_w}x{dims.render_h}: [TIMING] "
+            f"{json.dumps({k: round(v, 3) for k, v in run['timing'].items()})}, "
+            f"{out['wall_s']:.1f} s wall; {voxels} voxels, {hit} hit; K1 {k1_stage5} launches "
+            f"in stage 5; warnings {json.dumps(out['warnings'])}; peak GiB above the resident "
+            f"by stage "
+            f"{json.dumps({k: round(v, 3) for k, v in out['peak_gib'].items()})}; host peak RSS "
+            f"{out['host_peak_rss_gib']:.2f} GiB ({out['host_peak_rss_gib_before']:.2f} "
+            f"before); bytes written {json.dumps(out['bytes_written'])}")
+
+        # (b) every returned artifact reloads; the label maps
+        W, H, P = dims.render_w, dims.render_h, len(osr.PROMPTS)   # also the lift's rays
+        centers = read_voxel_grid_ply(run["grid_ply"])[0]
+        vox = load_voxel_features(run["voxel_features"])
+        sem = load_semantics(run["semantics"])
+        g2v_path = os.path.join(run["work_dir"], "gauss2voxel.npy")
+        mu_path = os.path.join(run["work_dir"], "gaussian_mu.npy")
+        g2v, mu = np.load(g2v_path), np.load(mu_path)
+        if (len(centers) != voxels or vox["pos"].shape != (hit, 3)
+                or vox["feat"].shape != (hit, dims.channels) or mu.shape != (dims.gaussians, 3)
+                or g2v.shape != (dims.gaussians,) or g2v.min() < 0 or g2v.max() >= hit
+                or sem["logits"].shape != (dims.gaussians, P) or sem["labels"].min() < 0
+                or sem["labels"].max() >= P):
+            raise AssertionError("the run's artifacts do not reload at their shapes")
+        for suffix in ("_gaussians.ply", "_voxels.ply"):
+            if not os.path.getsize(run["semantics"].replace(".npz", suffix)):
+                raise AssertionError(f"the query wrote an empty {suffix}")
+        out_dir = os.path.join(model, "train", "ours_30000", "semantics")
+        hist = np.zeros(P, np.int64)
+        for i in range(SCALE_VIEWS):
+            lab = load_label_map(os.path.join(out_dir, f"{i:05d}_labels.pt"))
+            if lab.shape != (H, W) or lab.min() < 0 or lab.max() >= P or not os.path.getsize(
+                    os.path.join(out_dir, f"{i:05d}_logits.npy")):
+                raise AssertionError(f"view {i}: label map {lab.shape}, labels outside [0, {P}) "
+                                     f"or no logits")
+            hist += np.bincount(lab.ravel(), minlength=P)
+        out["label_share"] = (hist / hist.sum()).round(4).tolist()
+
+        # (b) view 0 against the plain blend
+        inputs = view0_blend_inputs(src, model, 30000, run["semantics"])
+        out["view0_vs_plain"], out["view0_labels_held"] = view0_against_plain(
+            src, model, 30000, run["semantics"], out_dir, inputs)
+
+        # (b) view 0's map resized, and the first views lifted, card against CPU.
+        # A bilinear weight comes from a source coordinate in fp32, which the card
+        # and the CPU may round apart by up to 2 ulps of the map's larger side an
+        # axis, so a resized value may part by SCALE_RESIZE_ULPS such ulps times
+        # the map's largest step between neighbours; the lift adds a voxel's
+        # pixels in the same order on both, so its sums may part by its count
+        # times that
+        lseg, cams = os.path.join(work, "lseg_features"), os.path.join(work, "camera_params.json")
+        fmap = np.load(os.path.join(lseg, "frame_000.npy"))
+        f_card = torch.from_numpy(fmap).to(DEV).float()
+        step = max(float(f_card.diff(dim=1).abs().max()), float(f_card.diff(dim=2).abs().max()))
+        resize_bound = (SCALE_RESIZE_ULPS * float(np.spacing(np.float32(max(fmap.shape[1:]))))
+                        * step)
+        resized = resize_features(f_card, H, W).cpu()
+        del f_card
+        resize_diff = (resized - resize_features(torch.from_numpy(fmap), H, W)).abs()
+        out["resize_vs_cpu"] = dict(max_abs_diff=float(resize_diff.max()),
+                                    mean_abs_diff=float(resize_diff.mean()), bound=resize_bound)
+        del resized, resize_diff
+        if out["resize_vs_cpu"]["max_abs_diff"] > resize_bound:
+            raise AssertionError(f"view 0's map resized: card against CPU "
+                                 f"{json.dumps(out['resize_vs_cpu'])}")
+        lifted = {}
+        for side, dev in (("card", DEV), ("cpu", "cpu")):
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                r = aggregate_voxel_features(
+                    run["grid_ply"], lseg, cams, os.path.join(work, f"lift_{side}"),
+                    LiftConfig(max_views=SCALE_CPU_LIFT_VIEWS, view_chunk=4), device=dev)
+            lifted[side] = (r["sums"].cpu(), r["counts"].cpu())
+            out[f"lift_{SCALE_CPU_LIFT_VIEWS}_{side}_s"] = time.perf_counter() - t
+        (s, c), (rs, rc) = lifted["card"], lifted["cpu"]
+        diff = (s - rs).abs()
+        per_pixel = diff / rc.clamp(min=1)[:, None]
+        if not torch.equal(c, rc) or float(
+                (diff - SCALE_LIFT_RTOL * rs.abs() - resize_bound * rc[:, None]).max()) > 0:
+            raise AssertionError(f"lift of {SCALE_CPU_LIFT_VIEWS} views: counts equal "
+                                 f"{torch.equal(c, rc)}, sums up to {float(diff.max()):.3g} "
+                                 f"from the CPU's, {float(per_pixel.max()):.3g} a pixel "
+                                 f"(resize bound {resize_bound:.3g})")
+        out["lift_vs_cpu"] = dict(voxels_hit=int((rc[1:] > 0).sum()),
+                                  max_count=int(rc[1:].max()), sums_max_abs_diff=float(diff.max()),
+                                  sums_max_abs=float(rs.abs().max()),
+                                  max_diff_per_pixel=float(per_pixel.max()))
+        del lifted, s, rs, diff, per_pixel
+
+        # (b) the 1-NN map on a sample, and the query, against the CPU
+        sub = np.random.default_rng(12).choice(dims.gaussians, NN_SUBSET, replace=False)
+        cpu_idx = nearest_neighbor_index(torch.from_numpy(mu[sub]),
+                                         torch.from_numpy(vox["pos"].astype(np.float32))).numpy()
+        differ, gap = nn_index_mismatch(mu[sub], vox["pos"], g2v[sub], cpu_idx)
+        out["nn_vs_cpu"] = dict(sample=NN_SUBSET, equal_share=1.0 - differ / NN_SUBSET,
+                                max_gap=gap)
+        with contextlib.redirect_stdout(io.StringIO()):
+            cpu_q = query(run["voxel_features"], g2v_path, mu_path, osr.PROMPTS,
+                          os.path.join(work, "semantics_cpu.npz"), save_ply=False, device="cpu")
+        out["query_logits_vs_cpu"] = check_logits("scale query", sem["logits"], sem["labels"],
+                                                  cpu_q["logits"], cpu_q["labels"])
+        log(f"[scale] (b) artifacts reload; {SCALE_VIEWS} label maps [{H}, {W}] in [0, {P}), "
+            f"shares {out['label_share']}; view 0 logits vs plain max abs diff "
+            f"{out['view0_vs_plain']:.3g} (fp16 file), labels equal on "
+            f"{out['view0_labels_held']} px with top1-top2 > 1e-2; view 0's map resized "
+            f"card vs CPU {json.dumps(out['resize_vs_cpu'])}; lift of "
+            f"{SCALE_CPU_LIFT_VIEWS} views card vs CPU {json.dumps(out['lift_vs_cpu'])} "
+            f"(card {out[f'lift_{SCALE_CPU_LIFT_VIEWS}_card_s']:.1f} s, CPU "
+            f"{out[f'lift_{SCALE_CPU_LIFT_VIEWS}_cpu_s']:.1f} s); 1-NN "
+            f"{json.dumps(out['nn_vs_cpu'])}; query logits vs CPU "
+            f"{out['query_logits_vs_cpu']:.3g}, labels equal beyond a {LABEL_GAP} top-2 gap")
+
+        # (c) stage 5's per-view loop (render, then the view's files), traced
+        scene, logits, cam, bi, bg, K = inputs
+        table = scene.gaussians
+        logits_np = logits.cpu().numpy()
+        traced = [to_device_camera(c, 1.0, device=DEV)
+                  for c in scene.get_train_cameras()[:SCALE_TRACED_VIEWS]]
+        trace_dir = os.path.join(work, "traced")
+
+        def view(v):
+            render_semantic_views(table, [traced[v]], logits_np, trace_dir, prompts=osr.PROMPTS)
+
+        with contextlib.redirect_stdout(io.StringIO()):
+            view(0)
+            out["trace"] = device_trace(view, SCALE_TRACED_VIEWS, share_of="blend_fwd_kernel")
+        log(f"[scale] (c) stage 5's loop, {SCALE_TRACED_VIEWS} views traced: "
+            + json.dumps(out["trace"]))
+
+        # (d) K1 on view 0's inputs, at the 32 channels stage 5 blends
+        out.update(num_pairs=int(bi.num_pairs), tile_overflow=int(bi.tile_overflow))
+        out["k1"] = k1_on_inputs(results, (bi.offsets, bi.sorted_payload, bg, bi.tx_n, bi.ty_n,
+                                           K), "scale", f"{cam.width}x{cam.height}")
+        del scene, table, logits, inputs, bi, bg
+        results["scale"] = out
+    finally:
+        shutil.rmtree(work, ignore_errors=True)       # ~2.9 GB of logits alone
+        torch.cuda.empty_cache()
+    log(f"[scale] view 0: {out['num_pairs']} pairs, {out['tile_overflow']} past K = 256; "
+        f"the work dir removed")
+
+
 LIST_KEYS = ("warp_rows_read", "warp_rows_kept", "warp_rows_hit", "kept_share", "hit_share")
 
 
@@ -4090,7 +4395,7 @@ def kernel_entry(name, ch, source, replaces, launches, max_abs_err, t, **extra):
 
 
 PHASES = ("small", "full", "main", "train", "train-cli", "logits", "other-blends", "lift",
-          "query", "widths", "slic", "loop", "mesh", "edit", "multi", "tools")
+          "query", "widths", "slic", "loop", "mesh", "edit", "multi", "tools", "scale")
 PSEUDO_LABEL_PHASES = ("widths", "slic", "loop", "mesh")      # phase 10 (a)-(e)
 
 
@@ -4168,7 +4473,8 @@ def main(argv=None) -> int:
            "mesh": lambda: phase_mesh(results, root),
            "edit": lambda: phase_edit(results, root),
            "multi": lambda: phase_multi(results, root),
-           "tools": lambda: phase_tools(results, root)}
+           "tools": lambda: phase_tools(results, root),
+           "scale": lambda: phase_scale(results, root)}
     seconds = {}
     try:
         for name in phases:
@@ -4181,6 +4487,7 @@ def main(argv=None) -> int:
         log(f"[edit] phase 11 in {seconds.get('edit', 0.0):.1f} s")
         log(f"[multi] phase 12 in {seconds.get('multi', 0.0):.1f} s")
         log(f"[tools] phase 13 in {seconds.get('tools', 0.0):.1f} s")
+        log(f"[scale] phase 14 in {seconds.get('scale', 0.0):.1f} s")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     if set(phases) != set(PHASES):
@@ -4290,6 +4597,12 @@ def main(argv=None) -> int:
                           f"train CLI with --port, {TOOLS_CLI_ITERS} iterations":
                           results["viewer_cli"]["launches"]},
         **occupancy["blend_fwd"][19]))
+    scale = results["scale"]
+    kernels.append(kernel_entry(
+        "blend_fwd", 32, fwd_src, k1_tpu, results["launches"]["scale"],
+        scale["k1"]["max_abs_err"], scale["k1"],
+        path=f"officescene_scale_run stage 5: {SCALE_VIEWS} views at 876x584, 13 logits padded "
+             f"to 32 channels; times on view 0's inputs", **occupancy["blend_fwd"][32]))
     log(f"[total] {time.perf_counter() - t_all:.1f} s on {smi}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
