@@ -205,6 +205,16 @@ Phases, each fatal on failure:
      traced over 2 views (kernels, device idle share, K1's share); (d) K1 on
      view 0's inputs at the 32 channels stage 5 blends, timed with its bound;
      the work dir removed at the end.
+  15. ``measure``: the system's measurement programs, each as ``python -m`` runs it
+     at its defaults, in one child process that cannot import JAX, the JAX
+     package, scripts/ or tests/: ``segsplat_tpu_torch.bench`` (its one line
+     with bench.py's keys less the two lift_baseline ones; K1 exactly once a
+     frame rendered, 96; the hostile scene's largest pair count equal to a
+     recount of every bench camera in this process, frame 0's equal to phase
+     3's), ``perf_raster_stages`` (its eight lines and "accounted"; K1 128),
+     ``perf_bin_dissect`` (its 8 stages; no kernel), ``perf_lift_stages`` (its
+     six lines; no kernel) and ``perf_train`` (its line; K1 and K2 once a
+     step, 40 each).
 Prints a ``{"kernels": [...]}`` line (each kernel's blocks per SM, shared
 memory and registers from the occupancy API; K1's and K3's share of warp-rows
 their row lists keep beside the share with a passing lane), then as the last line
@@ -306,51 +316,24 @@ def _tests_on_path():
 
 # ───────────────────────────── scenes (numpy, seeded) ─────────────────────────
 
-def headline_scene(N: int = 200_000):
-    """bench.py:80-102, seed 0."""
-    import numpy as np
+def bench_scene(name: str) -> dict:
+    """bench.py's headline or hostile 1080p scene (segsplat_tpu_torch.bench,
+    numpy, seeded), with its m, K and pair cap."""
+    from segsplat_tpu_torch import bench
 
-    rng = np.random.default_rng(0)
-    xyz = (rng.random((N, 3)) * np.array([4.0, 3.0, 4.0])
-           + np.array([-2.0, -1.5, 2.0])).astype(np.float32)
-    scales = np.exp(rng.normal(-4.6, 0.3, (N, 3))).astype(np.float32)
-    quats = rng.normal(size=(N, 4)).astype(np.float32)
-    quats /= np.linalg.norm(quats, axis=1, keepdims=True)
-    opac = rng.uniform(0.3, 0.95, (N,)).astype(np.float32)
-    logits = rng.standard_normal((N, 32)).astype(np.float32)
-    return dict(xyz=xyz, scales=scales, quats=quats, opac=opac, colors=logits,
-                m=3, K=256, pair_cap=1_500_000)
-
-
-def hostile_scene(N: int = 200_000):
-    """bench.py:105-132, seed 7: 40 tight clusters, mixed scales, low opacity."""
-    import numpy as np
-
-    rng = np.random.default_rng(7)
-    n_clusters = 40
-    cl_centers = (rng.random((n_clusters, 3)) * np.array([4.0, 3.0, 4.0])
-                  + np.array([-2.0, -1.5, 2.0]))
-    w = rng.pareto(1.2, n_clusters) + 0.05
-    counts = np.maximum((w / w.sum() * N).astype(int), 1)
-    counts[0] += N - counts.sum()
-    assign = np.repeat(np.arange(n_clusters), counts)[:N]
-    xyz = (cl_centers[assign] + rng.normal(0, 0.08, (N, 3))).astype(np.float32)
-    scales = np.exp(rng.normal(-4.3, 0.8, (N, 3))).astype(np.float32)
-    quats = rng.normal(size=(N, 4)).astype(np.float32)
-    quats /= np.linalg.norm(quats, axis=1, keepdims=True)
-    opac = rng.uniform(0.02, 0.9, (N,)).astype(np.float32)
-    logits = rng.standard_normal((N, 32)).astype(np.float32)
-    return dict(xyz=xyz, scales=scales, quats=quats, opac=opac, colors=logits,
-                m=6, K=512, pair_cap=6_000_000)
+    sc = getattr(bench, f"{name}_render_scene")()
+    kw = sc["kw"]
+    return dict(sc, m=kw["max_tiles_per_axis"], K=kw["max_per_tile"], pair_cap=kw["pair_cap"])
 
 
 def bench_camera(W: int = 1920, H: int = 1080):
-    """bench.py's camera: identity pose, fov_x 1.2, fov_y 0.75 → (viewmat, fx, fy, cx, cy)."""
+    """bench.py's camera: identity pose, fov_x 1.2, fov_y 0.75 → (viewmat, fx, fy, cx, cy),
+    the intrinsics the float32 values segsplat_tpu_torch.bench renders with."""
     import numpy as np
 
-    fx = W / (2.0 * math.tan(0.6))
-    fy = H / (2.0 * math.tan(0.375))
-    return np.eye(4, dtype=np.float32), fx, fy, W / 2.0, H / 2.0
+    from segsplat_tpu_torch.perf_raster_stages import bench_intrinsics
+
+    return (np.eye(4, dtype=np.float32), *bench_intrinsics(W, H))
 
 
 # ───────────────────────────────── phases ─────────────────────────────────────
@@ -362,11 +345,11 @@ def blend_inputs_on_card(sc, W, H, cam, m, K, pair_cap=None, packed=False):
 
     dev = torch.device("cuda")
     t = {k: torch.as_tensor(sc[k], device=dev) for k in ("xyz", "scales", "quats",
-                                                         "opac", "colors")}
+                                                         "opac", "logits")}
     vm, fx, fy, cx, cy = cam
     proj = project_gaussians(t["xyz"], t["scales"], t["quats"],
                              torch.as_tensor(vm, device=dev), fx, fy, cx, cy, W, H)
-    return t, build_blend_inputs(proj, t["colors"], t["opac"], W, H, m, K,
+    return t, build_blend_inputs(proj, t["logits"], t["opac"], W, H, m, K,
                                  pair_cap=pair_cap, packed=packed)
 
 
@@ -578,8 +561,8 @@ def phase_full(results):
     W, H = FRAME_W, FRAME_H
     cam = bench_camera(W, H)
     vm, fx, fy, cx, cy = cam
-    for name, make in (("headline", headline_scene), ("hostile", hostile_scene)):
-        sc = make()
+    for name in ("headline", "hostile"):
+        sc = bench_scene(name)
         m, K, cap = sc["m"], sc["K"], sc["pair_cap"]
         t, bi = blend_inputs_on_card(sc, W, H, cam, m, K, pair_cap=cap)
         bg = torch.zeros(32, device="cuda")
@@ -598,12 +581,12 @@ def phase_full(results):
                                           bi.tx_n, bi.ty_n, K)
         vm_t = torch.as_tensor(vm, device="cuda")
         raster = lambda: rasterize(t["xyz"], t["scales"], t["quats"], t["opac"],
-                                   t["colors"], vm_t, fx, fy, cx, cy, W, H, bg=bg,
+                                   t["logits"], vm_t, fx, fy, cx, cy, W, H, bg=bg,
                                    max_tiles_per_axis=m, max_per_tile=K, pair_cap=cap)
         project = lambda: project_gaussians(t["xyz"], t["scales"], t["quats"], vm_t,
                                             fx, fy, cx, cy, W, H)
         proj = project()
-        binning = lambda: build_blend_inputs(proj, t["colors"], t["opac"], W, H, m, K,
+        binning = lambda: build_blend_inputs(proj, t["logits"], t["opac"], W, H, m, K,
                                              pair_cap=cap)
         ms = cuda_time_ms(blend, reps=10)
         plain_ms = cuda_time_ms(plain, reps=3, warmup=1)
@@ -640,7 +623,7 @@ def k2_on_frame(results, t, bi, bg, cam, W, H, m, K, cap):
     vm, fx, fy, cx, cy = cam
     gen = torch.Generator(DEV).manual_seed(3)
     w = torch.randn((H, W, 32), generator=gen, device=DEV)
-    colors = t["colors"].detach().requires_grad_(True)
+    colors = t["logits"].detach().requires_grad_(True)
     B.blend_tiles_bwd.launches = 0
     out = rasterize(t["xyz"], t["scales"], t["quats"], t["opac"], colors,
                     torch.as_tensor(vm, device=DEV), fx, fy, cx, cy, W, H, bg=bg,
@@ -700,7 +683,7 @@ def write_model_dir(root: str, n_views: int = 4):
     store_point_cloud_ply(os.path.join(src, "points3d.ply"),
                           np.zeros((8, 3), np.float32), np.zeros((8, 3), np.uint8))
 
-    sc = headline_scene()
+    sc = bench_scene("headline")
     n = sc["xyz"].shape[0]
     op = sc["opac"].astype(np.float64)
     save_gaussian_ply(
@@ -710,7 +693,7 @@ def write_model_dir(root: str, n_views: int = 4):
         opacity=np.log(op / (1.0 - op)).astype(np.float32),
         scaling=np.log(sc["scales"]), rotation=sc["quats"])
     sem = os.path.join(root, "gaussian_semantics.npz")
-    save_semantics(sem, labels=sc["colors"].argmax(1), logits=sc["colors"],
+    save_semantics(sem, labels=sc["logits"].argmax(1), logits=sc["logits"],
                    prompts=[f"class_{i}" for i in range(32)])
     with open(os.path.join(model, "cfg_args"), "w") as f:
         f.write(repr(Namespace(source_path=src, model_path=model, images="images",
@@ -1340,13 +1323,13 @@ def phase_other_blends(results):
     vm, fx, fy, cx, cy = cam
     vm_t = torch.as_tensor(vm, device=DEV)
     bg = torch.zeros(32, device=DEV)
-    for name, make in (("headline", headline_scene), ("hostile", hostile_scene)):
-        sc = make()
+    for name in ("headline", "hostile"):
+        sc = bench_scene(name)
         m, K, cap = sc["m"], sc["K"], sc["pair_cap"]
         t, bi = blend_inputs_on_card(sc, W, H, cam, m, K, pair_cap=cap)
         _, pbi = blend_inputs_on_card(sc, W, H, cam, m, K, pair_cap=cap, packed=True)
         raster = lambda backend="cuda": rasterize(
-            t["xyz"], t["scales"], t["quats"], t["opac"], t["colors"], vm_t, fx, fy, cx,
+            t["xyz"], t["scales"], t["quats"], t["opac"], t["logits"], vm_t, fx, fy, cx,
             cy, W, H, bg=bg, max_tiles_per_axis=m, max_per_tile=K, pair_cap=cap,
             backend=backend)
         with torch.no_grad():
@@ -1554,7 +1537,7 @@ def write_lift_workdir(root: str, sc: dict) -> dict:
     write_voxel_grid_ply(ply, sc["centers"], np.full((len(sc["centers"]), 3), 127, np.uint8),
                          sc["vs"], sc["origin"], grid_shape=sc["grid_shape"])
     images, maps = {}, []
-    for i, fmap in enumerate(sc["feats"]()):
+    for i, fmap in enumerate(sc["feats"]):
         np.save(os.path.join(root, "lseg", f"view_{i:03d}.npy"), fmap)
         maps.append(fmap)
         images[str(i)] = {"name": f"view_{i:03d}.png", "camera_id": "0",
@@ -1575,10 +1558,8 @@ def phase_lift(results, root: str):
     import numpy as np
     import torch
 
-    _tests_on_path()
-    from _torch_port import officescene_lift_scene
-
     from segsplat_tpu_torch import aggregate_voxel_features_onthefly as lift_cli
+    from segsplat_tpu_torch import bench
     from segsplat_tpu_torch import minkowski_voxel_grid_from_ply_advanced as grid_cli
     from segsplat_tpu_torch.io.artifacts import load_voxel_features
     from segsplat_tpu_torch.io.ply import read_voxel_grid_ply
@@ -1589,7 +1570,7 @@ def phase_lift(results, root: str):
 
     phase_lift_small(results)
     t0 = time.perf_counter()
-    sc = officescene_lift_scene(n_views=LIFT_CLI_VIEWS)
+    sc = bench.officescene_lift_scene(n_views=LIFT_CLI_VIEWS)
     work = write_lift_workdir(os.path.join(root, "lift"), sc)
     log(f"[lift] scene and work dir written in {time.perf_counter() - t0:.1f} s")
 
@@ -2356,7 +2337,7 @@ def _sweep_kernels(results, g, R, t, fx, fy, label: str):
     n_obj = int(g["oid"].max())
     onehot = np.eye(n_obj, dtype=np.float32)[g["oid"] - 1]
     sc = dict(xyz=g["xyz"], scales=g["scales"], quats=g["quats"], opac=g["opac"],
-              colors=np.concatenate([g["rgb"], onehot], axis=1))
+              logits=np.concatenate([g["rgb"], onehot], axis=1))
     vm = np.eye(4, dtype=np.float32)
     vm[:3, :3], vm[:3, 3] = R, t                # world→view: R's rows are the camera axes
     _, bi = blend_inputs_on_card(sc, SLIC_W, SLIC_H, (vm, fx, fy, SLIC_W / 2, SLIC_H / 2),
@@ -3491,15 +3472,13 @@ def phase_multi_lift(results, mesh):
     import numpy as np
     import torch
 
-    _tests_on_path()
-    from _torch_port import officescene_lift_scene
-
+    from segsplat_tpu_torch import bench
     from segsplat_tpu_torch.ops import lift as PL
     from segsplat_tpu_torch.parallel import lift_views_sharded
     from segsplat_tpu_torch.parallel.mesh import Mesh
     from segsplat_tpu_torch.pipeline.lift_features import LiftConfig, lift_grid, resize_features
 
-    sc = officescene_lift_scene(n_views=LIFT_SHARD_VIEWS)
+    sc = bench.officescene_lift_scene(n_views=LIFT_SHARD_VIEWS)
     W, H, C = sc["W"], sc["H"], sc["C"]
     cfg = LiftConfig()
     f32 = dict(dtype=torch.float32, device=DEV)
@@ -3507,7 +3486,7 @@ def phase_multi_lift(results, mesh):
                                          sc["grid_shape"], DEV)
     num_ids = len(sc["centers"]) + 1
     feats = torch.stack([resize_features(torch.as_tensor(m, device=DEV), H, W).permute(1, 2, 0)
-                         for m in sc["feats"]()])                           # [8, H, W, 512]
+                         for m in sc["feats"]])                           # [8, H, W, 512]
     c2ws, intr = torch.as_tensor(sc["c2ws"], **f32), torch.as_tensor(sc["intr"], **f32)
     inc = sc["vs"] * cfg.ray_increment_factor
     fx, fy, cx, cy = (float(x) for x in sc["intr"][0])
@@ -3555,12 +3534,12 @@ def phase_multi_strips(results, mesh):
     from segsplat_tpu_torch.parallel import rasterize_sharded
     from segsplat_tpu_torch.parallel.render import rasterize_strip, strip_height
 
-    sc = headline_scene()
+    sc = bench_scene("headline")
     m, K = sc["m"], sc["K"]
     vm, fx, fy, cx, cy = bench_camera(STRIP_W, STRIP_H)
     t = {k: torch.as_tensor(sc[k], device=DEV) for k in ("xyz", "scales", "quats", "opac",
-                                                          "colors")}
-    args = (t["xyz"], t["scales"], t["quats"], t["opac"], t["colors"],
+                                                          "logits")}
+    args = (t["xyz"], t["scales"], t["quats"], t["opac"], t["logits"],
             torch.as_tensor(vm, device=DEV), fx, fy, cx, cy, STRIP_W, STRIP_H)
     bg = torch.zeros(32, device=DEV)
     kw = dict(bg=bg, max_tiles_per_axis=m, max_per_tile=K)
@@ -3589,7 +3568,7 @@ def phase_multi_strips(results, mesh):
         proj = project_gaussians(*args[:3], args[5], fx, fy, cx, cy, STRIP_W, strip_h,
                                  tan_fovx=(0.5 * STRIP_W) / fx, tan_fovy=(0.5 * STRIP_H) / fy,
                                  row0=i * strip_h)
-        bi = build_blend_inputs(proj, t["colors"], t["opac"], STRIP_W, strip_h, m, K,
+        bi = build_blend_inputs(proj, t["logits"], t["opac"], STRIP_W, strip_h, m, K,
                                 tile_row0=i * strip_h // TILE)
         fargs = (bi.offsets, bi.sorted_payload, bg, bi.tx_n, bi.ty_n, K)
         got = B.blend_tiles(*fargs)
@@ -3976,10 +3955,9 @@ def phase_tool_scripts(results, root: str):
     sides = (("card", DEV), ("cpu", "cpu"))
     work = os.path.join(root, "lift")
     if not os.path.exists(os.path.join(work, "grid.ply")):
-        _tests_on_path()
-        from _torch_port import officescene_lift_scene
+        from segsplat_tpu_torch import bench
         work = os.path.join(root, "tools_lift")
-        write_lift_workdir(work, officescene_lift_scene(n_views=TOOLS_VIEWS))
+        write_lift_workdir(work, bench.officescene_lift_scene(n_views=TOOLS_VIEWS))
     grid, lseg, cams = (os.path.join(work, n) for n in ("grid.ply", "lseg", "cameras.json"))
     out = os.path.join(root, "tools")
     os.makedirs(out)
@@ -4382,6 +4360,165 @@ def phase_scale(results, root: str):
         f"the work dir removed")
 
 
+# ─────────────────────── phase 15: the measurement programs ───────────────────────
+
+MEASURE_MODULES = ("segsplat_tpu_torch.bench", "segsplat_tpu_torch.perf_raster_stages",
+                   "segsplat_tpu_torch.perf_bin_dissect", "segsplat_tpu_torch.perf_lift_stages",
+                   "segsplat_tpu_torch.perf_train")
+MEASURE_BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "segsplat_tpu", "scripts", "tests")
+MEASURE_TIMEOUT = 600
+BENCH_KEYS = ({"metric", "value", "unit", "vs_baseline", "extra"},          # bench.py's line,
+              {"lift_views_per_s", "lift_config", "hostile_render"},        # less its two
+              {"fps", "config", "max_pairs_per_frame", "tile_overflow_max"})  # lift_baseline keys
+RASTER_LINES = ("full rasterize", "project", "project + bin", "depth argsort", "pair-key sort",
+                "gather#1", "gather#2", "blend kernel")
+LIFT_LINES = ("resize CHW", "resize + transpose", "transpose(half)", "splat first-hit",
+              "scatter segment_sum", "FULL view")
+RASTER_FRAMES = 16          # perf_raster_stages' default --frames
+
+# The child process: JAX, the JAX package, scripts/ and tests/ cannot be
+# imported (as in tests/test_torch_no_jax.py); each program runs as ``python -m``
+# runs it, its counts set to 0 just before and read just after.
+MEASURE_CHILD = """
+import contextlib, io, json, runpy, sys, time
+blocked = {blocked!r}
+for name in list(sys.modules):
+    if name.split(".")[0] in blocked:
+        sys.modules[name] = None
+for name in blocked:
+    sys.modules[name] = None
+from segsplat_tpu_torch.ops import blend as B
+for mod in {modules!r}:
+    B.blend_tiles.launches = B.blend_tiles_bwd.launches = B.blend_tiles_packed.launches = 0
+    sys.argv = [mod]
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    done = False
+    try:
+        with contextlib.redirect_stdout(out):
+            runpy.run_module(mod, run_name="__main__", alter_sys=True)
+        done = True
+    finally:
+        if not done:
+            print(mod + " failed after printing:", out.getvalue(), sep="\\n", file=sys.stderr)
+    launches = dict(blend_fwd=B.blend_tiles.launches, blend_bwd=B.blend_tiles_bwd.launches,
+                    blend_packed=B.blend_tiles_packed.launches)
+    print(json.dumps(dict(module=mod, seconds=time.perf_counter() - t0, stdout=out.getvalue(),
+                          launches=launches)), flush=True)
+"""
+
+
+def timed_lines(stdout: str, prefixes, closing: str = "") -> dict:
+    """{name: ms} of a scoreboard's lines ``<name> <ms> ms/<frame|view|step>``,
+    in order; raises unless the i-th starts with ``prefixes[i]`` and a line
+    starts with ``closing``."""
+    import re
+
+    found = [m.groups() for m in (re.match(r"^(.*?)\s+([-\d.]+) ms/(?:frame|view|step)\b", line)
+                                  for line in stdout.splitlines()) if m]
+    if (len(found) != len(prefixes)
+            or not all(n.startswith(p) for (n, _), p in zip(found, prefixes))
+            or not any(line.startswith(closing) for line in stdout.splitlines())):
+        raise AssertionError(f"want lines {prefixes} and {closing!r}, got:\n{stdout}")
+    return {n.strip(): float(ms) for n, ms in found}
+
+
+def hostile_pairs_recount(frames: int, sets: int) -> list:
+    """The hostile scene's real pair count on each camera of the bench's sets
+    (bench.view_sets), each read on the host at once: the bench's device-side
+    maximum is held to these."""
+    import torch
+
+    from segsplat_tpu_torch import bench
+    from segsplat_tpu_torch.ops.rasterize import bin_gaussian_ranks, project_gaussians
+
+    sc = bench.hostile_render_scene()
+    t = bench.scene_tensors(sc, DEV)
+    cam = bench_camera(FRAME_W, FRAME_H)[1:]
+    counts = []
+    for vm in (v for vms in bench.view_sets(sc, 0.003, frames, sets, DEV) for v in vms):
+        proj = project_gaussians(t["xyz"], t["scales"], t["quats"], vm, *cam, FRAME_W, FRAME_H)
+        _, _, offsets, _ = bin_gaussian_ranks(proj, FRAME_W, FRAME_H,
+                                              sc["kw"]["max_tiles_per_axis"])
+        counts.append(int(offsets[-1]))
+    del t
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_measure(results):
+    """Phase 15: the bench and the four scoreboards, each as ``python -m`` runs it
+    at its defaults, in one child process that cannot import JAX or the JAX
+    package; their lines checked, their kernel launches counted."""
+    import torch
+
+    from segsplat_tpu_torch import bench, perf_train
+
+    torch.cuda.empty_cache()
+    code = MEASURE_CHILD.format(blocked=MEASURE_BLOCKED, modules=MEASURE_MODULES)
+    r = subprocess.run([sys.executable, "-c", code], cwd=os.path.dirname(os.path.abspath(__file__)),
+                       capture_output=True, text=True, timeout=MEASURE_TIMEOUT)
+    if r.returncode != 0:
+        raise AssertionError(f"the measurement programs failed (exit {r.returncode}):\n"
+                             f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+    runs = {}
+    for line in r.stdout.splitlines():
+        if line.startswith("{"):
+            rec = json.loads(line)
+            runs[rec["module"].rsplit(".", 1)[1]] = rec
+    if set(runs) != {m.rsplit(".", 1)[1] for m in MEASURE_MODULES}:
+        raise AssertionError(f"programs that reported: {sorted(runs)}")
+    for name, rec in runs.items():
+        for text in rec["stdout"].rstrip().splitlines():
+            log(f"[measure] {name}: {text}")
+        log(f"[measure] {name}: {rec['seconds']:.1f} s, launches {json.dumps(rec['launches'])}")
+
+    # the bench: bench.py's keys, K1 once a frame rendered, the pair maximum
+    b = runs["bench"]
+    line = json.loads(b["stdout"].strip().splitlines()[-1])
+    keys = (set(line), set(line["extra"]), set(line["extra"]["hostile_render"]))
+    if keys != BENCH_KEYS:
+        raise AssertionError(f"the bench's line has keys {keys}, not {BENCH_KEYS}")
+    frames = (bench.SETS + 1) * (bench.FRAMES + bench.HOSTILE_FRAMES)
+    if b["launches"] != dict(blend_fwd=frames, blend_bwd=0, blend_packed=0):
+        raise AssertionError(f"the bench rendered {frames} frames and launched {b['launches']}")
+    if not (line["value"] > 0 and line["extra"]["lift_views_per_s"] > 0
+            and line["extra"]["hostile_render"]["fps"] > 0):
+        raise AssertionError(f"the bench's line: {line}")
+    recount = hostile_pairs_recount(bench.HOSTILE_FRAMES, bench.SETS)
+    hostile = line["extra"]["hostile_render"]
+    if hostile["max_pairs_per_frame"] != max(recount):
+        raise AssertionError(f"the bench's largest hostile pair count "
+                             f"{hostile['max_pairs_per_frame']} is not the recount's "
+                             f"{max(recount)}")
+    phase3 = results["scenes"].get("hostile", {}).get("num_pairs")
+    if phase3 is not None and recount[0] != phase3:
+        raise AssertionError(f"the bench's hostile frame 0 has {recount[0]} pairs, phase 3's "
+                             f"frame {phase3}")
+
+    # the scoreboards: every line, K1 and K2 where their paths run them
+    raster = timed_lines(runs["perf_raster_stages"]["stdout"], RASTER_LINES, "accounted")
+    bins = timed_lines(runs["perf_bin_dissect"]["stdout"], [f"stage {s}:" for s in range(8)],
+                       "real pairs")
+    lift = timed_lines(runs["perf_lift_stages"]["stdout"], LIFT_LINES)
+    train_line = timed_lines(runs["perf_train"]["stdout"], ("train step",))
+    steps = (perf_train.REPS + 1) * (perf_train.F1 + perf_train.F2)
+    want = {"perf_raster_stages": dict(blend_fwd=2 * 4 * RASTER_FRAMES, blend_bwd=0,
+                                       blend_packed=0),
+            "perf_bin_dissect": dict(blend_fwd=0, blend_bwd=0, blend_packed=0),
+            "perf_lift_stages": dict(blend_fwd=0, blend_bwd=0, blend_packed=0),
+            "perf_train": dict(blend_fwd=steps, blend_bwd=steps, blend_packed=0)}
+    for name, counts in want.items():
+        if runs[name]["launches"] != counts:
+            raise AssertionError(f"{name} launched {runs[name]['launches']}, not {counts}")
+    results["measure"] = dict(
+        bench=line, hostile_recount=dict(max=max(recount), frame0=recount[0], phase3=phase3),
+        raster=raster, bin_dissect=bins, lift=lift, train=train_line,
+        launches={k: v["launches"] for k, v in runs.items()},
+        seconds={k: v["seconds"] for k, v in runs.items()})
+    log("[measure] " + json.dumps(results["measure"]))
+
+
 LIST_KEYS = ("warp_rows_read", "warp_rows_kept", "warp_rows_hit", "kept_share", "hit_share")
 
 
@@ -4395,7 +4532,7 @@ def kernel_entry(name, ch, source, replaces, launches, max_abs_err, t, **extra):
 
 
 PHASES = ("small", "full", "main", "train", "train-cli", "logits", "other-blends", "lift",
-          "query", "widths", "slic", "loop", "mesh", "edit", "multi", "tools", "scale")
+          "query", "widths", "slic", "loop", "mesh", "edit", "multi", "tools", "scale", "measure")
 PSEUDO_LABEL_PHASES = ("widths", "slic", "loop", "mesh")      # phase 10 (a)-(e)
 
 
@@ -4474,7 +4611,8 @@ def main(argv=None) -> int:
            "edit": lambda: phase_edit(results, root),
            "multi": lambda: phase_multi(results, root),
            "tools": lambda: phase_tools(results, root),
-           "scale": lambda: phase_scale(results, root)}
+           "scale": lambda: phase_scale(results, root),
+           "measure": lambda: phase_measure(results)}
     seconds = {}
     try:
         for name in phases:
@@ -4488,6 +4626,7 @@ def main(argv=None) -> int:
         log(f"[multi] phase 12 in {seconds.get('multi', 0.0):.1f} s")
         log(f"[tools] phase 13 in {seconds.get('tools', 0.0):.1f} s")
         log(f"[scale] phase 14 in {seconds.get('scale', 0.0):.1f} s")
+        log(f"[measure] phase 15 in {seconds.get('measure', 0.0):.1f} s")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     if set(phases) != set(PHASES):
@@ -4603,6 +4742,25 @@ def main(argv=None) -> int:
         scale["k1"]["max_abs_err"], scale["k1"],
         path=f"officescene_scale_run stage 5: {SCALE_VIEWS} views at 876x584, 13 logits padded "
              f"to 32 channels; times on view 0's inputs", **occupancy["blend_fwd"][32]))
+    measure = results["measure"]
+    launches = measure["launches"]
+    kernels.append(kernel_entry(
+        "blend_fwd", 32, fwd_src, k1_tpu, launches["bench"]["blend_fwd"],
+        headline["max_abs_err"], headline,
+        path=f"python -m segsplat_tpu_torch.bench: {launches['bench']['blend_fwd']} headline and "
+             f"hostile 1080p frames; times on phase 3's headline frame (the bench's frame 0)",
+        launches_by_path={"bench": launches["bench"]["blend_fwd"],
+                          "perf_raster_stages": launches["perf_raster_stages"]["blend_fwd"]},
+        hostile=results["scenes"]["hostile"], **occupancy["blend_fwd"][32]))
+    for name, src, tpu, t, occ in (("blend_fwd", fwd_src, k1_tpu, results["train_fwd"],
+                                    occupancy["blend_fwd"][19]),
+                                   ("blend_bwd", bwd_src, k2_tpu, results["train_bwd"],
+                                    k2_occupancy[19])):
+        kernels.append(kernel_entry(
+            name, 19, src, tpu, launches["perf_train"][name], t["max_abs_err"], t,
+            path=f"python -m segsplat_tpu_torch.perf_train: {launches['perf_train'][name]} "
+                 f"steps; times on phase 5's step-1 inputs (the same configuration and step)",
+            **occ))
     log(f"[total] {time.perf_counter() - t_all:.1f} s on {smi}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -318,35 +318,6 @@ def occupied_voxels(occ: np.ndarray, vs: float, origin: np.ndarray):
     return coords[:, ::-1].astype(np.float32) * vs + origin, ids
 
 
-def officescene_lift_scene(n_views: int = 8, seed: int = 1) -> dict:
-    """bench.py's officescene-scale lift inputs (bench.py:294-325) in numpy:
-    876×584 rays, 109 000 voxels at 0.04 m drawn without repeats from a
-    60×44×42 box at (-1.2, -0.9, 1.0), fp16 [512, 292, 438] feature maps
-    (upsampled ×2 by the lift), fx = fy = 350, views rotated by 0.02 rad each.
-    ``feats`` draws one view at a time, in the order of bench.py's one draw."""
-    rng = np.random.default_rng(seed)
-    W, H, C = 876, 584, 512
-    vs = 0.04
-    nv = 109_000
-    coords = rng.choice(60 * 44 * 42, size=nv, replace=False)
-    ii = np.stack(np.unravel_index(coords, (60, 44, 42)), axis=1)
-    origin = np.array([-1.2, -0.9, 1.0], np.float32)
-    centers = (origin + ii * vs).astype(np.float32)
-    fx = 700.0 * 0.5
-    intr = np.tile(np.array([fx, fx, W / 2, H / 2], np.float32), (n_views, 1))
-    c2ws = np.tile(np.eye(4, dtype=np.float32), (n_views, 1, 1))
-    for i in range(n_views):
-        a = 0.02 * i
-        c2ws[i, :3, :3] = [[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]]
-
-    def feats():
-        for _ in range(n_views):
-            yield rng.random((C, H // 2, W // 2)).astype(np.float16)
-
-    return dict(W=W, H=H, C=C, vs=vs, origin=origin, grid_shape=(60, 44, 42),
-                centers=centers, intr=intr, c2ws=c2ws, feats=feats)
-
-
 # ─────────────────────────── query and pipeline ───────────────────────────
 
 QUERY_PROMPTS = ["wall", "chair", "floor"]

@@ -74,6 +74,11 @@ TOOLS_SLICE = ("viewer", "check_env", "prepare_tensor_data", "project_features",
                "dist_to_mesh_filter", "debug_tools", "visualize_lseg_features")
 
 
+# the measurement entry points, named so that losing one fails here
+BENCH_SLICE = ("bench", "perf_raster_stages", "perf_bin_dissect", "perf_lift_stages",
+               "perf_train")
+
+
 def test_port_modules_import_with_jax_blocked():
     code = _BLOCKED_IMPORT.format(blocked=sorted(FORBIDDEN))
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -81,6 +86,6 @@ def test_port_modules_import_with_jax_blocked():
     assert r.returncode == 0, r.stderr[-3000:]
     mods = set(r.stdout.strip().splitlines()[-1].split())
     assert len(mods) >= 15
-    missing = [m for m in EDIT_SLICE + PARALLEL_SLICE[1:] + TOOLS_SLICE
+    missing = [m for m in EDIT_SLICE + PARALLEL_SLICE[1:] + TOOLS_SLICE + BENCH_SLICE
                if f"segsplat_tpu_torch.{m}" not in mods]
     assert not missing, missing
