@@ -215,6 +215,21 @@ Phases, each fatal on failure:
      ``perf_bin_dissect`` (its 8 stages; no kernel), ``perf_lift_stages`` (its
      six lines; no kernel) and ``perf_train`` (its line; K1 and K2 once a
      step, 40 each).
+  16. ``compile``: the blends as registered ops under torch.compile and the
+     harness programs: (a) ``graft_entry.entry()``'s frame compiled by
+     Inductor with fullgraph, its logits requiring grad: against eager within
+     1e-4, K1 once a call, and one backward through it (K2 once, d_payload
+     against eager's at rtol 5e-3, atol 2e-4·max|ref|); (b) the 1080p headline
+     frame compiled: labels equal to eager's on ≥ 99.99 % of pixels, both pair
+     counts, compile seconds, compiled and eager frames timed; (c) the same
+     frame with USE_PACKED, K3 once a call; (d) ``python -m
+     segsplat_tpu_torch.graft_entry`` (its ok lines: the entry, and the dry
+     run on 8 gloo ranks with one card) and the CPU half of (e), each a child
+     process running while this one compiles (a)-(c); the timings wait for
+     them; (e) ``python -m segsplat_tpu_torch.perf_guard`` on the card, alone,
+     its counts equal to the ``--device cpu --no-walltime`` run's; (f)
+     ``parity_real`` on seeded label maps at 584×876, 3 variants of 8 views.
+     It prints phase 15's bench line.
 Prints a ``{"kernels": [...]}`` line (each kernel's blocks per SM, shared
 memory and registers from the occupancy API; K1's and K3's share of warp-rows
 their row lists keep beside the share with a passing lane), then as the last line
@@ -858,14 +873,15 @@ def swapped(module, **replacements):
 
 
 def blend_node(total):
-    """The blend's autograd node in the graph of ``total``."""
+    """The blend's autograd node (K1's op, ``segsplat_torch::blend_fwd``) in the
+    graph of ``total``."""
     seen, stack = set(), [total.grad_fn]
     while stack:
         node = stack.pop()
         if node is None or node in seen:
             continue
         seen.add(node)
-        if type(node).__name__ == "_BlendBackward":
+        if "segsplat_torch_blend_fwd" in type(node).__name__:    # K1's op's autograd
             return node
         stack.extend(f for f, _ in node.next_functions)
     raise AssertionError("the step's graph has no blend node")
@@ -4519,6 +4535,276 @@ def phase_measure(results):
     log("[measure] " + json.dumps(results["measure"]))
 
 
+# ──────────────── phase 16: the compiled frame and the harness programs ────────────────
+
+COMPILE_LABEL_AGREE = 0.9999    # the compiled 1080p frame's argmax labels against eager
+COMPILE_TIMED = 5               # compiled and eager frames, CUDA events, median
+HARNESS_TIMEOUT = 900
+HARNESS_OK = ("entry ok:", "dryrun_multichip ok:", "dryrun_multichip lift ok:",
+              "dryrun_multichip render ok:")
+GUARD_COUNTS = ("flops", "bytes_accessed", "temp_bytes", "nodes")
+PARITY_VIEWS = 8                # label maps a variant, at the reference's 584×876
+
+
+def recording(real, key: str, rec: dict):
+    """``real`` (a blend wrapper) that keeps its last arguments and result in
+    ``rec[key]``. A wrapper adds to the ``launches`` of the module name it runs
+    under, so the recorder swapped in under that name carries its own count."""
+    def wrapper(*args):
+        out = real(*args)
+        rec[key] = (args, out)
+        return out
+
+    wrapper.launches = 0
+    return wrapper
+
+
+def compile_entry(results) -> tuple:
+    """(a) ``graft_entry.entry()``'s frame through Inductor (fullgraph), with
+    its logits requiring grad: against eager within 1e-4 and K1 once a call;
+    one backward through it, K2 once, d_payload and the logits' gradient
+    against eager's at rtol 5e-3, atol 2e-4·max|ref|. Returns (stats, the
+    compiled backward's K2 arguments)."""
+    import torch
+
+    from segsplat_tpu_torch import graft_entry
+    from segsplat_tpu_torch.ops import blend as B
+
+    fn, (table, cam, logits, bg) = graft_entry.entry()
+    compiled = torch.compile(fn, fullgraph=True)
+    gen = torch.Generator(DEV).manual_seed(16)
+    runs = {}
+    for name, f in (("eager", fn), ("compiled", compiled), ("compiled again", compiled)):
+        rec = {}
+        fwd, bwd = recording(B.blend_tiles, "fwd", rec), recording(B.blend_tiles_bwd, "bwd", rec)
+        lg = logits.detach().clone().requires_grad_(True)
+        t0 = time.perf_counter()
+        with swapped(B, blend_tiles=fwd, blend_tiles_bwd=bwd):
+            out = f(table, cam, lg, bg)
+            torch.cuda.synchronize()
+            fwd_s = time.perf_counter() - t0
+            if name == "eager":
+                w = [torch.randn(o.shape, generator=gen, device=DEV) for o in out[:2]]
+            ((out[0] * w[0]).sum() + (out[1] * w[1]).sum()).backward()
+            torch.cuda.synchronize()
+        runs[name] = dict(out=[o.detach() for o in out], rec=rec, grad=lg.grad, k1=fwd.launches,
+                          k2=bwd.launches, forward_s=fwd_s, seconds=time.perf_counter() - t0)
+    e, c = runs["eager"], runs["compiled again"]
+    for name in ("compiled", "compiled again"):
+        if (runs[name]["k1"], runs[name]["k2"]) != (1, 1):
+            raise AssertionError(f"{name}: the forward and backward launched K1 "
+                                 f"{runs[name]['k1']}, K2 {runs[name]['k2']} times")
+    err = max(compare(f"compiled entry {name}", [g], [r])
+              for name, g, r in zip(("render", "semantic_logits"), c["out"], e["out"]))
+    if not torch.equal(c["out"][2], e["out"][2]):
+        raise AssertionError("the compiled entry's radii differ from eager's")
+    (bargs, (d_pay, d_bg)), (eargs, (e_pay, e_bg)) = c["rec"]["bwd"], e["rec"]["bwd"]
+    if not torch.equal(bargs[0], eargs[0]):
+        raise AssertionError("the compiled frame's tile offsets differ from eager's")
+    grad_err = max(compare_grad("compiled entry K2 d_payload", d_pay.detach(), e_pay.detach()),
+                   compare_grad("compiled entry K2 d_bg", d_bg.detach(), e_bg.detach()),
+                   compare_grad("compiled entry d logits", c["grad"], e["grad"]))
+    stats = dict(compile_s=runs["compiled"]["forward_s"],
+                 backward_compile_s=runs["compiled"]["seconds"] - runs["compiled"]["forward_s"],
+                 max_abs_err=err, grad_max_abs_err=grad_err, k1_launches=c["k1"],
+                 k2_launches=c["k2"], ch=int(bargs[2].shape[0]))
+    log("[compile] entry: " + json.dumps(stats))
+    return stats, bargs
+
+
+def compile_frames() -> dict:
+    """(b) the 1080p headline frame (200 000 Gaussians, 32 channels, m = 3,
+    K = 256) through Inductor: eager against compiled (max |Δ|, argmax labels
+    equal on ≥ 99.99 % of pixels, both pair counts) and compile seconds; (c)
+    the same frame with USE_PACKED, K3 once a call. Returns {name: (stats, a
+    function that times the compiled and the eager frame)}."""
+    import torch
+
+    from segsplat_tpu_torch import bench
+    from segsplat_tpu_torch.ops import blend as B
+    from segsplat_tpu_torch.ops import rasterize as Rz
+
+    W, H = FRAME_W, FRAME_H
+    sc = bench_scene("headline")
+    m, K, cap = sc["m"], sc["K"], sc["pair_cap"]
+    vm, fx, fy, cx, cy = bench_camera(W, H)
+    t = bench.scene_tensors(sc, DEV)
+    args = (t["xyz"], t["scales"], t["quats"], t["opac"], t["logits"],
+            torch.as_tensor(vm, device=DEV))
+    bg = torch.zeros(32, device=DEV)
+
+    def frame(xyz, scales, quats, opac, logits, vm):
+        out = Rz.rasterize(xyz, scales, quats, opac, logits, vm, fx, fy, cx, cy, W, H, bg=bg,
+                           max_tiles_per_axis=m, max_per_tile=K, pair_cap=cap)
+        return out["image"], out["num_pairs"], out["tile_overflow"]
+
+    frames = {}
+    for name, packed, counter in (("headline", False, "blend_tiles"),
+                                  ("headline_packed", True, "blend_tiles_packed")):
+        with swapped(Rz, USE_PACKED=packed), torch.no_grad():
+            compiled = torch.compile(frame, fullgraph=True)
+            t0 = time.perf_counter()
+            got = compiled(*args)
+            torch.cuda.synchronize()
+            compile_s = time.perf_counter() - t0
+            ref = frame(*args)
+            setattr(getattr(B, counter), "launches", 0)
+            got = compiled(*args)
+            torch.cuda.synchronize()
+            launches = getattr(B, counter).launches
+            if launches != 1:
+                raise AssertionError(f"the compiled {name} frame launched {counter} "
+                                     f"{launches} times")
+            agree = float((got[0].argmax(-1) == ref[0].argmax(-1)).float().mean())
+            s = dict(compile_s=compile_s, launches=launches,
+                     max_abs_diff=float((got[0] - ref[0]).abs().max()), label_agree=agree,
+                     num_pairs=int(got[1]), eager_num_pairs=int(ref[1]),
+                     tile_overflow=int(got[2]), eager_tile_overflow=int(ref[2]))
+            del got, ref
+        log(f"[compile] {name}: " + json.dumps(s))
+        if agree < COMPILE_LABEL_AGREE:
+            raise AssertionError(f"the compiled {name} frame's labels agree with eager's on "
+                                 f"{agree:.6f} of the pixels, under {COMPILE_LABEL_AGREE}")
+
+        def timed(s=s, compiled=compiled, packed=packed):
+            with swapped(Rz, USE_PACKED=packed), torch.no_grad():
+                s["compiled_ms"] = cuda_time_ms(lambda: compiled(*args), reps=COMPILE_TIMED)
+                s["eager_ms"] = cuda_time_ms(lambda: frame(*args), reps=COMPILE_TIMED)
+            return s
+
+        frames[name] = (s, timed)
+    return frames
+
+
+@contextlib.contextmanager
+def children(root: str, commands: dict):
+    """Start ``python ARGV...`` for each {name: argv} from the repo's root,
+    their output into files under ``root``; yields a function that waits for
+    one by name and returns its stdout (raising when it exits non-zero or
+    outlasts HARNESS_TIMEOUT). Kills every child still running on exit."""
+    procs = {}
+    for name, argv in commands.items():
+        out = open(os.path.join(root, f"{name}.out"), "w+")
+        err = open(os.path.join(root, f"{name}.err"), "w+")
+        procs[name] = (subprocess.Popen([sys.executable, *argv], stdout=out, stderr=err,
+                                        text=True,
+                                        cwd=os.path.dirname(os.path.abspath(__file__))),
+                       out, err, time.perf_counter())
+
+    def wait(name: str) -> str:
+        p, out, err, t0 = procs[name]
+        p.wait(timeout=max(HARNESS_TIMEOUT - (time.perf_counter() - t0), 1.0))
+        out.seek(0)
+        err.seek(0)
+        text = out.read()
+        if p.returncode != 0:
+            raise AssertionError(f"{name} exited {p.returncode}:\n{text[-3000:]}\n"
+                                 f"{err.read()[-3000:]}")
+        log(f"[harness] {name}: {time.perf_counter() - t0:.1f} s")
+        return text
+
+    try:
+        yield wait
+    finally:
+        for p, out, err, _ in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            out.close()
+            err.close()
+
+
+def guard_rows(text: str) -> dict:
+    """perf_guard's printed line, its three programs' rows."""
+    line = json.loads(text.strip().splitlines()[-1])
+    rows = {k: v for k, v in line.items() if isinstance(v, dict)}
+    if len(rows) != 3:
+        raise AssertionError(f"perf_guard's programs: {sorted(rows)}")
+    return rows
+
+
+def phase_compile(results, root: str):
+    """Phase 16. (d) ``python -m segsplat_tpu_torch.graft_entry`` (its ok lines)
+    and the CPU half of (e), ``python -m segsplat_tpu_torch.perf_guard --device
+    cpu --no-walltime``, run as children while this process compiles (a)-(c);
+    then, with the host quiet, the frames and K1/K2 on the compiled entry's
+    inputs are timed, and (e)'s card half runs alone: its counts must equal the
+    CPU's. (f) ``parity_real`` on seeded label maps at 584×876, 3 variants of
+    8 views. Prints phase 15's bench line."""
+    _tests_on_path()
+    from _torch_port import write_label_maps
+
+    from segsplat_tpu_torch import parity_real
+
+    t_phase = time.perf_counter()
+    with children(root, {"graft_entry": ["-m", "segsplat_tpu_torch.graft_entry"],
+                         "perf_guard_cpu": ["-m", "segsplat_tpu_torch.perf_guard", "--device",
+                                            "cpu", "--no-walltime"]}) as wait:
+        entry, bargs = compile_entry(results)
+        frames = compile_frames()
+        compiles_s = time.perf_counter() - t_phase
+        texts = {name: wait(name) for name in ("graft_entry", "perf_guard_cpu")}
+    for line in texts["graft_entry"].splitlines():
+        log(f"[harness] graft_entry: {line}")
+    ok = {p: [line for line in texts["graft_entry"].splitlines() if line.startswith(p)]
+          for p in HARNESS_OK}
+    if not all(len(lines) == 1 for lines in ok.values()):
+        raise AssertionError(f"graft_entry's ok lines: {ok}")
+
+    offsets, payload, bgw, img, alpha, g_img, g_alpha, tx_n, ty_n, K = bargs
+    entry["fwd"], entry["bwd"] = kernels_on_inputs(
+        results, (offsets, payload, bgw, tx_n, ty_n, K), img, alpha, g_img, g_alpha,
+        "compile", "64x64")
+    for name, (s, timed) in frames.items():
+        s = timed()
+        s["phase3_rasterize_ms"] = results["scenes"].get("headline", {}).get("rasterize_ms")
+        log(f"[compile] {name} timed: compiled {s['compiled_ms']:.3f} ms, eager "
+            f"{s['eager_ms']:.3f} ms (phase 3's rasterize: {s['phase3_rasterize_ms']})")
+
+    t0 = time.perf_counter()
+    with children(root, {"perf_guard_cuda": ["-m", "segsplat_tpu_torch.perf_guard"]}) as wait:
+        card_text = wait("perf_guard_cuda")
+    guard = {"cpu": guard_rows(texts["perf_guard_cpu"]), "cuda": guard_rows(card_text)}
+    for name, card in guard["cuda"].items():
+        cpu = guard["cpu"][name]
+        log(f"[harness] perf_guard {name}: " + json.dumps(
+            {k: v for k, v in card.items() if k != "nodes"}) + f"; {sum(card['nodes'].values())} "
+            f"nodes, {card['nodes'].get('segsplat_torch.blend_fwd.default', 0)} K1; the CPU's "
+            f"export {cpu['export_s']:.1f} s")
+        differ = [k for k in GUARD_COUNTS if cpu.get(k) != card.get(k)]
+        if differ:
+            raise AssertionError(f"perf_guard {name}: {differ} differ between the CPU and "
+                                 f"the card")
+    guard_s = time.perf_counter() - t0
+
+    ref_root = os.path.join(root, "parity_real")
+    write_label_maps(ref_root, PARITY_VIEWS, *parity_real.REFERENCE_SHAPE)
+    report = os.path.join(root, "parity_real.md")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        parity_real.main(["--ref_root", ref_root, "--out", report])
+    parity_s = time.perf_counter() - t0
+    with open(report) as f:
+        lines = f.read().splitlines()
+    exact = [line for line in lines if f"{PARITY_VIEWS}/{PARITY_VIEWS} sampled files "
+             "round-tripped EXACT" in line]
+    pairs = [line for line in lines if " vs " in line and line.startswith("|")]
+    for line in printed.getvalue().splitlines():
+        log(f"[harness] parity_real: {line}")
+    if len(exact) != 3 or len(pairs) != 3:
+        raise AssertionError("parity_real's report:\n" + "\n".join(lines))
+
+    log(f"[compile] (a)-(c) and the children {compiles_s:.1f} s, the card's perf_guard "
+        f"{guard_s:.1f} s, parity_real {parity_s:.1f} s")
+    results["compile"] = dict(
+        entry=entry, frames={k: s for k, (s, _) in frames.items()}, compiles_s=compiles_s,
+        perf_guard_s=guard_s, parity_real_s=parity_s, parity_pairs=pairs,
+        perf_guard={d: {k: {kk: vv for kk, vv in v.items() if kk != "nodes"}
+                        for k, v in g.items()} for d, g in guard.items()})
+    bench_line = results.get("measure", {}).get("bench")
+    log("[compile] the bench's line (phase 15): "
+        + (json.dumps(bench_line) if bench_line else "not measured: phase 15 did not run"))
+
 LIST_KEYS = ("warp_rows_read", "warp_rows_kept", "warp_rows_hit", "kept_share", "hit_share")
 
 
@@ -4532,7 +4818,8 @@ def kernel_entry(name, ch, source, replaces, launches, max_abs_err, t, **extra):
 
 
 PHASES = ("small", "full", "main", "train", "train-cli", "logits", "other-blends", "lift",
-          "query", "widths", "slic", "loop", "mesh", "edit", "multi", "tools", "scale", "measure")
+          "query", "widths", "slic", "loop", "mesh", "edit", "multi", "tools", "scale", "measure",
+          "compile")
 PSEUDO_LABEL_PHASES = ("widths", "slic", "loop", "mesh")      # phase 10 (a)-(e)
 
 
@@ -4560,6 +4847,12 @@ def main(argv=None) -> int:
     from segsplat_tpu_torch.utils import cuda_build
 
     t_all = time.perf_counter()
+    # torch.compile's caches (phase 16) in the checkout's build/, for this
+    # process and its children
+    compile_cache = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                                 "torch_compile")
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR", os.path.join(compile_cache, "inductor"))
+    os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(compile_cache, "triton"))
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     smi = nvidia_smi_line()
@@ -4612,7 +4905,8 @@ def main(argv=None) -> int:
            "multi": lambda: phase_multi(results, root),
            "tools": lambda: phase_tools(results, root),
            "scale": lambda: phase_scale(results, root),
-           "measure": lambda: phase_measure(results)}
+           "measure": lambda: phase_measure(results),
+           "compile": lambda: phase_compile(results, root)}
     seconds = {}
     try:
         for name in phases:
@@ -4627,6 +4921,7 @@ def main(argv=None) -> int:
         log(f"[tools] phase 13 in {seconds.get('tools', 0.0):.1f} s")
         log(f"[scale] phase 14 in {seconds.get('scale', 0.0):.1f} s")
         log(f"[measure] phase 15 in {seconds.get('measure', 0.0):.1f} s")
+        log(f"[compile] phase 16 in {seconds.get('compile', 0.0):.1f} s")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     if set(phases) != set(PHASES):
@@ -4761,6 +5056,27 @@ def main(argv=None) -> int:
             path=f"python -m segsplat_tpu_torch.perf_train: {launches['perf_train'][name]} "
                  f"steps; times on phase 5's step-1 inputs (the same configuration and step)",
             **occ))
+    comp = results["compile"]
+    entry = comp["entry"]
+    frames = comp["frames"]
+    kernels.append(kernel_entry(
+        "blend_fwd", entry["ch"], fwd_src, k1_tpu, entry["k1_launches"] + 1,
+        entry["fwd"]["max_abs_err"], entry["fwd"],
+        path="torch.compile (Inductor, fullgraph) of graft_entry.entry()'s 64x64 frame and of "
+             "the 1080p headline frame; times on the compiled entry call's inputs",
+        launches_by_path={"graft_entry.entry() compiled": entry["k1_launches"],
+                          "1080p headline frame compiled": frames["headline"]["launches"]},
+        compiled_frames=frames, **occupancy["blend_fwd"][entry["fwd"]["kernel_width"]]))
+    kernels.append(kernel_entry(
+        "blend_bwd", entry["ch"], bwd_src, k2_tpu, entry["k2_launches"],
+        entry["bwd"]["max_abs_err"], entry["bwd"],
+        path="the backward of the compiled graft_entry.entry() frame",
+        **k2_occupancy[entry["bwd"]["kernel_width"]]))
+    kernels.append(kernel_entry(
+        "blend_packed", 32, packed_src, k3_tpu, frames["headline_packed"]["launches"],
+        packed["headline"]["max_abs_err"], packed["headline"],
+        path="torch.compile of the 1080p headline frame with USE_PACKED; times on phase 7's "
+             "headline packed inputs", **occupancy["blend_packed"][32]))
     log(f"[total] {time.perf_counter() - t_all:.1f} s on {smi}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

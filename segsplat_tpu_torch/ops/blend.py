@@ -1,6 +1,7 @@
 """Tile blend: kernels K1 (forward), K2 (backward) and K3 (packed forward) of
-the port, their plain PyTorch versions, and the autograd Function that joins
-K1 and K2.
+the port, their plain PyTorch versions, and the three as registered ops
+(``segsplat_torch::blend_fwd``, ``::blend_bwd``, ``::blend_packed``), K1's op
+differentiable through K2's.
 
 ``blend_tiles`` composites every 16×16 tile against its depth-sorted pair
 payload run. On a CUDA tensor it launches the hand-written kernel
@@ -8,7 +9,7 @@ payload run. On a CUDA tensor it launches the hand-written kernel
 ctypes) or raises; on a CPU tensor it runs ``blend_tiles_plain``.
 ``blend_tiles_bwd`` is its backward: ``csrc/blend_bwd.cu`` on CUDA tensors,
 ``blend_tiles_bwd_plain`` on CPU tensors. ``blend`` is the differentiable blend
-(``torch.autograd.Function``) that training renders through.
+that training renders through: K1's op, whose autograd calls K2's.
 
 K1 replaces the TPU kernel ``segsplat_tpu/ops/blend_pallas.py:188``
 ``blend_tiles_pallas_dma``. Its semantics are kept exactly: pixel centres at
@@ -554,11 +555,14 @@ def blend_tiles_packed_plain(offsets, packed_payload, bg, tx_n: int, ty_n: int,
                                               k_max, g_block)[:2]
 
 
-def blend_tiles_packed(offsets, packed_payload, bg, tx_n: int, ty_n: int, k_max: int,
-                       g_block: int = 128):
-    """The packed blend (arguments as ``blend_tiles_packed_plain``). CUDA tensors
-    launch kernel K3, which counts in ``blend_tiles_packed.launches``; CPU
-    tensors run the plain version. Raises on anything else. No backward."""
+@torch.library.custom_op("segsplat_torch::blend_packed", mutates_args=())
+def blend_tiles_packed(offsets: torch.Tensor, packed_payload: torch.Tensor, bg: torch.Tensor,
+                       tx_n: int, ty_n: int, k_max: int,
+                       g_block: int = 128) -> tuple[torch.Tensor, torch.Tensor]:
+    """The packed blend (arguments as ``blend_tiles_packed_plain``), registered
+    as the op ``segsplat_torch::blend_packed``. CUDA tensors launch kernel K3,
+    which counts in ``blend_tiles_packed.launches``; CPU tensors run the plain
+    version. Raises on anything else. No backward."""
     _check_packed(offsets, packed_payload, bg, tx_n, ty_n, k_max, g_block)
     if packed_payload.device.type == "cpu":
         return blend_tiles_packed_plain(offsets, packed_payload, bg, tx_n, ty_n, k_max,
@@ -567,6 +571,12 @@ def blend_tiles_packed(offsets, packed_payload, bg, tx_n: int, ty_n: int, k_max:
                            packed_payload, bg, tx_n, ty_n, k_max, g_block, packed=True)
     blend_tiles_packed.launches += 1
     return out
+
+
+@blend_tiles_packed.register_fake
+def _(offsets, packed_payload, bg, tx_n, ty_n, k_max, g_block=128):
+    hw = (ty_n * TILE, tx_n * TILE)
+    return packed_payload.new_empty(hw + (bg.shape[0],)), packed_payload.new_empty(hw)
 
 
 blend_tiles_packed.launches = 0
@@ -768,29 +778,71 @@ def blend_forward_occupancy(name: str, ch: int) -> dict:
                     (v.value for v in vals)))
 
 
-class _Blend(torch.autograd.Function):
-    """``blend_tiles`` forward, ``blend_tiles_bwd`` backward: the counterpart of
-    the TPU package's ``blend_core`` custom VJP (blend_pallas_vjp.py:267-311).
-    The residuals are the forward's inputs and outputs only."""
+# ───────────────────────── K1 and K2 as registered ops ─────────────────────────
+#
+# K1, K2 and K3 are operators of the namespace ``segsplat_torch``, so that
+# ``torch.compile`` and ``torch.export`` keep each blend as one opaque node:
+# the frame around it compiles whole, and its kernel launches at run time (K3's
+# op is ``blend_tiles_packed`` itself, above). The implementations of K1's and
+# K2's ops call the module's wrappers by their global names when they run
+# (``blend_tiles``, ``blend_tiles_bwd``), so a caller that swaps the module
+# attribute (the plain version for a reference step) swaps what the op runs,
+# and ``blend`` stays differentiable through it; the wrappers' checks, device
+# dispatch and launch counts stay where they are. The fake implementations
+# give only the shapes and dtypes of the outputs.
 
-    @staticmethod
-    def forward(ctx, offsets, sorted_payload, bg, tx_n, ty_n, k_max):
-        img, alpha = blend_tiles(offsets, sorted_payload, bg, tx_n, ty_n, k_max)
-        ctx.save_for_backward(offsets, sorted_payload, bg, img, alpha)
-        ctx.dims = (tx_n, ty_n, k_max)
-        return img, alpha
 
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, g_img, g_alpha):
-        offsets, sorted_payload, bg, img, alpha = ctx.saved_tensors
-        d_payload, d_bg = blend_tiles_bwd(offsets, sorted_payload, bg, img, alpha,
-                                          g_img.contiguous(), g_alpha.contiguous(),
-                                          *ctx.dims)
-        return None, d_payload, d_bg, None, None, None
+@torch.library.custom_op("segsplat_torch::blend_fwd", mutates_args=())
+def blend_fwd_op(offsets: torch.Tensor, sorted_payload: torch.Tensor, bg: torch.Tensor,
+                 tx_n: int, ty_n: int, k_max: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``blend_tiles`` as one op: (img [16·ty_n, 16·tx_n, CH], alpha)."""
+    return blend_tiles(offsets, sorted_payload, bg, tx_n, ty_n, k_max)
+
+
+@blend_fwd_op.register_fake
+def _(offsets, sorted_payload, bg, tx_n, ty_n, k_max):
+    hw = (ty_n * TILE, tx_n * TILE)
+    return sorted_payload.new_empty(hw + (bg.shape[0],)), sorted_payload.new_empty(hw)
+
+
+@torch.library.custom_op("segsplat_torch::blend_bwd", mutates_args=())
+def blend_bwd_op(offsets: torch.Tensor, sorted_payload: torch.Tensor, bg: torch.Tensor,
+                 img: torch.Tensor, alpha: torch.Tensor, g_img: torch.Tensor,
+                 g_alpha: torch.Tensor, tx_n: int, ty_n: int,
+                 k_max: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``blend_tiles_bwd`` as one op: (d_payload shaped like sorted_payload, d_bg [CH])."""
+    return blend_tiles_bwd(offsets, sorted_payload, bg, img, alpha, g_img, g_alpha,
+                           tx_n, ty_n, k_max)
+
+
+@blend_bwd_op.register_fake
+def _(offsets, sorted_payload, bg, img, alpha, g_img, g_alpha, tx_n, ty_n, k_max):
+    return torch.empty_like(sorted_payload), bg.new_empty(bg.shape)
+
+
+def _blend_setup_context(ctx, inputs, output):
+    """The residuals of K1's op are its inputs and outputs only, as the TPU
+    package's ``blend_core`` custom VJP keeps (blend_pallas_vjp.py:267-311)."""
+    offsets, sorted_payload, bg, tx_n, ty_n, k_max = inputs
+    ctx.save_for_backward(offsets, sorted_payload, bg, *output)
+    ctx.dims = (tx_n, ty_n, k_max)
+
+
+@torch.autograd.function.once_differentiable
+def _blend_backward(ctx, g_img, g_alpha):
+    """K2's op on the forward's residuals and cotangents."""
+    offsets, sorted_payload, bg, img, alpha = ctx.saved_tensors
+    d_payload, d_bg = torch.ops.segsplat_torch.blend_bwd(
+        offsets, sorted_payload, bg, img, alpha, g_img.contiguous(), g_alpha.contiguous(),
+        *ctx.dims)
+    return None, d_payload, d_bg, None, None, None
+
+
+blend_fwd_op.register_autograd(_blend_backward, setup_context=_blend_setup_context)
 
 
 def blend(offsets, sorted_payload, bg, tx_n: int, ty_n: int, k_max: int):
     """Differentiable ``blend_tiles``: gradients flow to ``sorted_payload`` and
     ``bg`` through kernel K2 (its plain version on CPU tensors)."""
-    return _Blend.apply(offsets, sorted_payload, bg, tx_n, ty_n, k_max)
+    return torch.ops.segsplat_torch.blend_fwd(offsets, sorted_payload, bg, tx_n, ty_n, k_max)
+

@@ -651,3 +651,27 @@ def port_train_setup(n_views: int = 4, seed: int = 0, device="cpu"):
                                      + (np.arange(W)[None, :] + 8 * v) // 16) % 16,
                                     dtype=torch.int32, device=device))
     return state, cfg, cams, gts, objs
+
+
+def write_label_maps(root, views: int, h: int, w: int, seed: int = 0) -> None:
+    """The reference's label maps for ``parity_real``: ``root/<variant>/train/
+    labels/frame_<v>_labels.pt`` {'label_indices': [h, w] int64}, three
+    variants of ``views`` maps, one seeded base map a view, each variant
+    relabelling its own seeded share of the pixels (5, 15, 30 %)."""
+    import os
+
+    import torch
+
+    from segsplat_tpu_torch.parity_real import OFFICESCENE_PROMPTS, VARIANTS
+
+    rng = np.random.default_rng(seed)
+    C = len(OFFICESCENE_PROMPTS)
+    base = rng.integers(0, C, (views, h, w))
+    for share, variant in zip((0.05, 0.15, 0.30), VARIANTS):
+        d = os.path.join(root, variant, "train", "labels")
+        os.makedirs(d)
+        flip = rng.random(base.shape) < share
+        maps = np.where(flip, rng.integers(0, C, base.shape), base).astype(np.int64)
+        for v in range(views):
+            torch.save({"label_indices": torch.from_numpy(maps[v])},
+                       os.path.join(d, f"frame_{v:05d}_labels.pt"))

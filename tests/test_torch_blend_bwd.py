@@ -166,6 +166,32 @@ def test_autograd_blend_matches_explicit_backward():
     torch.testing.assert_close(bgv.grad, ref_bg)
 
 
+def test_compiled_blend_gradient_equals_eager_bits():
+    """``blend`` under torch.compile (aot_eager): K1's and K2's ops stay whole in
+    the forward and backward graphs, so forward and gradients are the eager
+    blend's bits; the op refuses a second derivative."""
+    offsets, payload, bg, img, alpha, g_img, g_alpha, tx_n, ty_n, K = _case("k384_three_blocks_carry")
+
+    def loss(pay, bgv):
+        out_img, out_alpha = B.blend(offsets, pay, bgv, tx_n, ty_n, K)
+        return (out_img * g_img).sum() + (out_alpha * g_alpha).sum()
+
+    grads = []
+    for fn in (loss, torch.compile(loss, backend="aot_eager", fullgraph=True)):
+        pay, bgv = payload.clone().requires_grad_(True), bg.clone().requires_grad_(True)
+        value = fn(pay, bgv)
+        value.backward()
+        grads.append((value.detach(), pay.grad, bgv.grad))
+    for e, c in zip(*grads):
+        assert torch.equal(c, e)
+    assert grads[0][1].abs().max() > 0
+    pay, w = payload.clone().requires_grad_(True), g_img.clone().requires_grad_(True)
+    out_img, _ = B.blend(offsets, pay, bg, tx_n, ty_n, K)
+    (d_pay,) = torch.autograd.grad((out_img * w).sum(), pay, create_graph=True)
+    with pytest.raises(RuntimeError, match="differentiate twice"):
+        d_pay.sum().backward()
+
+
 def test_k2_diagnostic_variants_follow_the_kernel_source():
     """scripts/k2_variants.py finds its anchors in csrc/blend_bwd.cu: each
     diagnostic variant is the kernel with its own edit, and the clock variant

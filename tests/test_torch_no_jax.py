@@ -79,6 +79,11 @@ BENCH_SLICE = ("bench", "perf_raster_stages", "perf_bin_dissect", "perf_lift_sta
                "perf_train")
 
 
+# the harness entry, the perf guard and the real-artifact parity, named so that
+# losing one fails here
+HARNESS_SLICE = ("graft_entry", "perf_guard", "parity_real")
+
+
 def test_port_modules_import_with_jax_blocked():
     code = _BLOCKED_IMPORT.format(blocked=sorted(FORBIDDEN))
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -86,6 +91,6 @@ def test_port_modules_import_with_jax_blocked():
     assert r.returncode == 0, r.stderr[-3000:]
     mods = set(r.stdout.strip().splitlines()[-1].split())
     assert len(mods) >= 15
-    missing = [m for m in EDIT_SLICE + PARALLEL_SLICE[1:] + TOOLS_SLICE + BENCH_SLICE
-               if f"segsplat_tpu_torch.{m}" not in mods]
+    named = EDIT_SLICE + PARALLEL_SLICE[1:] + TOOLS_SLICE + BENCH_SLICE + HARNESS_SLICE
+    missing = [m for m in named if f"segsplat_tpu_torch.{m}" not in mods]
     assert not missing, missing

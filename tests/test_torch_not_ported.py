@@ -1,7 +1,8 @@
 """Every pre-port program at the repo's root or under scripts/ that imports
 the JAX package has a twin in segsplat_tpu_torch/ of its file name (the root
 train.py: train/cli.py, since a train.py module beside the train/ package
-could not be imported) or an entry in ``NOT_PORTED`` with its reason.
+could not be imported; __graft_entry__.py: graft_entry.py, a module name
+without dunders) or an entry in ``NOT_PORTED`` with its reason.
 chip_smoke.py is the port's own and imports no JAX package."""
 
 import ast
@@ -13,17 +14,10 @@ PORT = ROOT / "segsplat_tpu_torch"
 # the pre-port programs with no twin, each with its reason (ROADMAP, "Not
 # ported, on purpose")
 NOT_PORTED = {
-    "__graft_entry__.py": "the TPU harness contract: jittable JAX entry points that an "
-                          "outside harness compiles",
-    "scripts/perf_guard.py": "a CPU guard on XLA's cost_analysis of the compiled frame, "
-                             "which has no torch counterpart",
-    "scripts/parity_real.py": "it reads the reference implementation's checkout at a fixed "
-                              "path outside the repo, which is absent; the port reads nothing "
-                              "outside its checkout",
     ".verify_drive.py": "the JAX package's drive script for its TPU verify recipe; the port "
                         "is driven end to end by chip_smoke.py",
 }
-TWIN_OF = {"train.py": "train/cli.py"}
+TWIN_OF = {"train.py": "train/cli.py", "__graft_entry__.py": "graft_entry.py"}
 PORT_OWN = {"chip_smoke.py"}
 
 
@@ -71,3 +65,9 @@ def test_the_measurement_programs_count_as_twinned():
                 "scripts/perf_lift_stages.py", "scripts/perf_train.py"):
         assert rel in _pre_port_programs() and rel not in NOT_PORTED
         assert (PORT / Path(rel).name).exists(), rel
+
+
+def test_the_harness_programs_count_as_twinned():
+    for rel in ("__graft_entry__.py", "scripts/perf_guard.py", "scripts/parity_real.py"):
+        assert rel in _pre_port_programs() and rel not in NOT_PORTED
+        assert (PORT / TWIN_OF.get(rel, Path(rel).name)).exists(), rel
