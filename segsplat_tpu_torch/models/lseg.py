@@ -32,12 +32,12 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from segsplat_tpu_torch.models.clip_text import (DEFAULT_LOGIT_SCALE, strip_prefixes,
                                                  load_into, logit_scale_of,
                                                  project_features_to_labels,
                                                  self_attention)
+from segsplat_tpu_torch.utils.profiling import annotate
 from segsplat_tpu_torch.utils.system import require_device
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -194,7 +194,7 @@ class LSegNet(nn.Module):
         bf16 = self.compute_dtype == torch.bfloat16
         ctx = (torch.autocast(images.device.type, dtype=torch.bfloat16) if bf16
                else contextlib.nullcontext())
-        with ctx, record_function("lseg.vit"):
+        with ctx, annotate("lseg.vit"):
             vit = self.pretrained.model
             x = vit.patch_embed.proj(x)                               # [B, W, gh, gw]
             gh, gw = x.shape[-2:]
@@ -208,7 +208,7 @@ class LSegNet(nn.Module):
                 if i in self.taps:
                     tapped.append(x)
 
-        with ctx, record_function("lseg.dpt"):
+        with ctx, annotate("lseg.dpt"):
             scales = []
             for t, tokens in enumerate(tapped):
                 post = getattr(self.pretrained, f"act_postprocess{t + 1}")

@@ -16,9 +16,9 @@ As in the JAX package, all pixels advance together through chunks of
 torch that test is one host read per chunk. Accumulation is a sum per voxel
 that gives the same bits on every run (``ops/voxelize.segment_sum``) in place
 of the reference's atomicAdd; ``pred_mode``'s atomicMax is an order-free max.
-The march and the accumulation run inside ``torch.profiler.record_function``
-ranges, ``lift.first_hit`` and ``lift.accumulation``, which a profiler trace
-reads for each stage's device time.
+The march and the accumulation run inside spans (``utils/profiling.annotate``),
+``lift.first_hit`` and ``lift.accumulation``, which a profiler trace reads for
+each stage's device time.
 """
 
 from __future__ import annotations
@@ -27,9 +27,9 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from segsplat_tpu_torch.ops.voxelize import INT32_MIN, segment_sum
+from segsplat_tpu_torch.utils.profiling import annotate
 
 
 def _f32(x, device) -> torch.Tensor:
@@ -54,7 +54,7 @@ def pixel_ray_dirs(width: int, height: int, fx, fy, cx, cy,
     return d / _norm3(d[..., 0], d[..., 1], d[..., 2])[..., None]
 
 
-@record_function("lift.first_hit")
+@annotate("lift.first_hit")
 def first_hit_voxels(occupancy: torch.Tensor,   # [Z,Y,X] int32, 0 = empty, else 1-based id
                      c2w: torch.Tensor,          # [4,4] camera-to-world
                      intrinsics: torch.Tensor,   # [4] (fx, fy, cx, cy)
@@ -118,7 +118,7 @@ def first_hit_voxels(occupancy: torch.Tensor,   # [Z,Y,X] int32, 0 = empty, else
     return torch.clamp_min(hit, 0).reshape(height, width)
 
 
-@record_function("lift.accumulation")
+@annotate("lift.accumulation")
 def scatter_features(features_2d: torch.Tensor,   # [H,W,C] float
                      hit_ids: torch.Tensor,       # [H,W] int32, 0 = miss
                      num_ids: int) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -20,11 +20,10 @@ each candidate's partial sum, and one per-voxel sum over the T·K slots
 sort is stable, as ``jnp.argsort``, because ties decide which voxels form the
 dual bin's big set.
 
-Each stage runs inside a ``torch.profiler.record_function`` range,
+Each stage runs inside a span (``utils/profiling.annotate``),
 ``lift.projection``, ``lift.binning``, ``lift.tile_test`` and
 ``lift.accumulation``, so a profiler trace gives each stage's device time (the
-kernels launched inside the range); without a profiler a range costs a few µs
-of host time.
+kernels launched inside the span); without a profiler a span is a flag read.
 """
 
 from __future__ import annotations
@@ -33,11 +32,11 @@ import math
 from typing import Optional, Tuple
 
 import torch
-from torch.profiler import record_function
 
 from segsplat_tpu_torch.ops.rasterize import (TILE, Projected, bin_gaussian_ranks,
                                               map_tile_chunks, tiles_to_image)
 from segsplat_tpu_torch.ops.voxelize import segment_sum
+from segsplat_tpu_torch.utils.profiling import annotate
 
 # Tiles per chunk of the tile test. The JAX package's 64 was sized for TPU
 # memory; on the card 64 issues ~5 000 launches a view and leaves the device
@@ -47,7 +46,7 @@ from segsplat_tpu_torch.ops.voxelize import segment_sum
 TILE_CHUNK = 2048
 
 
-@record_function("lift.projection")
+@annotate("lift.projection")
 def _project_voxels(centers: torch.Tensor, half, w2c: torch.Tensor,
                     intrinsics: torch.Tensor, width: int, height: int,
                     depth_max: float):
@@ -180,7 +179,7 @@ def _splat_candidates(centers, voxel_ids, c2w, intrinsics, voxel_size, depth_max
     half = voxel_size * 0.5
     means2d, radius, depth, valid = _project_voxels(centers, half, w2c, intrinsics,
                                                     width, height, depth_max)
-    with record_function("lift.binning"):
+    with annotate("lift.binning"):
         if dual_bin:
             order, rank_sorted, offsets, (tx_n, ty_n), overflow = _bin_voxels_dual(
                 means2d, radius, depth, valid, width, height, m,
@@ -233,7 +232,7 @@ def _make_tile_best(cand: dict, intrinsics, depth_min: float, depth_max: float,
         tiny = torch.where(d < 0, -1e-9, 1e-9)
         return 1.0 / torch.where(torch.abs(d) < 1e-9, tiny, d)
 
-    @record_function("lift.tile_test")
+    @annotate("lift.tile_test")
     def tile_best(tile_ids):
         cnt = counts[tile_ids]                                       # [C]
         bx, by, bz, ids = wx[tile_ids], wy[tile_ids], wz[tile_ids], wid[tile_ids]
@@ -354,7 +353,7 @@ def lift_view_splat(centers: torch.Tensor, voxel_ids: torch.Tensor,
     num_tiles = tx_n * ty_n
     PX = TILE * TILE
 
-    with record_function("lift.accumulation"):
+    with annotate("lift.accumulation"):
         fpad = torch.nn.functional.pad(features_hwc.to(torch.float32),
                                        (0, 0, 0, tx_n * TILE - width, 0, ty_n * TILE - height))
         ftiles = (fpad.reshape(ty_n, TILE, tx_n, TILE, CH).transpose(1, 2)
@@ -366,7 +365,7 @@ def lift_view_splat(centers: torch.Tensor, voxel_ids: torch.Tensor,
 
     def tile_partials(tile_ids):
         best, any_hit, _ = tile_best(tile_ids)                       # [C,256]
-        with record_function("lift.accumulation"):
+        with annotate("lift.accumulation"):
             tx = (tile_ids % tx_n) * TILE
             ty = torch.div(tile_ids, tx_n, rounding_mode="floor") * TILE
             inb = ((pix_xi[None] + tx[:, None] < width)
@@ -378,7 +377,7 @@ def lift_view_splat(centers: torch.Tensor, voxel_ids: torch.Tensor,
             return part, oh.sum(dim=2).to(torch.int32)                # [C,K]
 
     parts, cnts = map_tile_chunks(tile_partials, num_tiles, tile_chunk, dev)
-    with record_function("lift.accumulation"):
+    with annotate("lift.accumulation"):
         seg = cand["wid"].reshape(-1)                                 # [T·K]
         sums = segment_sum(parts.reshape(-1, CH), seg, num_ids)
         counts = segment_sum(cnts.reshape(-1), seg, num_ids)

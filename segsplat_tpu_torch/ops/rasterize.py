@@ -33,6 +33,7 @@ from torch.utils.checkpoint import checkpoint
 
 from segsplat_tpu_torch.ops.blend import (PACKED_MAX_CH, _block_alpha, _pixel_centres, blend,
                                           blend_tiles_packed, make_payload, pack_payload)
+from segsplat_tpu_torch.utils.profiling import annotate
 
 TILE = 16
 BACKENDS = ("cuda", "dense")   # the JAX package's "pallas" and "xla"
@@ -284,19 +285,22 @@ def build_blend_inputs(proj: Projected, colors, opacities, width: int, height: i
     are clamped, so reads stay in bounds). The payload keeps K zero rows past
     the end; with ``packed`` it is K3's [R, 128] layout instead
     (``pack_payload``). ``tile_row0``: see ``bin_gaussian_ranks``. Binning
-    sees detached values; the gather carries gradients."""
+    sees detached values; the gather carries gradients. Runs in the spans
+    ``raster.bin`` (binning, the counts, the cap) and ``raster.gather``."""
     K = max_per_tile
-    sorted_gid, offsets, (tx_n, ty_n) = _bin_gaussians(
-        proj, width, height, max_tiles_per_axis,
-        opacities=opacities if opacity_cull else None, tile_row0=tile_row0)
-    num_pairs = offsets[-1]
-    tile_overflow = torch.clamp_min(offsets[1:] - offsets[:-1] - K, 0).sum()
-    if pair_cap is not None and pair_cap < sorted_gid.shape[0]:
-        sorted_gid = sorted_gid[:pair_cap]
-        offsets = torch.clamp_max(offsets, pair_cap)
-    rows = make_payload(proj.means2d, proj.conics, opacities, colors)[sorted_gid]
-    sorted_payload = (pack_payload(rows, K) if packed
-                      else torch.nn.functional.pad(rows, (0, 0, 0, K)))
+    with annotate("raster.bin"):
+        sorted_gid, offsets, (tx_n, ty_n) = _bin_gaussians(
+            proj, width, height, max_tiles_per_axis,
+            opacities=opacities if opacity_cull else None, tile_row0=tile_row0)
+        num_pairs = offsets[-1]
+        tile_overflow = torch.clamp_min(offsets[1:] - offsets[:-1] - K, 0).sum()
+        if pair_cap is not None and pair_cap < sorted_gid.shape[0]:
+            sorted_gid = sorted_gid[:pair_cap]
+            offsets = torch.clamp_max(offsets, pair_cap)
+    with annotate("raster.gather"):
+        rows = make_payload(proj.means2d, proj.conics, opacities, colors)[sorted_gid]
+        sorted_payload = (pack_payload(rows, K) if packed
+                          else torch.nn.functional.pad(rows, (0, 0, 0, K)))
     return BlendInputs(offsets, sorted_payload, tx_n, ty_n, num_pairs, tile_overflow)
 
 
@@ -375,6 +379,11 @@ def rasterize(means3d, scales, quats, opacities, colors, viewmat, fx, fy, cx, cy
     an input requires grad. ``"dense"`` (the JAX package's ``"xla"``):
     ``_blend_tiles`` in torch ops, ``tile_chunk`` tiles at a time.
 
+    The stages run in spans (``utils/profiling.annotate``): ``raster.project``
+    (with the offset's add), ``raster.bin``, ``raster.gather`` (the kernel
+    path's payload rows; the dense blend gathers inside its chunks) and
+    ``raster.blend`` (the blend's op dispatch and launch on the card).
+
     tile_row0 > 0: the image is ``height`` rows of a taller frame from its
     tile row tile_row0 on (``parallel/render.rasterize_strip``); cx, cy are
     the frame's, and tan_fovx, tan_fovy its frustum clamp's
@@ -388,20 +397,23 @@ def rasterize(means3d, scales, quats, opacities, colors, viewmat, fx, fy, cx, cy
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
     if bg is None:
         bg = torch.zeros((colors.shape[1],), dtype=colors.dtype, device=colors.device)
-    proj = project_gaussians(means3d, scales, quats, viewmat, fx, fy, cx, cy,
-                             width, height, tan_fovx=tan_fovx, tan_fovy=tan_fovy,
-                             row0=tile_row0 * TILE)
-    if means2d_offset is not None:
-        proj = proj._replace(means2d=proj.means2d + means2d_offset)
+    with annotate("raster.project"):
+        proj = project_gaussians(means3d, scales, quats, viewmat, fx, fy, cx, cy,
+                                 width, height, tan_fovx=tan_fovx, tan_fovy=tan_fovy,
+                                 row0=tile_row0 * TILE)
+        if means2d_offset is not None:
+            proj = proj._replace(means2d=proj.means2d + means2d_offset)
     K = max_per_tile
     if backend == "dense":
-        sorted_gid, offsets, (tx_n, ty_n) = _bin_gaussians(
-            proj, width, height, max_tiles_per_axis,
-            opacities=opacities if opacity_cull else None, tile_row0=tile_row0)
-        num_pairs = offsets[-1]
-        tile_overflow = torch.clamp_min(offsets[1:] - offsets[:-1] - K, 0).sum()
-        img, alpha = _blend_tiles(sorted_gid, offsets, proj, colors, opacities, bg,
-                                  tx_n, ty_n, K, tile_chunk)
+        with annotate("raster.bin"):
+            sorted_gid, offsets, (tx_n, ty_n) = _bin_gaussians(
+                proj, width, height, max_tiles_per_axis,
+                opacities=opacities if opacity_cull else None, tile_row0=tile_row0)
+            num_pairs = offsets[-1]
+            tile_overflow = torch.clamp_min(offsets[1:] - offsets[:-1] - K, 0).sum()
+        with annotate("raster.blend"):
+            img, alpha = _blend_tiles(sorted_gid, offsets, proj, colors, opacities, bg,
+                                      tx_n, ty_n, K, tile_chunk)
     else:
         packed = USE_PACKED and colors.shape[1] <= PACKED_MAX_CH
         if packed and torch.is_grad_enabled() and any(
@@ -415,8 +427,9 @@ def rasterize(means3d, scales, quats, opacities, colors, viewmat, fx, fy, cx, cy
                                     opacity_cull=opacity_cull, packed=packed,
                                     tile_row0=tile_row0)
         blend_fn = blend_tiles_packed if packed else blend
-        img, alpha = blend_fn(inputs.offsets, inputs.sorted_payload, bg,
-                              inputs.tx_n, inputs.ty_n, K)
+        with annotate("raster.blend"):
+            img, alpha = blend_fn(inputs.offsets, inputs.sorted_payload, bg,
+                                  inputs.tx_n, inputs.ty_n, K)
         num_pairs, tile_overflow = inputs.num_pairs, inputs.tile_overflow
     return {
         "image": img[:height, :width],

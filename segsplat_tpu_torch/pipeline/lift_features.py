@@ -50,7 +50,6 @@ import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from segsplat_tpu_torch.core.types import VoxelGrid
 from segsplat_tpu_torch.io.artifacts import load_feature_map, save_voxel_features
@@ -61,6 +60,7 @@ from segsplat_tpu_torch.ops.lift import default_max_steps, first_hit_voxels, sca
 from segsplat_tpu_torch.ops.lift_splat import lift_view_splat
 from segsplat_tpu_torch.ops.voxelize import occupancy_from_grid
 from segsplat_tpu_torch.parallel.mesh import VIEW_AXIS, Mesh, shard_range
+from segsplat_tpu_torch.utils.profiling import annotate
 from segsplat_tpu_torch.utils.system import require_device
 
 
@@ -141,7 +141,7 @@ def camera_arrays_for(files: Sequence[str], name_to_entry, cam_params,
             np.stack(intr) if intr else np.zeros((0, 4), np.float32), kept)
 
 
-@record_function("lift.resize")
+@annotate("lift.resize")
 def resize_features(fmap: torch.Tensor, height: int, width: int) -> torch.Tensor:
     """[C, h, w] → [C, height, width] float32, bilinear with half-pixel centres
     and a widened triangle filter when it shrinks: ``jax.image.resize(...,

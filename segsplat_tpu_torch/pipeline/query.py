@@ -17,8 +17,8 @@ prompts get the JAX package's deterministic sha256-seeded hash embeddings,
 with a warning: the labels then carry no meaning. A failure of a given text
 model raises.
 
-The query's stages run inside ``torch.profiler.record_function`` ranges
-(``query.load``, ``query.project``, ``query.fetch``, ``query.gather``,
+The query's stages run inside spans (``utils/profiling.annotate``:
+``query.load``, ``query.project``, ``query.fetch``, ``query.gather``,
 ``query.npz``, ``query.ply``), so a profiler attributes its device and host
 time per stage.
 """
@@ -31,7 +31,6 @@ from typing import Sequence
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from segsplat_tpu_torch.io.artifacts import load_voxel_features, save_semantics
 from segsplat_tpu_torch.io.ply import read_ply, write_voxel_grid_ply
@@ -40,6 +39,7 @@ from segsplat_tpu_torch.io.provenance import (read_weights_source, require_untai
 from segsplat_tpu_torch.models.clip_text import project_features_to_labels
 from segsplat_tpu_torch.ops.knn import nearest_neighbor_index
 from segsplat_tpu_torch.utils.palette import bit_shuffle_palette
+from segsplat_tpu_torch.utils.profiling import annotate
 from segsplat_tpu_torch.utils.system import require_device
 
 LERF_NEGATIVES = ("object", "things", "stuff", "texture")
@@ -112,14 +112,14 @@ def label_voxels(feats: torch.Tensor, text_emb: torch.Tensor, logit_scale: float
 def _score_table(voxel_features_path: str, prompts: Sequence[str], text_model,
                  logit_scale: float, device: torch.device):
     """(voxel artifact, logits [V, P] and labels [V] as numpy)."""
-    with record_function("query.load"):
+    with annotate("query.load"):
         vox = load_voxel_features(voxel_features_path)
         feats = torch.as_tensor(np.asarray(vox["feat"], np.float32), device=device)
         text_emb = torch.as_tensor(_encode_prompts(prompts, text_model, feats.shape[-1]),
                                    dtype=torch.float32, device=device)
-    with record_function("query.project"):
+    with annotate("query.project"):
         logits, labels = label_voxels(feats, text_emb, logit_scale)
-    with record_function("query.fetch"):
+    with annotate("query.fetch"):
         return vox, logits.cpu().numpy(), labels.cpu().numpy()
 
 
@@ -137,16 +137,16 @@ def query(voxel_features_path: str, map_path: str, gaussians_path: str,
     _check_taint(voxel_features_path, allow_random_weights, strict=require_provenance)
     vox, logits, voxel_cls = _score_table(voxel_features_path, prompts, text_model,
                                           logit_scale, device)
-    with record_function("query.gather"):
+    with annotate("query.gather"):
         g2v = np.load(map_path)
         g_labels = voxel_cls[g2v]
         g_logits = logits[g2v]
 
-    with record_function("query.npz"):
+    with annotate("query.npz"):
         save_semantics(out_path, labels=g_labels, logits=g_logits, prompts=prompts)
         _propagate_provenance(voxel_features_path, out_path, stage="query")
     if save_ply:
-        with record_function("query.ply"):
+        with annotate("query.ply"):
             mu = load_gaussian_centers(gaussians_path)   # only the PLY needs it
             pal = bit_shuffle_palette(max(len(prompts), 1))
             base = os.path.splitext(out_path)[0]

@@ -18,7 +18,7 @@ the trained codebook learns the grouping.
      regions under ``min_pixels`` and ids compacted to 1..N.
 
 ``segment_image`` runs both, the first in a ``segment.slic`` and the second in
-a ``segment.merge`` ``torch.profiler.record_function`` range.
+a ``segment.merge`` span (``utils/profiling.annotate``).
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from segsplat_tpu_torch.ops.voxelize import segment_sum
+from segsplat_tpu_torch.utils.profiling import annotate
 from segsplat_tpu_torch.utils.system import require_device
 
 # the 3×3 neighbourhood in the JAX scan's order: the first offset at the
@@ -213,8 +214,8 @@ def segment_image(image: np.ndarray, cfg: SegmentConfig = SegmentConfig(),
         img = img.astype(np.float32) / 255.0
     H, W = img.shape[:2]
     gy, gx = grid_dims(H, W, cfg.n_segments)
-    with torch.profiler.record_function("segment.slic"):
+    with annotate("segment.slic"):
         labels = slic_labels(torch.as_tensor(img, dtype=torch.float32, device=device),
                              gy, gx, cfg.iters, cfg.compactness).cpu().numpy()
-    with torch.profiler.record_function("segment.merge"):
+    with annotate("segment.merge"):
         return merge_regions(labels, img, cfg)

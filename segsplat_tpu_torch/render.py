@@ -22,6 +22,7 @@ import torch
 from segsplat_tpu_torch.core.sh import sh_to_color
 from segsplat_tpu_torch.core.types import NUM_SEMANTIC_CHANNELS, Camera, GaussianTable
 from segsplat_tpu_torch.ops.rasterize import BACKENDS, pad_logits_to_channels, rasterize
+from segsplat_tpu_torch.utils.profiling import annotate
 
 __all__ = ["BACKENDS", "raster_backend", "render", "render_semantics", "render_semantics_many", "sh_colors"]
 
@@ -58,40 +59,42 @@ def render(table: GaussianTable, camera: Camera, bg_color: torch.Tensor,
     channels. override_color [C, 3] replaces the SH colours. Returns
     ``render`` [3, H, W], ``render_object`` [16, H, W], with semantic_logits
     also ``semantic_logits`` [32, H, W], and ``radii``, ``visibility_filter``,
-    ``alpha``, ``depths``, ``num_pairs`` and ``tile_overflow``."""
-    campos = camera.camera_center()
-    K = camera.intrinsics()
-    rgb = sh_colors(table, campos) if override_color is None else override_color
-    identity = table.objects_dc[:, 0, :]                      # [C, 16]
-    zeros = lambda n: torch.zeros((n,), dtype=rgb.dtype, device=rgb.device)
-    payload = [rgb, identity]
-    bg = [bg_color.to(rgb.dtype), zeros(identity.shape[1])]
-    if semantic_logits is not None:
-        payload.append(pad_logits_to_channels(semantic_logits, NUM_SEMANTIC_CHANNELS))
-        bg.append(zeros(NUM_SEMANTIC_CHANNELS))
-    opac = table.get_opacity()[:, 0] * table.active.to(rgb.dtype)
-    out = rasterize(table.xyz, scaling_modifier * table.get_scaling(), table.get_rotation(),
-                    opac, torch.cat(payload, dim=1),
-                    camera.world_view_transform(), K[0, 0], K[1, 1], K[0, 2], K[1, 2],
-                    camera.width, camera.height,
-                    bg=torch.cat(bg), means2d_offset=means2d_offset,
-                    max_tiles_per_axis=max_tiles_per_axis, max_per_tile=max_per_tile,
-                    tile_chunk=tile_chunk, backend=backend, pair_cap=pair_cap)
-    img = out["image"]
-    n_id = identity.shape[1]
-    result = {
-        "render": img[..., 0:3].permute(2, 0, 1),
-        "render_object": img[..., 3:3 + n_id].permute(2, 0, 1),
-        "radii": out["radii"],
-        "visibility_filter": out["radii"] > 0,
-        "alpha": out["alpha"],
-        "depths": out["depths"],
-        "num_pairs": out["num_pairs"],
-        "tile_overflow": out["tile_overflow"],
-    }
-    if semantic_logits is not None:
-        result["semantic_logits"] = img[..., 3 + n_id:].permute(2, 0, 1)
-    return result
+    ``alpha``, ``depths``, ``num_pairs`` and ``tile_overflow``. Runs in the
+    span ``render.render``."""
+    with annotate("render.render"):
+        campos = camera.camera_center()
+        K = camera.intrinsics()
+        rgb = sh_colors(table, campos) if override_color is None else override_color
+        identity = table.objects_dc[:, 0, :]                      # [C, 16]
+        zeros = lambda n: torch.zeros((n,), dtype=rgb.dtype, device=rgb.device)
+        payload = [rgb, identity]
+        bg = [bg_color.to(rgb.dtype), zeros(identity.shape[1])]
+        if semantic_logits is not None:
+            payload.append(pad_logits_to_channels(semantic_logits, NUM_SEMANTIC_CHANNELS))
+            bg.append(zeros(NUM_SEMANTIC_CHANNELS))
+        opac = table.get_opacity()[:, 0] * table.active.to(rgb.dtype)
+        out = rasterize(table.xyz, scaling_modifier * table.get_scaling(), table.get_rotation(),
+                        opac, torch.cat(payload, dim=1),
+                        camera.world_view_transform(), K[0, 0], K[1, 1], K[0, 2], K[1, 2],
+                        camera.width, camera.height,
+                        bg=torch.cat(bg), means2d_offset=means2d_offset,
+                        max_tiles_per_axis=max_tiles_per_axis, max_per_tile=max_per_tile,
+                        tile_chunk=tile_chunk, backend=backend, pair_cap=pair_cap)
+        img = out["image"]
+        n_id = identity.shape[1]
+        result = {
+            "render": img[..., 0:3].permute(2, 0, 1),
+            "render_object": img[..., 3:3 + n_id].permute(2, 0, 1),
+            "radii": out["radii"],
+            "visibility_filter": out["radii"] > 0,
+            "alpha": out["alpha"],
+            "depths": out["depths"],
+            "num_pairs": out["num_pairs"],
+            "tile_overflow": out["tile_overflow"],
+        }
+        if semantic_logits is not None:
+            result["semantic_logits"] = img[..., 3 + n_id:].permute(2, 0, 1)
+        return result
 
 
 def _semantic_inputs(table: GaussianTable, logits: torch.Tensor, bg_value: float):
@@ -116,11 +119,14 @@ def render_semantics(table: GaussianTable, camera: Camera, logits: torch.Tensor,
                      pair_cap: Optional[int] = None, return_aux: bool = False):
     """Semantic logits [32, H, W] of one view, on the table's device. With
     ``return_aux`` also a dict of 0-dim tensors ``num_pairs`` and
-    ``tile_overflow``, so callers can surface truncation."""
-    gaussians, bg = _semantic_inputs(table, logits, bg_value)
-    out = _render_one(gaussians, bg, camera, max_tiles_per_axis=max_tiles_per_axis,
-                      max_per_tile=max_per_tile, backend=backend, pair_cap=pair_cap)
-    sem = out["image"].permute(2, 0, 1)
+    ``tile_overflow``, so callers can surface truncation. Runs in the span
+    ``render.semantics``, whose self time is the entry: the activated table
+    and payload, and the permute."""
+    with annotate("render.semantics"):
+        gaussians, bg = _semantic_inputs(table, logits, bg_value)
+        out = _render_one(gaussians, bg, camera, max_tiles_per_axis=max_tiles_per_axis,
+                          max_per_tile=max_per_tile, backend=backend, pair_cap=pair_cap)
+        sem = out["image"].permute(2, 0, 1)
     if return_aux:
         return sem, {"tile_overflow": out["tile_overflow"], "num_pairs": out["num_pairs"]}
     return sem

@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from segsplat_tpu_torch.ops.assignment import linear_sum_assignment
+from segsplat_tpu_torch.utils.profiling import annotate
 
 NUM_CLUSTERS = 256
 
@@ -147,19 +148,26 @@ def virtual_gt_labels(gt_obj: torch.Tensor, logits: torch.Tensor,
     """Hungarian-matched relabelling [H, W] of the mask ids gt_obj [H, W] by the
     codebook scores logits [K, H, W]: the [K, K] cost is minus the per-id sums
     of softmax scores (rows of absent ids 0), solved on the host for the
-    present ids only. No gradient flows through it."""
-    K = logits.shape[0]
-    lab = torch.clamp(gt_obj.reshape(-1), 0, NUM_CLUSTERS - 1).long()
-    probs = torch.softmax(logits.detach().reshape(K, -1).T, dim=-1)   # [P, K]
-    oh = _label_onehot(lab) if onehot is None else onehot
-    counts = oh.sum(dim=0)
-    sums = oh.T @ probs                                                # [K, K]
-    present = counts > 0
-    cost = torch.where(present[:, None], -sums, 0.0)
-    # one host sync per step: the fetched cost and present mask
-    assign, _ = linear_sum_assignment(cost.cpu().numpy(), row_mask=present.cpu().numpy())
-    assign = torch.as_tensor(assign, device=gt_obj.device).long()
-    return assign[lab].reshape(gt_obj.shape)
+    present ids only. No gradient flows through it.
+
+    Runs in the span ``train.assign``; inside it ``train.assign.fetch``, the
+    one wait for the device, and ``train.assign.solve``, the host LAP."""
+    with annotate("train.assign"):
+        K = logits.shape[0]
+        lab = torch.clamp(gt_obj.reshape(-1), 0, NUM_CLUSTERS - 1).long()
+        probs = torch.softmax(logits.detach().reshape(K, -1).T, dim=-1)   # [P, K]
+        oh = _label_onehot(lab) if onehot is None else onehot
+        counts = oh.sum(dim=0)
+        sums = oh.T @ probs                                                # [K, K]
+        present = counts > 0
+        cost = torch.where(present[:, None], -sums, 0.0)
+        # one host sync per step: the fetched cost and present mask
+        with annotate("train.assign.fetch"):
+            cost_np, present_np = cost.cpu().numpy(), present.cpu().numpy()
+        with annotate("train.assign.solve"):
+            assign, _ = linear_sum_assignment(cost_np, row_mask=present_np)
+        assign = torch.as_tensor(assign, device=gt_obj.device).long()
+        return assign[lab].reshape(gt_obj.shape)
 
 
 def gated_classification_loss(logits: torch.Tensor, vgt: torch.Tensor,

@@ -28,6 +28,7 @@ from segsplat_tpu_torch.ops.knn import knn_mean_sq_dist
 from segsplat_tpu_torch.render import render
 from segsplat_tpu_torch.train import losses as L
 from segsplat_tpu_torch.train.densify import PARAM_FIELDS, DensifyStats, add_stats
+from segsplat_tpu_torch.utils.profiling import annotate
 from segsplat_tpu_torch.utils.system import require_device
 
 # parameter group of each table field, as the JAX package labels them
@@ -164,33 +165,36 @@ def compute_losses(table: GaussianTable, code_book: torch.Tensor, camera: Camera
 
     ``shard_logits(code_book, features [16, P]) → [256, P]`` computes the
     codebook logits in place of ``code_book @ features``: the tensor-parallel
-    step (parallel/train.py) computes a rank's rows and gathers the rest."""
-    out = render(table, camera, bg, means2d_offset=offset, **raster_kw)
-    image, objects = out["render"], out["render_object"]
+    step (parallel/train.py) computes a rank's rows and gathers the rest.
 
-    ll1 = L.l1_loss(image, gt_image)
-    dssim = 1.0 - L.ssim(image, gt_image)
-    contrast, reg = L.contrastive_loss(objects, gt_obj, generator=generator, idx=idx)
-    # one [P, 256] one-hot shared by the confidence map and the virtual-GT cost
-    lab_oh = L._label_onehot(torch.clamp(gt_obj.reshape(-1), 0, L.NUM_CLUSTERS - 1))
-    conf = L.confidence_map(objects, gt_obj, onehot=lab_oh)
-    # codebook logits on detached features (train_unified_lift.py:371)
-    obj_flat = objects.detach().reshape(NUM_OBJECTS, -1)
-    logits = (code_book @ obj_flat if shard_logits is None
-              else shard_logits(code_book, obj_flat)).reshape(NUM_CODEBOOK, *gt_obj.shape)
-    vgt = L.virtual_gt_labels(gt_obj, logits, onehot=lab_oh)
-    cls_loss = L.gated_classification_loss(logits, vgt, conf, cfg.num_classes)
-    clu_loss = L.clustering_loss(objects, vgt, code_book, conf)
+    Runs in the span ``train.losses``."""
+    with annotate("train.losses"):
+        out = render(table, camera, bg, means2d_offset=offset, **raster_kw)
+        image, objects = out["render"], out["render_object"]
 
-    total = ((1.0 - cfg.lambda_dssim) * ll1 + cfg.lambda_dssim * dssim
-             + cfg.w_contrastive * contrast + cfg.w_cls * cls_loss
-             + cfg.w_clustering * clu_loss + cfg.w_reg * reg)
-    aux = {"l1": ll1, "dssim": dssim, "contrastive": contrast, "cls": cls_loss,
-           "clustering": clu_loss, "reg": reg, "total": total,
-           "radii": out["radii"], "visible": out["visibility_filter"],
-           "psnr": L.psnr(image, gt_image), "num_pairs": out["num_pairs"],
-           "tile_overflow": out["tile_overflow"]}
-    return total, aux
+        ll1 = L.l1_loss(image, gt_image)
+        dssim = 1.0 - L.ssim(image, gt_image)
+        contrast, reg = L.contrastive_loss(objects, gt_obj, generator=generator, idx=idx)
+        # one [P, 256] one-hot shared by the confidence map and the virtual-GT cost
+        lab_oh = L._label_onehot(torch.clamp(gt_obj.reshape(-1), 0, L.NUM_CLUSTERS - 1))
+        conf = L.confidence_map(objects, gt_obj, onehot=lab_oh)
+        # codebook logits on detached features (train_unified_lift.py:371)
+        obj_flat = objects.detach().reshape(NUM_OBJECTS, -1)
+        logits = (code_book @ obj_flat if shard_logits is None
+                  else shard_logits(code_book, obj_flat)).reshape(NUM_CODEBOOK, *gt_obj.shape)
+        vgt = L.virtual_gt_labels(gt_obj, logits, onehot=lab_oh)
+        cls_loss = L.gated_classification_loss(logits, vgt, conf, cfg.num_classes)
+        clu_loss = L.clustering_loss(objects, vgt, code_book, conf)
+
+        total = ((1.0 - cfg.lambda_dssim) * ll1 + cfg.lambda_dssim * dssim
+                 + cfg.w_contrastive * contrast + cfg.w_cls * cls_loss
+                 + cfg.w_clustering * clu_loss + cfg.w_reg * reg)
+        aux = {"l1": ll1, "dssim": dssim, "contrastive": contrast, "cls": cls_loss,
+               "clustering": clu_loss, "reg": reg, "total": total,
+               "radii": out["radii"], "visible": out["visibility_filter"],
+               "psnr": L.psnr(image, gt_image), "num_pairs": out["num_pairs"],
+               "tile_overflow": out["tile_overflow"]}
+        return total, aux
 
 
 METRIC_KEYS = ("l1", "dssim", "contrastive", "cls", "clustering", "reg", "total",
@@ -211,26 +215,37 @@ def apply_updates(state: TrainState) -> None:
 def make_train_step(cfg: OptimizationConfig, raster_kw: Optional[dict] = None):
     """The single-view train step: ``step(state, camera, gt_image [3,H,W],
     gt_obj [H,W], bg [3], generator=None, idx=None) → metrics`` (0-dim
-    tensors). It updates ``state`` in place."""
+    tensors). It updates ``state`` in place.
+
+    The step runs in the span ``train.step``, which counts the device
+    allocations it makes; inside it ``train.losses``, ``train.backward``,
+    ``train.adam`` (the gradients' reset, then the update) and
+    ``train.stats``."""
     raster_kw = dict(raster_kw or {})
 
     def train_step(state: TrainState, camera: Camera, gt_image: torch.Tensor,
                    gt_obj: torch.Tensor, bg: torch.Tensor,
                    generator: Optional[torch.Generator] = None,
                    idx: Optional[torch.Tensor] = None) -> dict:
-        table = state.table
-        offset = torch.zeros((table.capacity, 2), dtype=torch.float32,
-                             device=table.xyz.device, requires_grad=True)
-        total, aux = compute_losses(table, state.code_book, camera, gt_image, gt_obj,
-                                    bg, cfg, offset, raster_kw, generator=generator,
-                                    idx=idx)
-        state.gauss_opt.zero_grad(set_to_none=True)
-        state.cls_opt.zero_grad(set_to_none=True)
-        total.backward()
-        apply_updates(state)
-        state.stats = add_stats(state.stats, offset.grad, aux["visible"], aux["radii"])
-        state.step += 1
-        return {k: aux[k].detach() for k in METRIC_KEYS}
+        with annotate("train.step", allocs=True):
+            table = state.table
+            offset = torch.zeros((table.capacity, 2), dtype=torch.float32,
+                                 device=table.xyz.device, requires_grad=True)
+            total, aux = compute_losses(table, state.code_book, camera, gt_image, gt_obj,
+                                        bg, cfg, offset, raster_kw, generator=generator,
+                                        idx=idx)
+            with annotate("train.adam"):
+                state.gauss_opt.zero_grad(set_to_none=True)
+                state.cls_opt.zero_grad(set_to_none=True)
+            with annotate("train.backward"):
+                total.backward()
+            with annotate("train.adam"):
+                apply_updates(state)
+            with annotate("train.stats"):
+                state.stats = add_stats(state.stats, offset.grad, aux["visible"],
+                                        aux["radii"])
+            state.step += 1
+            return {k: aux[k].detach() for k in METRIC_KEYS}
 
     return train_step
 

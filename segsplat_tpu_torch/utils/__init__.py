@@ -4,7 +4,7 @@ from segsplat_tpu_torch.utils.config import (ModelParams, OptimizationParams, Pa
                                              PipelineParams, get_combined_args,
                                              load_json_config, save_cfg_args)
 from segsplat_tpu_torch.utils.palette import bit_shuffle_palette, colorize_labels
-from segsplat_tpu_torch.utils.profiling import StepTimer, annotate, timed, trace
+from segsplat_tpu_torch.utils.profiling import annotate, trace
 from segsplat_tpu_torch.utils.system import (mkdir_p, require_device, safe_state,
                                              search_for_max_iteration)
 
@@ -12,6 +12,6 @@ __all__ = [
     "ModelParams", "OptimizationParams", "ParamGroup", "PipelineParams",
     "get_combined_args", "load_json_config", "save_cfg_args",
     "bit_shuffle_palette", "colorize_labels",
-    "StepTimer", "annotate", "timed", "trace",
+    "annotate", "trace",
     "mkdir_p", "require_device", "safe_state", "search_for_max_iteration",
 ]

@@ -49,6 +49,9 @@ NO_TWIN = {
     # JAX NamedSharding helpers; the port shards with parallel/mesh's own
     "parallel/mesh.py": {"channel_sharding", "replicated", "view_sharding"},
     "parallel/__init__.py": {"channel_sharding", "replicated", "view_sharding"},
+    # the host timers nothing read; the port times with its spans
+    # (utils/profiling.annotate)
+    "utils/profiling.py": {"StepTimer", "timed"},
 }
 # the Pallas modules, whose kernels the port has in csrc/ behind ops/blend.py
 PALLAS_MODULES = {"ops/blend_pallas.py", "ops/blend_pallas2.py", "ops/blend_pallas_vjp.py"}
