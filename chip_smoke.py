@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 Phases, each fatal on failure:
-  1. device: print the card and its power limit; build the three CUDA kernels from
+  1. device: print the card and its power limit; build the four CUDA kernels from
      segsplat_tpu_torch/csrc with nvcc, one process per source, in parallel
-     (each at every width of csrc/blend_widths.cuh).
+     (the three blends at every width of csrc/blend_widths.cuh, and the
+     projection).
   2. kernels vs plain on small scenes, the cases of tests/_torch_port.py, at
      19, 32 and 51 channels: K = 128, 256 and 384 (one 128-row block, one
      256-row block, three 128-row blocks with the transmittance carry), an
@@ -27,13 +28,20 @@ Phases, each fatal on failure:
      (seed 7, m=6, K=512, pair_cap 6M), built as bench.py builds them; times the
      kernel, its plain version and the whole rasterize with CUDA events, and
      reckons the kernel's bound from the rows and pair-pixels this data needs.
-     On the headline frame also the gradient of a seeded linear functional of
-     rasterize's image, which launches K2 at 32 channels, and K2 on that
-     frame's cotangent against its plain version, timed.
+     The projection that feeds each blend check, here, in phase 4's view 0
+     and in the other phases' blend inputs, runs the projection kernel
+     (csrc/project.cu) outside autograd: it must launch once and give
+     ``project_gaussians_plain``'s bits in all five outputs. On the headline
+     frame the kernel's device time (profiler), the call's and the plain
+     version's, host ms a call, and its bound by bytes; also the gradient of
+     a seeded linear functional of rasterize's image, which launches K2 at 32
+     channels, and K2 on that frame's cotangent against its plain version,
+     timed.
   4. the semantic render path through its entry point: the CLI twin
      segsplat_tpu_torch/render_semantics_logits.py renders 4 views at 1080p of a
-     model dir written here; K1's launch count must rise, and view 0's logits
-     must match the plain blend on the same inputs.
+     model dir written here; K1's and the projection kernel's launch counts
+     must reach the views', and view 0's logits must match the plain blend on
+     the same inputs.
   5. the full-width train step of scripts/perf_train.py's configuration
      (876×584, capacity 262 144, 200 000 Gaussians from its seed, m=3, K=256,
      256 classes): step 1's loss terms and gradients with K1 + K2 against the
@@ -208,13 +216,13 @@ Phases, each fatal on failure:
   15. ``measure``: the system's measurement programs, each as ``python -m`` runs it
      at its defaults, in one child process that cannot import JAX, the JAX
      package, scripts/ or tests/: ``segsplat_tpu_torch.bench`` (its one line
-     with bench.py's keys less the two lift_baseline ones; K1 exactly once a
-     frame rendered, 96; the hostile scene's largest pair count equal to a
+     with bench.py's keys less the two lift_baseline ones; K1 and the
+     projection kernel exactly once a frame rendered, 96; the hostile scene's largest pair count equal to a
      recount of every bench camera in this process, frame 0's equal to phase
      3's), ``perf_raster_stages`` (its eight lines and "accounted"; K1 128),
      ``perf_bin_dissect`` (its 8 stages; no kernel), ``perf_lift_stages`` (its
      six lines; no kernel) and ``perf_train`` (its line; K1 and K2 once a
-     step, 40 each).
+     step, 40 each; the projection kernel never, as autograd records it).
   16. ``compile``: the blends as registered ops under torch.compile and the
      harness programs: (a) ``graft_entry.entry()``'s frame compiled by
      Inductor with fullgraph, its logits requiring grad: against eager within
@@ -256,7 +264,8 @@ from concurrent.futures import ThreadPoolExecutor
 
 ATOL = RTOL = 1e-4          # K1 against its plain version
 GRAD_RTOL, GRAD_ATOL_REL = 5e-3, 2e-4   # gradients: rtol, atol as a share of max|ref|
-KERNELS = ("blend_fwd", "blend_bwd", "blend_packed")
+KERNELS = ("blend_fwd", "blend_bwd", "blend_packed", "project")
+PROJECT_BYTES = 73          # a Gaussian: 44 read (t_cam, norm, scales, quats), 29 written
 PEAK_FP32_FLOPS = 67e12     # H100 SXM, fp32 outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12    # H100 SXM HBM3
 FRAME_W, FRAME_H = 1920, 1080   # the headline and hostile frames (bench.py)
@@ -353,17 +362,43 @@ def bench_camera(W: int = 1920, H: int = 1080):
 
 # ───────────────────────────────── phases ─────────────────────────────────────
 
+def project_checked(*args, **kw):
+    """``project_gaussians(*args, **kw)`` under no_grad, which must launch the
+    projection kernel once and give ``project_gaussians_plain``'s bits in all
+    five outputs (``torch.equal``); returns the kernel's Projected."""
+    import torch
+
+    from segsplat_tpu_torch.ops.rasterize import (Projected, project_gaussians,
+                                                  project_gaussians_plain)
+
+    before = project_gaussians.launches
+    with torch.no_grad():
+        got = project_gaussians(*args, **kw)
+        ref = project_gaussians_plain(*args, **kw)
+    if project_gaussians.launches != before + 1:
+        raise AssertionError(f"the projection launched its kernel "
+                             f"{project_gaussians.launches - before} times, not once")
+    for name in Projected._fields:
+        g, r = getattr(got, name), getattr(ref, name)
+        if g.dtype != r.dtype or g.shape != r.shape or not torch.equal(g, r):
+            raise AssertionError(f"projection kernel's {name} differs from the plain "
+                                 f"version's: {g.dtype} {tuple(g.shape)} against {r.dtype} "
+                                 f"{tuple(r.shape)}, "
+                                 f"{int((g != r).sum()) if g.shape == r.shape else '?'} differ")
+    return got
+
+
 def blend_inputs_on_card(sc, W, H, cam, m, K, pair_cap=None, packed=False):
     import torch
 
-    from segsplat_tpu_torch.ops.rasterize import build_blend_inputs, project_gaussians
+    from segsplat_tpu_torch.ops.rasterize import build_blend_inputs
 
     dev = torch.device("cuda")
     t = {k: torch.as_tensor(sc[k], device=dev) for k in ("xyz", "scales", "quats",
                                                          "opac", "logits")}
     vm, fx, fy, cx, cy = cam
-    proj = project_gaussians(t["xyz"], t["scales"], t["quats"],
-                             torch.as_tensor(vm, device=dev), fx, fy, cx, cy, W, H)
+    proj = project_checked(t["xyz"], t["scales"], t["quats"],
+                           torch.as_tensor(vm, device=dev), fx, fy, cx, cy, W, H)
     return t, build_blend_inputs(proj, t["logits"], t["opac"], W, H, m, K,
                                  pair_cap=pair_cap, packed=packed)
 
@@ -571,7 +606,7 @@ def phase_full(results):
     from segsplat_tpu_torch.ops.blend import (blend_tiles, blend_tiles_plain,
                                               blend_tiles_plain_with_work, blend_tiles_warp_rows)
     from segsplat_tpu_torch.ops.rasterize import (build_blend_inputs, project_gaussians,
-                                                  rasterize)
+                                                  project_gaussians_plain, rasterize)
 
     W, H = FRAME_W, FRAME_H
     cam = bench_camera(W, H)
@@ -600,7 +635,7 @@ def phase_full(results):
                                    max_tiles_per_axis=m, max_per_tile=K, pair_cap=cap)
         project = lambda: project_gaussians(t["xyz"], t["scales"], t["quats"], vm_t,
                                             fx, fy, cx, cy, W, H)
-        proj = project()
+        proj = project_checked(t["xyz"], t["scales"], t["quats"], vm_t, fx, fy, cx, cy, W, H)
         binning = lambda: build_blend_inputs(proj, t["logits"], t["opac"], W, H, m, K,
                                              pair_cap=cap)
         ms = cuda_time_ms(blend, reps=10)
@@ -619,10 +654,49 @@ def phase_full(results):
         results["scenes"][name] = scene
         log(f"[full] {name}: " + json.dumps(scene))
         if name == "headline":
+            plain_project = lambda: project_gaussians_plain(t["xyz"], t["scales"], t["quats"],
+                                                            vm_t, fx, fy, cx, cy, W, H)
+            results["project"] = project_stats(project, plain_project, t["xyz"].shape[0])
+            log("[full] headline projection: " + json.dumps(results["project"]))
             results["k2_32"] = k2_on_frame(results, t, bi, bg, cam, W, H, m, K, cap)
             log("[full] headline K2 CH=32: " + json.dumps(results["k2_32"]))
         del t, bi
         torch.cuda.empty_cache()
+
+
+def host_ms(fn, calls: int = 100) -> float:
+    """Median host time of one ``fn()`` call, the card left to run behind."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def project_stats(project, plain, n: int) -> dict:
+    """The projection on a frame of ``n`` Gaussians: the kernel's device ms
+    (profiler), the whole call's (CUDA events: the kernel with its eager
+    matmul and norm) and the plain version's, host ms a call of each, and the
+    kernel's bound: PROJECT_BYTES a Gaussian over 3.35 TB/s."""
+    import torch
+
+    with torch.no_grad():
+        trace = device_trace(lambda v: project(), 20, share_of="project_kernel")
+        kernel = trace.get("project_kernel")
+        bytes_ = PROJECT_BYTES * n
+        return dict(ms=kernel["ms_per_view"] if kernel else "not measured",
+                    kernel_launches_per_call=kernel["launches_per_view"] if kernel else None,
+                    call_ms=cuda_time_ms(project, reps=20),
+                    plain_ms=cuda_time_ms(plain, reps=10),
+                    host_ms=host_ms(project), plain_host_ms=host_ms(plain, calls=20),
+                    bound_ms=bytes_ / PEAK_HBM_BYTES * 1e3, bound_by="bytes", bytes=bytes_,
+                    gaussians=n)
 
 
 def k2_on_frame(results, t, bi, bg, cam, W, H, m, K, cap):
@@ -724,7 +798,7 @@ def view0_blend_inputs(src: str, model: str, iteration: int, sem: str):
     camera, BlendInputs, bg, K)."""
     import torch
 
-    from segsplat_tpu_torch.ops.rasterize import build_blend_inputs, project_gaussians
+    from segsplat_tpu_torch.ops.rasterize import build_blend_inputs
     from segsplat_tpu_torch.pipeline.render_semantics import (PAIR_CAP_MAX,
                                                               attach_logits_for_table)
     from segsplat_tpu_torch.render import _semantic_inputs
@@ -737,8 +811,8 @@ def view0_blend_inputs(src: str, model: str, iteration: int, sem: str):
     logits = torch.as_tensor(attach_logits_for_table(table, sem), device=DEV)
     (xyz, scaling, rotation, opac, payload), bg = _semantic_inputs(table, logits, 0.0)
     Kc = cam.intrinsics()
-    proj = project_gaussians(xyz, scaling, rotation, cam.world_view_transform(), Kc[0, 0],
-                             Kc[1, 1], Kc[0, 2], Kc[1, 2], cam.width, cam.height)
+    proj = project_checked(xyz, scaling, rotation, cam.world_view_transform(), Kc[0, 0],
+                           Kc[1, 1], Kc[0, 2], Kc[1, 2], cam.width, cam.height)
     bi = build_blend_inputs(proj, payload, opac, cam.width, cam.height, m, K,
                             pair_cap=min(table.capacity * m * m, PAIR_CAP_MAX))
     return scene, logits, cam, bi, bg, K
@@ -783,13 +857,14 @@ def phase_main_path(results, root: str):
 
     from segsplat_tpu_torch import render_semantics_logits as cli
     from segsplat_tpu_torch.ops.blend import blend_tiles, blend_tiles_bwd
+    from segsplat_tpu_torch.ops.rasterize import project_gaussians
 
     n_views = 4
     model, sem = write_model_dir(root, n_views)
     argv = ["--model_path", model, "--iteration", "1", "--semantics", sem,
             "--skip_test", "--resolution", "1", "--device", "cuda"]
     stdout = sys.stdout         # the CLI's safe_state timestamps stdout lines
-    blend_tiles.launches = blend_tiles_bwd.launches = 0
+    blend_tiles.launches = blend_tiles_bwd.launches = project_gaussians.launches = 0
     t0 = time.perf_counter()
     try:
         cli.main(argv)
@@ -798,11 +873,15 @@ def phase_main_path(results, root: str):
         sys.stdout = stdout
     launches = blend_tiles.launches
     results["launches"]["render_semantics"] = {"blend_fwd": launches,
-                                               "blend_bwd": blend_tiles_bwd.launches}
+                                               "blend_bwd": blend_tiles_bwd.launches,
+                                               "project": project_gaussians.launches}
     results["cli_s"] = time.perf_counter() - t0
     if launches < n_views:
         raise AssertionError(f"main path launched the blend kernel {launches} "
                              f"times for {n_views} views")
+    if project_gaussians.launches < n_views:
+        raise AssertionError(f"main path launched the projection kernel "
+                             f"{project_gaussians.launches} times for {n_views} views")
 
     out_dir = os.path.join(model, "train", "ours_1", "semantics")
     for i in range(n_views):
@@ -817,7 +896,8 @@ def phase_main_path(results, root: str):
 
     fp16_err, clear = view0_against_plain(os.path.join(root, "scene"), model, 1, sem, out_dir)
     log(f"[main] CLI rendered {n_views} views at 1920x1080 in "
-        f"{results['cli_s']:.3f} s; blend launches {launches}; view 0 logits vs "
+        f"{results['cli_s']:.3f} s; blend launches {launches}, projection launches "
+        f"{results['launches']['render_semantics']['project']}; view 0 logits vs "
         f"plain max abs diff {fp16_err:.3g} (fp16 file); labels equal on "
         f"{clear} px with top1-top2 > 1e-2")
 
@@ -4404,8 +4484,10 @@ for name in list(sys.modules):
 for name in blocked:
     sys.modules[name] = None
 from segsplat_tpu_torch.ops import blend as B
+from segsplat_tpu_torch.ops import rasterize as R
 for mod in {modules!r}:
     B.blend_tiles.launches = B.blend_tiles_bwd.launches = B.blend_tiles_packed.launches = 0
+    R.project_gaussians.launches = 0
     sys.argv = [mod]
     out = io.StringIO()
     t0 = time.perf_counter()
@@ -4420,7 +4502,8 @@ for mod in {modules!r}:
     launches = dict(blend_fwd=B.blend_tiles.launches, blend_bwd=B.blend_tiles_bwd.launches,
                     blend_packed=B.blend_tiles_packed.launches)
     print(json.dumps(dict(module=mod, seconds=time.perf_counter() - t0, stdout=out.getvalue(),
-                          launches=launches)), flush=True)
+                          launches=launches, project_launches=R.project_gaussians.launches)),
+          flush=True)
 """
 
 
@@ -4487,7 +4570,8 @@ def phase_measure(results):
     for name, rec in runs.items():
         for text in rec["stdout"].rstrip().splitlines():
             log(f"[measure] {name}: {text}")
-        log(f"[measure] {name}: {rec['seconds']:.1f} s, launches {json.dumps(rec['launches'])}")
+        log(f"[measure] {name}: {rec['seconds']:.1f} s, launches {json.dumps(rec['launches'])}, "
+            f"projection kernel {rec['project_launches']}")
 
     # the bench: bench.py's keys, K1 once a frame rendered, the pair maximum
     b = runs["bench"]
@@ -4498,6 +4582,9 @@ def phase_measure(results):
     frames = (bench.SETS + 1) * (bench.FRAMES + bench.HOSTILE_FRAMES)
     if b["launches"] != dict(blend_fwd=frames, blend_bwd=0, blend_packed=0):
         raise AssertionError(f"the bench rendered {frames} frames and launched {b['launches']}")
+    if b["project_launches"] != frames:
+        raise AssertionError(f"the bench rendered {frames} frames and launched the projection "
+                             f"kernel {b['project_launches']} times")
     if not (line["value"] > 0 and line["extra"]["lift_views_per_s"] > 0
             and line["extra"]["hostile_render"]["fps"] > 0):
         raise AssertionError(f"the bench's line: {line}")
@@ -4527,10 +4614,14 @@ def phase_measure(results):
     for name, counts in want.items():
         if runs[name]["launches"] != counts:
             raise AssertionError(f"{name} launched {runs[name]['launches']}, not {counts}")
+    if runs["perf_train"]["project_launches"] != 0:     # its projection is differentiated
+        raise AssertionError(f"perf_train's {steps} steps launched the projection kernel "
+                             f"{runs['perf_train']['project_launches']} times")
     results["measure"] = dict(
         bench=line, hostile_recount=dict(max=max(recount), frame0=recount[0], phase3=phase3),
         raster=raster, bin_dissect=bins, lift=lift, train=train_line,
         launches={k: v["launches"] for k, v in runs.items()},
+        project_launches={k: v["project_launches"] for k, v in runs.items()},
         seconds={k: v["seconds"] for k, v in runs.items()})
     log("[measure] " + json.dumps(results["measure"]))
 
@@ -4929,7 +5020,8 @@ def main(argv=None) -> int:
             "no result line: not every phase ran")
         return 2
 
-    fwd_src, bwd_src, packed_src = (f"segsplat_tpu_torch/csrc/{k}.cu" for k in KERNELS)
+    fwd_src, bwd_src, packed_src, project_src = (f"segsplat_tpu_torch/csrc/{k}.cu"
+                                                 for k in KERNELS)
     k1_tpu, k2_tpu = ("segsplat_tpu/ops/blend_pallas.py:188",
                       "segsplat_tpu/ops/blend_pallas_vjp.py:195")
     k3_tpu = "segsplat_tpu/ops/blend_pallas2.py:141"
@@ -5077,6 +5169,14 @@ def main(argv=None) -> int:
         packed["headline"]["max_abs_err"], packed["headline"],
         path="torch.compile of the 1080p headline frame with USE_PACKED; times on phase 7's "
              "headline packed inputs", **occupancy["blend_packed"][32]))
+    proj_launches = results["launches"]["render_semantics"]["project"]
+    kernels.append(kernel_entry(
+        "project", None, project_src, "none: XLA ops, segsplat_tpu/ops/rasterize.py "
+        "project_gaussians", proj_launches, 0.0, results["project"],
+        path="render_semantics CLI (no grad); times on phase 3's headline frame",
+        launches_by_path={"render_semantics CLI": proj_launches},
+        **{k: results["project"][k] for k in ("call_ms", "host_ms", "plain_host_ms",
+                                              "bytes", "gaussians")}))
     log(f"[total] {time.perf_counter() - t_all:.1f} s on {smi}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,7 +1,9 @@
 """N-channel tile rasterizer for 3D Gaussians: project → bin → blend.
 
-Counterpart of segsplat_tpu/ops/rasterize.py. Projection and binning are
-ordinary torch ops. The blend has two backends: ``"cuda"``, the counterpart of
+Counterpart of segsplat_tpu/ops/rasterize.py. Projection is one hand-written
+CUDA kernel (csrc/project.cu) where nothing differentiates or compiles it, else
+ordinary torch ops, with the same bits; binning is ordinary torch ops. The
+blend has two backends: ``"cuda"``, the counterpart of
 the JAX package's ``"pallas"`` — kernel K1 forward and kernel K2 backward
 (ops/blend.py), or the packed kernel K3 where ``USE_PACKED`` turns it on — and
 ``"dense"``, the counterpart of its ``"xla"`` — ``_blend_tiles`` in torch ops,
@@ -25,6 +27,8 @@ the K cap) is discrete and carries no gradient.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 from typing import NamedTuple, Optional
 
@@ -33,6 +37,7 @@ from torch.utils.checkpoint import checkpoint
 
 from segsplat_tpu_torch.ops.blend import (PACKED_MAX_CH, _block_alpha, _pixel_centres, blend,
                                           blend_tiles_packed, make_payload, pack_payload)
+from segsplat_tpu_torch.utils import cuda_build
 from segsplat_tpu_torch.utils.profiling import annotate
 
 TILE = 16
@@ -93,7 +98,138 @@ def project_gaussians(means3d, scales, quats, viewmat, fx, fy, cx, cy,
 
     A strip of a taller frame passes the frame's tan-FoV and cy, and ``row0``,
     its first row (a multiple of 16): the means are then the frame's less
-    row0, which is exact, so the strip's pixel offsets are the frame's bits."""
+    row0, which is exact, so the strip's pixel offsets are the frame's bits.
+
+    Where nothing differentiates or traces the call and the Gaussians are on
+    the card, it launches the kernel ``csrc/project.cu``, which counts in
+    ``project_gaussians.launches`` and gives the plain version's bits; on
+    the card, an input the kernel cannot read (not float32, another device or
+    shape, a tensor subclass) raises ValueError there rather than taking the
+    plain version. The intrinsics and tan-FoVs may be 0-dim tensors on the
+    card, Python or NumPy numbers, or 0-dim CPU tensors. Everywhere else
+    (the CPU, training's differentiable renders, the compiled frame) it runs
+    ``project_gaussians_plain``."""
+    args = (means3d, scales, quats, viewmat, fx, fy, cx, cy, width, height, znear, eps2d,
+            tan_fovx, tan_fovy, row0)
+    if _kernel_takes(means3d, (scales, quats, viewmat, fx, fy, cx, cy, tan_fovx, tan_fovy)):
+        out = _project_on_card(*args)
+        project_gaussians.launches += 1
+        return out
+    return project_gaussians_plain(*args)
+
+
+project_gaussians.launches = 0
+
+
+def _on_card(means3d) -> bool:
+    """Whether the Gaussians are on the card (the CPU tests stand it in)."""
+    return means3d.is_cuda
+
+
+def _kernel_takes(means3d, others) -> bool:
+    """Whether ``project_gaussians`` launches the kernel: not under a
+    torch.compile or torch.export trace (Inductor fuses the plain version
+    there, and a fake tensor has no memory), the Gaussians on the card, and
+    nothing for autograd to record (the kernel has no backward)."""
+    if torch.compiler.is_compiling() or not _on_card(means3d):
+        return False
+    return not (torch.is_grad_enabled() and any(
+        isinstance(x, torch.Tensor) and x.requires_grad for x in (means3d,) + others))
+
+
+def _card_tensor(x, name: str, dev, shape) -> None:
+    """Raise ValueError unless ``x`` is a plain float32 tensor (or a
+    Parameter) of ``shape`` on ``dev``, as the kernel reads it."""
+    if (type(x) not in (torch.Tensor, torch.nn.Parameter) or x.dtype != torch.float32
+            or x.device != dev or tuple(x.shape) != tuple(shape)):
+        got = (f"{type(x).__name__} {x.dtype} {tuple(x.shape)} on {x.device}"
+               if isinstance(x, torch.Tensor) else type(x).__name__)
+        raise ValueError(f"project_gaussians: the projection kernel reads {name} as a "
+                         f"float32 tensor of shape {tuple(shape)} on {dev}; got {got}")
+
+
+def _card_scalar(x, name: str, dev):
+    """(pointer, value) of a scalar for the kernel: a tensor on the card
+    (0-dim float32 on ``dev``, else ValueError) by pointer, so the host never
+    waits; a Python or NumPy number or a 0-dim CPU tensor by its value."""
+    if isinstance(x, torch.Tensor) and (x.is_cuda or x.dim() != 0):
+        _card_tensor(x, name, dev, ())
+        return x.data_ptr(), 0.0
+    return None, float(x)
+
+
+def _frustum_lim(tan_fov, f, half_extent: float, dev):
+    """(mode, pointer, value) of one axis's frustum limit 1.3·tan_fov for the
+    kernel, reckoned as the plain version does: 1, a tan_fov tensor on the
+    card; 2, no tan_fov and a focal tensor f on the card (checked with the
+    intrinsics), (1 / f)·half_extent there; 0, else the plain version's own
+    expression, reckoned here on the host and passed by value."""
+    if isinstance(tan_fov, torch.Tensor) and tan_fov.is_cuda:
+        return 1, _card_scalar(tan_fov, "tan_fov", dev)[0], 0.0
+    if tan_fov is None and isinstance(f, torch.Tensor) and f.is_cuda:
+        return 2, f.data_ptr(), half_extent
+    lim = 1.3 * ((half_extent / f) if tan_fov is None else tan_fov)
+    return 0, None, _card_scalar(lim, "the frustum limit", dev)[1]
+
+
+@functools.cache
+def _project_fn():
+    """The C entry point ``segsplat_project`` of ``csrc/project.cu``."""
+    fn = cuda_build.load_library("project").segsplat_project
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = ([P] * 5 + [I, I] + [P] * 4 + [F] * 4 + [I, I, P, P, F, F] + [F] * 5
+                   + [P] * 5 + [ctypes.c_longlong, P])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(dev, *args) -> None:
+    """``segsplat_project(*args)`` on ``dev``'s current stream."""
+    with torch.cuda.device(dev):
+        err = _project_fn()(*args, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"project kernel launch failed: cudaError {err}")
+
+
+def _project_on_card(means3d, scales, quats, viewmat, fx, fy, cx, cy, width, height,
+                     znear, eps2d, tan_fovx, tan_fovy, row0) -> Projected:
+    """Check the inputs and launch ``csrc/project.cu``. The camera-space means
+    (a cuBLAS product) and the quaternions' norms (a PyTorch reduction) run
+    first, as the plain version runs them: the kernel cannot reproduce their
+    library's rounding, so it reads them."""
+    dev = means3d.device
+    n = means3d.shape[0] if means3d.dim() else 0
+    for x, name, shape in ((means3d, "means3d", (n, 3)), (scales, "scales", (n, 3)),
+                           (quats, "quats", (n, 4)), (viewmat, "viewmat", (4, 4))):
+        _card_tensor(x, name, dev, shape)
+    intr = [_card_scalar(x, name, dev) for x, name in ((fx, "fx"), (fy, "fy"),
+                                                       (cx, "cx"), (cy, "cy"))]
+    lx = _frustum_lim(tan_fovx, fx, 0.5 * width, dev)
+    ly = _frustum_lim(tan_fovy, fy, 0.5 * height, dev)
+    R_w2c = viewmat[:3, :3]
+    t_cam = (means3d @ R_w2c.T + viewmat[:3, 3]).contiguous()
+    qnorm = torch.linalg.norm(quats, dim=-1, keepdim=True)
+    scales, quats = scales.contiguous(), quats.contiguous()
+    f32 = dict(dtype=torch.float32, device=dev)
+    means2d, depths = torch.empty((n, 2), **f32), torch.empty((n,), **f32)
+    conics, radii = torch.empty((n, 3), **f32), torch.empty((n,), **f32)
+    valid = torch.empty((n,), dtype=torch.bool, device=dev)
+    _launch(dev, t_cam.data_ptr(), qnorm.data_ptr(), scales.data_ptr(), quats.data_ptr(),
+            viewmat.data_ptr(), viewmat.stride(0), viewmat.stride(1),
+            *(p for p, _ in intr), *(v for _, v in intr),
+            lx[0], ly[0], lx[1], ly[1], lx[2], ly[2], float(znear), float(eps2d), row0,
+            width, height, means2d.data_ptr(), depths.data_ptr(), conics.data_ptr(),
+            radii.data_ptr(), valid.data_ptr(), n)
+    return Projected(means2d, depths, conics, radii, valid)
+
+
+def project_gaussians_plain(means3d, scales, quats, viewmat, fx, fy, cx, cy,
+                            width: int, height: int, znear: float = 0.2,
+                            eps2d: float = 0.3, tan_fovx=None, tan_fovy=None,
+                            row0: int = 0) -> Projected:
+    """``project_gaussians`` in eager PyTorch operators, differentiable: every
+    call on the CPU, under autograd or in a compiled trace; the kernel's
+    yardstick, bit for bit."""
     R_w2c = viewmat[:3, :3]
     t_cam = means3d @ R_w2c.T + viewmat[:3, 3]
     z = t_cam[:, 2]

@@ -175,3 +175,84 @@ def test_rasterize_tan_fov_matches_jax():
                                rtol=1e-5, atol=1e-5)
     # the tighter clamp changed the Gaussians past 1.3·tan_fov
     assert not torch.equal(got["radii"], plain["radii"])
+
+
+# ── the projection's dispatch: the kernel csrc/project.cu or the plain version ──
+
+class _Tagged(torch.Tensor):
+    """A tensor subclass, which the kernel does not read."""
+
+
+def _dispatch_args(case):
+    """The call's arguments: a small scene, the rotated camera and 0-dim
+    tensors for fx, fy, cx, cy, changed as ``case`` says."""
+    sc = scene(5)
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32)
+    args = [t(sc["xyz"]), t(sc["scales"]), t(sc["quats"]), t(viewmat("rotated")),
+            f32(F), f32(F), f32(W / 2), f32(H / 2), W, H]
+    if case == "needs_grad":
+        args[0].requires_grad_(True)
+    elif case == "numpy_intrinsics":
+        args[4:8] = [np.float32(F), np.float32(F), np.float32(W / 2), np.float64(H / 2)]
+    elif case == "python_intrinsics":
+        args[4:8] = [F, F, W / 2, H / 2]
+    elif case == "float64_scales":
+        args[1] = args[1].double()
+    elif case == "vector_focal":
+        args[4] = f32([F])
+    elif case == "tensor_subclass":
+        args[0] = args[0].as_subclass(_Tagged)
+    return args
+
+
+# name: (the Gaussians on the card, grad mode, traced by torch.compile, what
+# the call does). On the CPU ``_on_card`` is False; the other cases stand it
+# in True and the launch ``_launch`` in a recorder, so that the gates decide.
+DISPATCH_CASES = {
+    "cpu_tensors": (False, False, False, "plain"),
+    "needs_grad": (True, True, False, "plain"),
+    "compiled": (True, False, True, "plain"),
+    "no_grad_mode": (True, False, False, "kernel"),
+    "no_input_needs_grad": (True, True, False, "kernel"),
+    "numpy_intrinsics": (True, False, False, "kernel"),
+    "python_intrinsics": (True, False, False, "kernel"),
+    "float64_scales": (True, False, False, "raises"),
+    "vector_focal": (True, False, False, "raises"),
+    "tensor_subclass": (True, False, False, "raises"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DISPATCH_CASES))
+def test_project_gaussians_dispatch(case, monkeypatch):
+    """CPU tensors, an input that needs grad and a torch.compile trace
+    (fullgraph, so with no graph break) take the plain version and launch
+    nothing, with the plain version's results. With the Gaussians on the card
+    and nothing for autograd to record, the call launches the kernel once,
+    also with NumPy or Python numbers for the intrinsics; and inputs it
+    cannot read (float64 scales, a focal of shape [1], a tensor subclass)
+    raise rather than take the plain version, which would run them."""
+    on_card, grad_mode, compiled, does = DISPATCH_CASES[case]
+    args = _dispatch_args(case)
+    launched = []
+    monkeypatch.setattr(Pr, "_on_card", lambda means3d: on_card)
+    monkeypatch.setattr(Pr, "_launch", lambda dev, *a: launched.append(a))
+    fn = (torch.compile(Pr.project_gaussians, backend="eager", fullgraph=True)
+          if compiled else Pr.project_gaussians)
+    before = Pr.project_gaussians.launches
+    with torch.set_grad_enabled(grad_mode):
+        if does == "raises":
+            with pytest.raises(ValueError, match="projection kernel reads"):
+                fn(*args)
+        else:
+            got = fn(*args)
+    assert Pr.project_gaussians.launches - before == len(launched) == int(does == "kernel")
+    if does == "plain":
+        ref = Pr.project_gaussians_plain(*args)
+        for name in Pr.Projected._fields:
+            assert torch.equal(getattr(got, name).detach(), getattr(ref, name).detach()), name
+        assert got.means2d.requires_grad == (case == "needs_grad")
+    elif does == "kernel":
+        n = args[0].shape[0]
+        assert [tuple(getattr(got, k).shape) for k in Pr.Projected._fields] == [
+            (n, 2), (n,), (n, 3), (n,), (n,)]
+        assert not got.means2d.requires_grad
