@@ -38,7 +38,7 @@ from torch.utils.checkpoint import checkpoint
 from segsplat_tpu_torch.ops.blend import (PACKED_MAX_CH, _block_alpha, _pixel_centres, blend,
                                           blend_tiles_packed, make_payload, pack_payload)
 from segsplat_tpu_torch.utils import cuda_build
-from segsplat_tpu_torch.utils.profiling import annotate
+from segsplat_tpu_torch.utils.profiling import annotate, count
 
 TILE = 16
 BACKENDS = ("cuda", "dense")   # the JAX package's "pallas" and "xla"
@@ -408,6 +408,17 @@ def _bin_gaussians(proj: Projected, width: int, height: int, max_tiles_per_axis:
     return order[rank_sorted], offsets, dims
 
 
+def _pair_counts(offsets: torch.Tensor, K: int):
+    """The real pairs of the tile runs and those past the per-tile cap K, 0-dim
+    tensors, also given as the counts ``pairs`` and ``pairs_past_k`` of the
+    open span (no host sync)."""
+    num_pairs = offsets[-1]
+    tile_overflow = torch.clamp_min(offsets[1:] - offsets[:-1] - K, 0).sum()
+    count("pairs", num_pairs)
+    count("pairs_past_k", tile_overflow)
+    return num_pairs, tile_overflow
+
+
 def build_blend_inputs(proj: Projected, colors, opacities, width: int, height: int,
                        max_tiles_per_axis: int, max_per_tile: int,
                        pair_cap: Optional[int] = None,
@@ -422,18 +433,20 @@ def build_blend_inputs(proj: Projected, colors, opacities, width: int, height: i
     the end; with ``packed`` it is K3's [R, 128] layout instead
     (``pack_payload``). ``tile_row0``: see ``bin_gaussian_ranks``. Binning
     sees detached values; the gather carries gradients. Runs in the spans
-    ``raster.bin`` (binning, the counts, the cap) and ``raster.gather``."""
+    ``raster.bin`` (binning, the counts, the cap; it counts ``pairs`` and
+    ``pairs_past_k``, device values) and ``raster.gather`` (it counts
+    ``rows``, the payload rows gathered before the pad)."""
     K = max_per_tile
     with annotate("raster.bin"):
         sorted_gid, offsets, (tx_n, ty_n) = _bin_gaussians(
             proj, width, height, max_tiles_per_axis,
             opacities=opacities if opacity_cull else None, tile_row0=tile_row0)
-        num_pairs = offsets[-1]
-        tile_overflow = torch.clamp_min(offsets[1:] - offsets[:-1] - K, 0).sum()
+        num_pairs, tile_overflow = _pair_counts(offsets, K)
         if pair_cap is not None and pair_cap < sorted_gid.shape[0]:
             sorted_gid = sorted_gid[:pair_cap]
             offsets = torch.clamp_max(offsets, pair_cap)
     with annotate("raster.gather"):
+        count("rows", sorted_gid.shape[0])
         rows = make_payload(proj.means2d, proj.conics, opacities, colors)[sorted_gid]
         sorted_payload = (pack_payload(rows, K) if packed
                           else torch.nn.functional.pad(rows, (0, 0, 0, K)))
@@ -516,8 +529,9 @@ def rasterize(means3d, scales, quats, opacities, colors, viewmat, fx, fy, cx, cy
     ``_blend_tiles`` in torch ops, ``tile_chunk`` tiles at a time.
 
     The stages run in spans (``utils/profiling.annotate``): ``raster.project``
-    (with the offset's add), ``raster.bin``, ``raster.gather`` (the kernel
-    path's payload rows; the dense blend gathers inside its chunks) and
+    (with the offset's add), ``raster.bin`` (counting ``pairs`` and
+    ``pairs_past_k``), ``raster.gather`` (the kernel path's payload rows,
+    counting ``rows``; the dense blend gathers inside its chunks) and
     ``raster.blend`` (the blend's op dispatch and launch on the card).
 
     tile_row0 > 0: the image is ``height`` rows of a taller frame from its
@@ -545,8 +559,7 @@ def rasterize(means3d, scales, quats, opacities, colors, viewmat, fx, fy, cx, cy
             sorted_gid, offsets, (tx_n, ty_n) = _bin_gaussians(
                 proj, width, height, max_tiles_per_axis,
                 opacities=opacities if opacity_cull else None, tile_row0=tile_row0)
-            num_pairs = offsets[-1]
-            tile_overflow = torch.clamp_min(offsets[1:] - offsets[:-1] - K, 0).sum()
+            num_pairs, tile_overflow = _pair_counts(offsets, K)
         with annotate("raster.blend"):
             img, alpha = _blend_tiles(sorted_gid, offsets, proj, colors, opacities, bg,
                                       tx_n, ty_n, K, tile_chunk)

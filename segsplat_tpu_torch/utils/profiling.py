@@ -30,12 +30,20 @@ a span
     CUDA caching allocator's device allocations (``num_device_alloc``) over
     the span, read where CUDA is initialised.
 
+``count(key, value)`` adds to a count of the innermost span that records on
+the thread: an int, or a 0-dim tensor, which the record keeps as it is (and
+with it the storage it views) until ``records()`` or ``summary()`` reads it,
+so a count of a device value waits for nothing inside the span. Without a
+recording span, or under ``torch.compile``, it does nothing, at the cost of
+an off span.
+
 Spans belong at layer boundaries: never inside an autograd backward
 function, nor in a per-tile or per-chunk loop. Under ``torch.compile`` a span
 is a ``contextlib.nullcontext`` that the compiler traces through.
 
 Readers: ``records()``, ``summary()``, ``dropped()``; ``reset()`` empties the
-buffer.
+buffer. The readers turn the buffer's tensor counts into ints, which waits
+for the device once the work that computes them is done.
 """
 
 from __future__ import annotations
@@ -61,7 +69,7 @@ class Record(NamedTuple):
     start_ns: int              # time.perf_counter_ns()
     end_ns: int
     self_ns: int               # the duration less the enclosed spans'
-    counts: Dict[str, int]
+    counts: Dict[str, int]     # in the buffer, also 0-dim tensors until read
 
 
 _enabled = False
@@ -85,8 +93,13 @@ def disable() -> None:
 
 def records() -> List[Record]:
     """The records kept since the process started or the last ``reset()``,
-    in the order the spans ended."""
-    return list(_records)
+    in the order the spans ended, their counts ints. Tensor counts are read
+    here, once: the buffer keeps the ints."""
+    with _lock:
+        for i, r in enumerate(_records):
+            if any(isinstance(v, torch.Tensor) for v in r.counts.values()):
+                _records[i] = r._replace(counts={k: int(v) for k, v in r.counts.items()})
+        return list(_records)
 
 
 def dropped() -> int:
@@ -169,12 +182,13 @@ class _Off(_Named):
 
 
 class _Span(_Named):
-    __slots__ = ("range", "parent", "start", "mallocs", "children_ns")
+    __slots__ = ("range", "parent", "start", "mallocs", "children_ns", "counts")
 
     def __enter__(self):
         stack = _stack()
         self.parent = stack[-1] if stack else None
         self.children_ns = 0
+        self.counts = {}
         self.range = None
         if _profiler._is_profiler_enabled:
             self.range = torch.profiler.record_function(self.name)
@@ -188,7 +202,7 @@ class _Span(_Named):
         end = _clock()
         _stack().pop()
         dur = end - self.start
-        counts = {}
+        counts = self.counts
         if self.mallocs is not None:
             after = _device_mallocs()
             if after is not None:
@@ -217,6 +231,17 @@ def annotate(name: str, allocs: bool = False):
             off = _OFF[allocs][name] = _Off(name, allocs)
         return off
     return _Span(name, allocs)
+
+
+def count(key: str, value) -> None:
+    """Add ``value``, an int or a 0-dim tensor, to the count ``key`` of the
+    innermost span recording on this thread (module docstring)."""
+    if _compiling() or not (_enabled or _profiler._is_profiler_enabled):
+        return
+    stack = _stack()
+    if stack:
+        counts = stack[-1].counts
+        counts[key] = counts[key] + value if key in counts else value
 
 
 @contextlib.contextmanager

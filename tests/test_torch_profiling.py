@@ -3,8 +3,9 @@ writing a Chrome trace that holds an ``annotate`` span and the ops inside it;
 spans off by default (a shared no-op, no ``record_function``, no record);
 the view and train paths' spans under the profiler, with their parents and
 their ``user_annotation`` twins in the exported trace; self time and counts
-from a fake clock; ``enable()`` without a profiler; the bounded buffer; and
-spans under ``torch.compile``."""
+from a fake clock; counts of device values kept as tensors until read;
+``enable()`` without a profiler; the bounded buffer; and spans and counts
+under ``torch.compile``."""
 
 import json
 
@@ -107,7 +108,10 @@ def test_view_and_train_spans_under_the_profiler(tmp_path):
         assert all(r.end_ns >= r.start_ns and 0 <= r.self_ns <= r.end_ns - r.start_ns
                    for r in got)
     assert [r.name for r in recs].count("train.adam") == 2      # the reset, the update
-    assert all(r.counts == {} for r in recs)                   # no CUDA here
+    # the rasterizer's counts, read as ints; no CUDA here, so no device_mallocs
+    keys = {"raster.bin": {"pairs", "pairs_past_k"}, "raster.gather": {"rows"}}
+    assert all(set(r.counts) == keys.get(r.name, set()) for r in recs)
+    assert all(type(v) is int and v >= 0 for r in recs for v in r.counts.values())
     ours = set(VIEW_SPANS) | set(TRAIN_SPANS)
     events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
     marks = sorted((e for e in events if e.get("cat") == "user_annotation"
@@ -141,6 +145,41 @@ def test_self_time_and_counts_follow_a_fake_clock(monkeypatch):
     assert s["outer"]["total_ms"] == pytest.approx(100e-6)
     assert s["outer"]["self_ms"] == pytest.approx(50e-6)
     assert s["outer"]["counts"] == {"device_mallocs": 7} and s["mid"]["counts"] == {}
+
+
+def test_tensor_counts_are_read_only_by_the_readers():
+    TP.enable()
+    with TP.annotate("outer"):
+        with TP.annotate("leaf"):
+            TP.count("n", torch.tensor(3))
+            TP.count("n", torch.tensor(4, dtype=torch.int32))
+            TP.count("k", 2)
+        leaf = TP._records[-1]
+        # kept as the tensor at the span's exit: a device value is not waited for
+        assert isinstance(leaf.counts["n"], torch.Tensor) and leaf.counts["k"] == 2
+        TP.count("k", 5)
+    assert isinstance(TP._records[0].counts["n"], torch.Tensor)
+    recs = TP.records()
+    assert [(r.name, r.counts) for r in recs] == [("leaf", {"n": 7, "k": 2}),
+                                                   ("outer", {"k": 5})]
+    assert all(type(v) is int for r in recs for v in r.counts.values())
+    assert type(TP._records[0].counts["n"]) is int            # read once, kept read
+    with TP.annotate("leaf"):
+        TP.count("n", torch.tensor(1))
+    assert TP.summary()["leaf"]["counts"] == {"n": 8, "k": 2}
+    assert type(TP.summary()["leaf"]["counts"]["n"]) is int
+
+
+def test_a_count_without_a_recording_span_leaves_no_record(monkeypatch):
+    _no_range(monkeypatch)
+    monkeypatch.setattr(TP, "_clock", lambda: pytest.fail("an off count read the clock"))
+    TP.count("n", torch.tensor(1))
+    with TP.annotate("port.off"):
+        TP.count("n", torch.tensor(1))
+    assert TP.records() == [] and TP.summary() == {}
+    TP.enable()
+    TP.count("n", 1)                        # on, but no span open
+    assert TP.records() == []
 
 
 def test_enable_records_without_a_profiler(monkeypatch):
@@ -221,3 +260,20 @@ def test_spans_compile_into_one_graph(on):
     out = torch.compile(fn, fullgraph=True, backend="eager")(torch.ones(3))
     assert torch.equal(out, torch.ones(3))
     assert TP.records() == []                   # a compiled span records nothing
+
+
+@pytest.mark.parametrize("on", [False, True])
+def test_a_count_under_compile_does_nothing(on):
+    def fn(x):
+        with TP.annotate("port.compiled"):
+            y = x + 1
+            TP.count("port.n", y.sum())
+            TP.count("port.rows", y.shape[0])
+            return y
+
+    if on:
+        TP.enable()
+    torch._dynamo.reset()
+    out = torch.compile(fn, fullgraph=True, backend="eager")(torch.ones(3))
+    assert torch.equal(out, torch.full((3,), 2.0))
+    assert TP.records() == []
