@@ -651,6 +651,11 @@ def phase_full(results):
                      max_abs_err=err, ms=ms, plain_ms=plain_ms, rasterize_ms=raster_ms,
                      project_ms=project_ms, bin_gather_ms=bin_ms,
                      bound_ms=bound_ms, bound_by=bound_by, ops=ops, bytes=bytes_, **lists)
+        with torch.no_grad():
+            iargs = indexed_inputs(proj, t["logits"], t["opac"], W, H, m, K, bg, pair_cap=cap)
+            scene["indexed"] = k1_indexed_on_inputs(
+                results, iargs, (bi.offsets, bi.sorted_payload, bg, bi.tx_n, bi.ty_n, K), name)
+        del iargs
         results["scenes"][name] = scene
         log(f"[full] {name}: " + json.dumps(scene))
         if name == "headline":
@@ -795,7 +800,7 @@ def view0_blend_inputs(src: str, model: str, iteration: int, sem: str):
     """View 0's blend inputs as ``render_semantic_views`` builds them (m = 6,
     K = 256, its pair cap, bg 0): the scene, its Gaussians and the semantics
     loaded again on the card. Returns (scene, logits [capacity, P] on the card,
-    camera, BlendInputs, bg, K)."""
+    camera, BlendInputs, bg, K, the indexed variant's arguments)."""
     import torch
 
     from segsplat_tpu_torch.ops.rasterize import build_blend_inputs
@@ -813,9 +818,10 @@ def view0_blend_inputs(src: str, model: str, iteration: int, sem: str):
     Kc = cam.intrinsics()
     proj = project_checked(xyz, scaling, rotation, cam.world_view_transform(), Kc[0, 0],
                            Kc[1, 1], Kc[0, 2], Kc[1, 2], cam.width, cam.height)
-    bi = build_blend_inputs(proj, payload, opac, cam.width, cam.height, m, K,
-                            pair_cap=min(table.capacity * m * m, PAIR_CAP_MAX))
-    return scene, logits, cam, bi, bg, K
+    cap = min(table.capacity * m * m, PAIR_CAP_MAX)
+    bi = build_blend_inputs(proj, payload, opac, cam.width, cam.height, m, K, pair_cap=cap)
+    iargs = indexed_inputs(proj, payload, opac, cam.width, cam.height, m, K, bg, pair_cap=cap)
+    return scene, logits, cam, bi, bg, K, iargs
 
 
 def view0_against_plain(src: str, model: str, iteration: int, sem: str, out_dir: str,
@@ -832,7 +838,7 @@ def view0_against_plain(src: str, model: str, iteration: int, sem: str, out_dir:
 
     saved = np.load(os.path.join(out_dir, "00000_logits.npy")).astype(np.float32)
     P = saved.shape[0]
-    _, _, cam, bi, bg, K = inputs or view0_blend_inputs(src, model, iteration, sem)
+    _, _, cam, bi, bg, K, _ = inputs or view0_blend_inputs(src, model, iteration, sem)
     ref, _ = blend_tiles_plain(bi.offsets, bi.sorted_payload, bg, bi.tx_n, bi.ty_n, K)
     ref = ref[:cam.height, :cam.width, :P].permute(2, 0, 1).cpu().numpy()
     if saved.shape != ref.shape or not np.isfinite(saved).all():
@@ -856,7 +862,7 @@ def phase_main_path(results, root: str):
     import torch
 
     from segsplat_tpu_torch import render_semantics_logits as cli
-    from segsplat_tpu_torch.ops.blend import blend_tiles, blend_tiles_bwd
+    from segsplat_tpu_torch.ops.blend import blend_tiles_bwd
     from segsplat_tpu_torch.ops.rasterize import project_gaussians
 
     n_views = 4
@@ -864,21 +870,21 @@ def phase_main_path(results, root: str):
     argv = ["--model_path", model, "--iteration", "1", "--semantics", sem,
             "--skip_test", "--resolution", "1", "--device", "cuda"]
     stdout = sys.stdout         # the CLI's safe_state timestamps stdout lines
-    blend_tiles.launches = blend_tiles_bwd.launches = project_gaussians.launches = 0
+    reset_k1()
+    blend_tiles_bwd.launches = project_gaussians.launches = 0
     t0 = time.perf_counter()
     try:
         cli.main(argv)
         torch.cuda.synchronize()
     finally:
         sys.stdout = stdout
-    launches = blend_tiles.launches
-    results["launches"]["render_semantics"] = {"blend_fwd": launches,
-                                               "blend_bwd": blend_tiles_bwd.launches,
-                                               "project": project_gaussians.launches}
+    launches = k1_launches()
+    results["launches"]["render_semantics"] = dict(launches, blend_bwd=blend_tiles_bwd.launches,
+                                                   project=project_gaussians.launches)
     results["cli_s"] = time.perf_counter() - t0
-    if launches < n_views:
-        raise AssertionError(f"main path launched the blend kernel {launches} "
-                             f"times for {n_views} views")
+    # no grad: every view blends through K1's indexed variant, none gathers
+    if launches["blend_fwd_indexed"] < n_views or launches["blend_fwd"] != 0:
+        raise AssertionError(f"main path launched K1 {launches} for {n_views} views")
     if project_gaussians.launches < n_views:
         raise AssertionError(f"main path launched the projection kernel "
                              f"{project_gaussians.launches} times for {n_views} views")
@@ -894,9 +900,17 @@ def phase_main_path(results, root: str):
         raise AssertionError(f"view 0 logits: shape {saved.shape}, finite "
                              f"{np.isfinite(saved).all()}")
 
-    fp16_err, clear = view0_against_plain(os.path.join(root, "scene"), model, 1, sem, out_dir)
+    inputs = view0_blend_inputs(os.path.join(root, "scene"), model, 1, sem)
+    fp16_err, clear = view0_against_plain(os.path.join(root, "scene"), model, 1, sem, out_dir,
+                                          inputs)
+    _, _, _, bi, bg, K, iargs = inputs
+    with torch.no_grad():
+        results["main_indexed"] = k1_indexed_on_inputs(
+            results, iargs, (bi.offsets, bi.sorted_payload, bg, bi.tx_n, bi.ty_n, K),
+            "main view 0")
+    del inputs, bi, iargs
     log(f"[main] CLI rendered {n_views} views at 1920x1080 in "
-        f"{results['cli_s']:.3f} s; blend launches {launches}, projection launches "
+        f"{results['cli_s']:.3f} s; K1 launches {launches}, projection launches "
         f"{results['launches']['render_semantics']['project']}; view 0 logits vs "
         f"plain max abs diff {fp16_err:.3g} (fp16 file); labels equal on "
         f"{clear} px with top1-top2 > 1e-2")
@@ -950,6 +964,70 @@ def swapped(module, **replacements):
     finally:
         for k, v in old.items():
             setattr(module, k, v)
+
+
+def reset_k1() -> None:
+    """Set both of K1's launch counters to 0: ``blend_tiles`` (K1 on the
+    gathered payload: renders that autograd records or a compile traces) and
+    ``blend_tiles_indexed`` (its indexed variant: every other render on the
+    card)."""
+    from segsplat_tpu_torch.ops import blend as B
+
+    B.blend_tiles.launches = B.blend_tiles_indexed.launches = 0
+
+
+def k1_launches() -> dict:
+    """K1's launches by variant since ``reset_k1``: ``blend_fwd`` on the
+    gathered payload, ``blend_fwd_indexed`` the indexed variant."""
+    from segsplat_tpu_torch.ops import blend as B
+
+    return {"blend_fwd": B.blend_tiles.launches,
+            "blend_fwd_indexed": B.blend_tiles_indexed.launches}
+
+
+def indexed_inputs(proj, colors, opac, W, H, m, K, bg, pair_cap=None):
+    """K1's indexed variant's arguments (offsets, ids, table, bg, tx_n, ty_n,
+    K) as ``rasterize`` builds them where nothing needs a gradient."""
+    from segsplat_tpu_torch.ops.blend import make_payload
+    from segsplat_tpu_torch.ops.rasterize import bin_pairs
+
+    b = bin_pairs(proj, opac, W, H, m, K, pair_cap=pair_cap)
+    table = make_payload(proj.means2d, proj.conics, opac, colors)[b.order]
+    return b.offsets, b.rank_sorted, table, bg, b.tx_n, b.ty_n, K
+
+
+def k1_indexed_on_inputs(results, iargs, fargs, label: str) -> dict:
+    """K1's indexed variant (``blend_tiles_indexed``) on ``iargs`` against its
+    plain version on the same inputs, and bit for bit against K1 on the same
+    frame's gathered payload ``fargs``; both timed with CUDA events, with K1's
+    bound (the rows and pair-pixels of the plain version on ``fargs``).
+    Returns its stats."""
+    import torch
+
+    from segsplat_tpu_torch.ops import blend as B
+
+    offsets, ids, table, bg, tx_n, ty_n, K = iargs
+    ch = bg.shape[0]
+    got = B.blend_tiles_indexed(*iargs)
+    err = compare(f"{label} K1 indexed CH={ch}", got, B.blend_tiles_indexed_plain(*iargs))
+    gathered = B.blend_tiles(*fargs)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, gathered)):
+        raise AssertionError(f"{label}: K1's indexed variant parts from K1 on the gathered "
+                             f"payload")
+    results["fwd_err"] = max(results["fwd_err"], err)
+    del got, gathered
+    _, _, rows, hits, _ = B.blend_tiles_plain_with_work(*fargs)
+    stats = dict(ms=cuda_time_ms(lambda: B.blend_tiles_indexed(*iargs), reps=10),
+                 gathered_ms=cuda_time_ms(lambda: B.blend_tiles(*fargs), reps=10),
+                 plain_ms=cuda_time_ms(lambda: B.blend_tiles_indexed_plain(*iargs), reps=3,
+                                       warmup=1),
+                 rows_read=rows, pixels_hit=hits, table_rows=int(table.shape[0]),
+                 max_abs_err=err, same_bits_as_gathered=True, kernel_width=B.kernel_width(ch))
+    stats["bound_ms"], stats["bound_by"], stats["ops"], stats["bytes"] = k1_bound(
+        offsets, rows, hits, ch, tx_n * ty_n)
+    log(f"[{label}] K1 indexed CH={ch}: " + json.dumps(stats))
+    return stats
 
 
 def blend_node(total):
@@ -2199,7 +2277,6 @@ def phase_pipeline(results, root: str):
     from segsplat_tpu_torch import run_pipeline
     from segsplat_tpu_torch.io.artifacts import load_label_map
     from segsplat_tpu_torch.io.provenance import RANDOM, read_weights_source
-    from segsplat_tpu_torch.ops.blend import blend_tiles
 
     src, model = os.path.join(root, "train_scene"), os.path.join(root, "train_model")
     it = os.path.basename(os.path.dirname(results["train_cli"]["ply"])).split("_")[1]
@@ -2253,15 +2330,16 @@ def phase_pipeline(results, root: str):
     lseg = os.path.join(work, "lseg_seeded")
     write_seeded_maps(lseg, names, QUERY_CHANNELS, h, w)
     run_work = os.path.join(work, "run")
-    blend_tiles.launches = 0
+    reset_k1()
     t0 = time.perf_counter()
     run = pipeline(lseg, cams, run_work)
     torch.cuda.synchronize()
     out["wall_s"] = time.perf_counter() - t0
-    launches = blend_tiles.launches
+    launches = k1_launches()
     results["launches"]["pipeline"] = launches
-    if launches < len(names):
-        raise AssertionError(f"stage 5 launched K1 {launches} times for {len(names)} views")
+    # stage 5 renders as the render CLI does: K1's indexed variant, no gather
+    if launches["blend_fwd_indexed"] < len(names) or launches["blend_fwd"] != 0:
+        raise AssertionError(f"stage 5 launched K1 {launches} for {len(names)} views")
     sem = run["semantics"]
     for p in (run["grid_ply"], run["voxel_features"], sem, os.path.join(run_work, "gauss2voxel.npy"),
               sem.replace(".npz", "_gaussians.ply"), sem.replace(".npz", "_voxels.ply")):
@@ -2463,14 +2541,14 @@ def phase_slic(results):
     for label, g, n in (("sweep5", L.build_objects(np.random.default_rng(0)), EASY_FRAMES),
                         ("sweep20", _hard_objects(), SLIC_FRAMES)):
         Rs, ts, fx, fy = L.orbit_cameras(n, SLIC_H, SLIC_W)
-        B.blend_tiles.launches = 0
+        reset_k1()
         t0 = time.perf_counter()
         rgbs, gts = L.render_sweep(g, Rs, ts, fx, fy, SLIC_H, SLIC_W,
                                    max_per_tile=HARD_LOOP["max_per_tile"], device="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = B.blend_tiles.launches
-        if launches != n:
+        launches = k1_launches()
+        if sum(launches.values()) != n:
             raise AssertionError(f"[slic] the {label} sweep of {n} frames launched K1 "
                                  f"{launches} times")
         ch = 3 + int(g["oid"].max())
@@ -2547,15 +2625,17 @@ def phase_loop(results, root: str):
 
     def counted(name, fn):
         def run(*a, **kw):
-            before = (B.blend_tiles.launches, B.blend_tiles_bwd.launches)
+            before = dict(k1_launches(), blend_bwd=B.blend_tiles_bwd.launches)
             r = fn(*a, **kw)
             torch.cuda.synchronize()
-            stages[name] = dict(blend_fwd=B.blend_tiles.launches - before[0],
-                                blend_bwd=B.blend_tiles_bwd.launches - before[1])
+            after = dict(k1_launches(), blend_bwd=B.blend_tiles_bwd.launches)
+            stages[name] = {k: after[k] - before[k] for k in after}
             return r
         return run
 
-    B.blend_tiles.launches = B.blend_tiles_bwd.launches = 0
+    k1_of = lambda stage: stage["blend_fwd"] + stage["blend_fwd_indexed"]
+    reset_k1()
+    B.blend_tiles_bwd.launches = 0
     t0 = time.perf_counter()
     with swapped(L, render_sweep=counted("sweep", L.render_sweep),
                  train=counted("train", L.train),
@@ -2564,10 +2644,10 @@ def phase_loop(results, root: str):
                        **HARD_LOOP)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"blend_fwd": B.blend_tiles.launches, "blend_bwd": B.blend_tiles_bwd.launches}
+    launches = dict(k1_launches(), blend_bwd=B.blend_tiles_bwd.launches)
     its, frames = HARD_LOOP["iterations"], HARD_LOOP["frames"]
-    if (stages["sweep"]["blend_fwd"] != frames or stages["predict"]["blend_fwd"] != frames
-            or min(stages["train"].values()) < its):
+    if (k1_of(stages["sweep"]) != frames or k1_of(stages["predict"]) != frames
+            or min(stages["train"]["blend_fwd"], stages["train"]["blend_bwd"]) < its):
         raise AssertionError(f"[loop] kernel launches by stage {stages}")
     for path, value in _flat(r):
         log(f"[loop] {'.'.join(path)}: {json.dumps(value)} (recorded on the CPU: "
@@ -2632,14 +2712,14 @@ def phase_lerf(results, work: str, its: int):
     for i, gt in enumerate(gts):
         Image.fromarray((gt == obj).astype(np.uint8) * 255).save(
             os.path.join(gt_dir, f"frame_{i:03d}.png"))
-    B.blend_tiles.launches = 0
+    reset_k1()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()) as buf:
         render_lerf_mask.main(["-s", work, "-m", os.path.join(work, "model"), "--iteration",
                                str(its), "--query_mask", query, "--device", "cuda"])
     torch.cuda.synchronize()
     render_s = time.perf_counter() - t0
-    launches = B.blend_tiles.launches
+    launches = sum(k1_launches().values())
     selected = [ln for ln in buf.getvalue().splitlines() if "selected object ids" in ln]
     masks = os.path.join(work, "model", "test_mask", f"ours_{its}")
     pred_root = os.path.join(work, "lerf_pred")
@@ -2856,7 +2936,7 @@ def phase_mesh(results, root: str):
     n = len(pts)
     logits = np.full((n, 3), -10.0, np.float32)
     logits[np.arange(n), np.repeat([1, 2], n // 2)] = 10.0
-    B.blend_tiles.launches = 0
+    reset_k1()
     out = rasterize(d(pts.astype(np.float32)), torch.full((n, 3), 0.05, device="cuda"),
                     d(np.tile([1.0, 0, 0, 0], (n, 1)).astype(np.float32)),
                     torch.full((n,), 0.95, device="cuda"), d(logits), eye, qfx, qfx,
@@ -2867,9 +2947,9 @@ def phase_mesh(results, root: str):
     conf = confusion_matrix(np.where(pred == MISS_LABEL, 0, pred)[mask], gt[mask],
                             num_classes=3)
     miou = float(np.nanmean(iou_per_class(conf)[1:]))
-    if B.blend_tiles.launches != 1 or miou <= 0.8:
+    if sum(k1_launches().values()) != 1 or miou <= 0.8:
         raise AssertionError(f"[mesh] mIoU loop: {miou:.4f} with K1 launched "
-                             f"{B.blend_tiles.launches} times")
+                             f"{k1_launches()}")
     results["mesh"] = dict(faces=len(faces), views=MESH_VIEWS, size=[W, H],
                            setup_s=setup_s, cli_s=cli_s, cli_s_per_view=cli_s / MESH_VIEWS,
                            view_ms=view_ms, overflow_view0=int(overflow), warnings=len(warns),
@@ -3105,7 +3185,8 @@ def phase_edit_clis(results, root: str):
     masks_dir = os.path.join(root, "edit_masks")
     fills_dir = os.path.join(src, "images_inpaint")      # the finetune's --images
     os.makedirs(masks_dir)
-    B.blend_tiles.launches = B.blend_tiles_bwd.launches = 0
+    reset_k1()
+    B.blend_tiles_bwd.launches = 0
     hole_px, alpha_max = [], []
     with torch.no_grad():
         for c in cams:
@@ -3117,7 +3198,7 @@ def phase_edit_clis(results, root: str):
             Image.fromarray(hole.astype(np.uint8) * 255).save(
                 os.path.join(masks_dir, f"{c.image_name}.png"))
     torch.cuda.synchronize()
-    mask_launches = B.blend_tiles.launches
+    mask_launches = k1_launches()
     if sum(hole_px) == 0:
         raise AssertionError(f"[edit] classes {obj}' rows render no hole (alpha max "
                              f"{max(alpha_max):.3f})")
@@ -3256,7 +3337,7 @@ def phase_offline(results, root: str):
     if differ:
         raise AssertionError(f"[offline] rescore differs from the loop's results at {differ}")
 
-    B.blend_tiles.launches = 0
+    reset_k1()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):
         ck = eval_checkpoint(work, HARD_LOOP["iterations"], frames=HARD_LOOP["frames"],
@@ -3278,7 +3359,7 @@ def phase_offline(results, root: str):
     best = best_row(rows)
     recorded = json.load(open(TUNE_RECORDED))["best"]
     results["offline"] = dict(rescore_s=rescore_s, checkpoint_s=checkpoint_s,
-                              checkpoint_launches=B.blend_tiles.launches, checkpoint_gaps=gaps,
+                              checkpoint_launches=k1_launches(), checkpoint_gaps=gaps,
                               tune_s=tune_s, tune_rows=len(rows), tune_best=best,
                               tune_best_recorded=recorded)
     log("[offline] " + json.dumps(results["offline"]))
@@ -3639,13 +3720,13 @@ def phase_multi_strips(results, mesh):
             torch.as_tensor(vm, device=DEV), fx, fy, cx, cy, STRIP_W, STRIP_H)
     bg = torch.zeros(32, device=DEV)
     kw = dict(bg=bg, max_tiles_per_axis=m, max_per_tile=K)
-    B.blend_tiles.launches = 0
+    reset_k1()
     whole = rasterize(*args, **kw)
     shard = rasterize_sharded(mesh, *args, **kw)
     strips = [rasterize_strip(i, STRIPS, *args, **kw) for i in range(STRIPS)]
     torch.cuda.synchronize()
-    launches = B.blend_tiles.launches
-    if launches != 2 + STRIPS:
+    launches = k1_launches()
+    if sum(launches.values()) != 2 + STRIPS:
         raise AssertionError(f"the frame, the 1x1 sharded frame and {STRIPS} strips launched "
                              f"K1 {launches} times")
     errs = {"rasterize_sharded 1x1": compare("rasterize_sharded", (shard["image"],
@@ -3831,6 +3912,7 @@ def phase_viewer(results):
 
     from segsplat_tpu_torch import viewer as PV
     from segsplat_tpu_torch.ops import blend as B
+    from segsplat_tpu_torch.ops import rasterize as Rz
     from segsplat_tpu_torch.train import trainer as T
 
     pts, cols, _, _ = train_scene()
@@ -3894,7 +3976,7 @@ def phase_viewer(results):
         replies.append(viewer_reply(sock, TRAIN_W * TRAIN_H * 3))
 
     stdout = io.StringIO()
-    B.blend_tiles.launches = 0
+    reset_k1()
     try:
         with swapped(PV, render=timed_render, frame_bytes=timed_bytes), \
                 contextlib.redirect_stdout(stdout):
@@ -3906,11 +3988,11 @@ def phase_viewer(results):
                     raise AssertionError(f"viewer client {name}: the poll returned "
                                          f"do_training={do_training}, conn={gui.conn}")
             torch.cuda.synchronize()
-            launches = B.blend_tiles.launches
+            launches = k1_launches()
     finally:
         gui.close()
     got_frames = [r for name in ("frames", "pause", "next") for r in served[name] if r[0]]
-    if not launches == len(frames) == len(got_frames) == len(plan) + 3:
+    if not sum(launches.values()) == len(frames) == len(got_frames) == len(plan) + 3:
         raise AssertionError(f"{len(frames)} frames served, {len(got_frames)} received, "
                              f"K1 launched {launches} times")
     for name, (_, verify) in ((n, r) for n in served for r in served[n]):
@@ -3924,9 +4006,15 @@ def phase_viewer(results):
         captured["fargs"] = fargs
         return B.blend_tiles_plain(*fargs)
 
+    def plain_indexed(offsets, ids, rows, bg, tx_n, ty_n, K):
+        # the no-grad render's K1 reads rows[ids]: the same payload, gathered
+        return plain(offsets, torch.nn.functional.pad(rows[ids], (0, 0, 0, K)), bg,
+                     tx_n, ty_n, K)
+
     diffs = []
     for i, (cam, scale) in enumerate(renders):
-        with swapped(B, blend_tiles=plain), torch.no_grad():
+        with swapped(B, blend_tiles=plain), swapped(Rz, blend_tiles_indexed=plain_indexed), \
+                torch.no_grad():
             ref = np.frombuffer(real_bytes(real_render(table, cam, bg,
                                                        scaling_modifier=scale)["render"]),
                                 np.uint8)
@@ -3945,7 +4033,7 @@ def phase_viewer(results):
     for f in frames:
         log(f"[viewer] frame {json.dumps(f)}")
     log(f"[viewer] {len(frames)} frames served to 4 clients (a pause and resume, a drop "
-        f"mid-message, the next client served), K1 launched {launches} times; every frame "
+        f"mid-message, the next client served), K1 launched {launches}; every frame "
         f"within {max(d['max_lsb'] for d in diffs)} LSB of the plain blend "
         f"({sum(d['bytes_differ'] for d in diffs)} bytes differ)")
     del table
@@ -3960,7 +4048,6 @@ def phase_viewer_cli(results, root: str):
 
     import torch
 
-    from segsplat_tpu_torch.ops.blend import blend_tiles
     from segsplat_tpu_torch.train import cli
 
     src = os.path.join(root, "train_scene")
@@ -3975,7 +4062,7 @@ def phase_viewer_cli(results, root: str):
     viewer = ViewerClient(port, client)
     model = os.path.join(root, "viewer_model")
     stdout = sys.stdout
-    blend_tiles.launches = 0
+    reset_k1()
     t0 = time.perf_counter()
     try:
         state = cli.main(["-s", src, "-m", model, "--iterations", str(TOOLS_CLI_ITERS),
@@ -3985,14 +4072,14 @@ def phase_viewer_cli(results, root: str):
     finally:
         sys.stdout = stdout
     cli_s = time.perf_counter() - t0
-    launches = blend_tiles.launches
+    launches = k1_launches()
     viewer.join()
     (img, verify), = viewer.replies
     metrics = [json.loads(line) for line in open(os.path.join(model, "metrics.jsonl"))]
     steps = [m for m in metrics if "total" in m]
     bad = [(m["iter"], k) for m in metrics for k, v in m.items()
            if isinstance(v, float) and not math.isfinite(v)]
-    if (state.step != TOOLS_CLI_ITERS or launches < TOOLS_CLI_ITERS + 1 or bad or not steps
+    if (state.step != TOOLS_CLI_ITERS or sum(launches.values()) < TOOLS_CLI_ITERS + 1 or bad or not steps
             or len(img) != TRAIN_W * TRAIN_H * 3 or verify != src):
         raise AssertionError(f"train CLI with --port: step {state.step}, K1 launched "
                              f"{launches}, non-finite {bad}, frame of {len(img)} bytes, "
@@ -4243,7 +4330,6 @@ def phase_scale(results, root: str):
     from segsplat_tpu_torch.io.artifacts import (load_label_map, load_semantics,
                                                  load_voxel_features)
     from segsplat_tpu_torch.io.ply import read_voxel_grid_ply
-    from segsplat_tpu_torch.ops.blend import blend_tiles
     from segsplat_tpu_torch.ops.knn import nearest_neighbor_index
     from segsplat_tpu_torch.pipeline.lift_features import (LiftConfig, aggregate_voxel_features,
                                                            resize_features)
@@ -4267,7 +4353,8 @@ def phase_scale(results, root: str):
             if last:
                 torch.cuda.synchronize()
                 peak = torch.cuda.max_memory_allocated() - resident[name]
-                stages[name] = dict(peak_gib=peak / 2 ** 30, k1_launches=blend_tiles.launches)
+                stages[name] = dict(peak_gib=peak / 2 ** 30,
+                                    k1_launches=sum(k1_launches().values()))
             return r
         return call
 
@@ -4282,7 +4369,7 @@ def phase_scale(results, root: str):
         # (a) the run, its stdout captured: the [WARN]s counted, not all echoed
         captured = io.StringIO()
         out["host_peak_rss_gib_before"] = peak_rss_gib()
-        blend_tiles.launches = 0
+        reset_k1()
         t0 = time.perf_counter()
         try:
             with swapped(run_pipeline, **swaps), \
@@ -4295,13 +4382,13 @@ def phase_scale(results, root: str):
         finally:
             out["warnings"] = echo_run_log(captured.getvalue())
         out["wall_s"] = time.perf_counter() - t0
-        launches = blend_tiles.launches
+        launches = k1_launches()
         results["launches"]["scale"] = launches
         k1_stage5 = stages["render"]["k1_launches"] - stages["query"]["k1_launches"]
         out.update(timing=run["timing"], k1_launches_stage5=k1_stage5, k1_launches=launches,
                    peak_gib={k: v["peak_gib"] for k, v in stages.items()},
                    host_peak_rss_gib=peak_rss_gib())
-        if k1_stage5 != SCALE_VIEWS or launches != SCALE_VIEWS:
+        if k1_stage5 != SCALE_VIEWS or sum(launches.values()) != SCALE_VIEWS:
             raise AssertionError(f"stage 5 launched K1 {k1_stage5} times ({launches} in the "
                                  f"run) for {SCALE_VIEWS} views")
         model, src = os.path.join(work, "model"), os.path.join(work, "scene")
@@ -4427,7 +4514,7 @@ def phase_scale(results, root: str):
             f"{out['query_logits_vs_cpu']:.3g}, labels equal beyond a {LABEL_GAP} top-2 gap")
 
         # (c) stage 5's per-view loop (render, then the view's files), traced
-        scene, logits, cam, bi, bg, K = inputs
+        scene, logits, cam, bi, bg, K, _ = inputs
         table = scene.gaussians
         logits_np = logits.cpu().numpy()
         traced = [to_device_camera(c, 1.0, device=DEV)
@@ -4487,7 +4574,7 @@ from segsplat_tpu_torch.ops import blend as B
 from segsplat_tpu_torch.ops import rasterize as R
 for mod in {modules!r}:
     B.blend_tiles.launches = B.blend_tiles_bwd.launches = B.blend_tiles_packed.launches = 0
-    R.project_gaussians.launches = 0
+    B.blend_tiles_indexed.launches = R.project_gaussians.launches = 0
     sys.argv = [mod]
     out = io.StringIO()
     t0 = time.perf_counter()
@@ -4499,8 +4586,9 @@ for mod in {modules!r}:
     finally:
         if not done:
             print(mod + " failed after printing:", out.getvalue(), sep="\\n", file=sys.stderr)
-    launches = dict(blend_fwd=B.blend_tiles.launches, blend_bwd=B.blend_tiles_bwd.launches,
-                    blend_packed=B.blend_tiles_packed.launches)
+    launches = dict(blend_fwd=B.blend_tiles.launches,
+                    blend_fwd_indexed=B.blend_tiles_indexed.launches,
+                    blend_bwd=B.blend_tiles_bwd.launches, blend_packed=B.blend_tiles_packed.launches)
     print(json.dumps(dict(module=mod, seconds=time.perf_counter() - t0, stdout=out.getvalue(),
                           launches=launches, project_launches=R.project_gaussians.launches)),
           flush=True)
@@ -4580,7 +4668,8 @@ def phase_measure(results):
     if keys != BENCH_KEYS:
         raise AssertionError(f"the bench's line has keys {keys}, not {BENCH_KEYS}")
     frames = (bench.SETS + 1) * (bench.FRAMES + bench.HOSTILE_FRAMES)
-    if b["launches"] != dict(blend_fwd=frames, blend_bwd=0, blend_packed=0):
+    if b["launches"] != dict(blend_fwd=0, blend_fwd_indexed=frames, blend_bwd=0,
+                             blend_packed=0):
         raise AssertionError(f"the bench rendered {frames} frames and launched {b['launches']}")
     if b["project_launches"] != frames:
         raise AssertionError(f"the bench rendered {frames} frames and launched the projection "
@@ -4606,11 +4695,17 @@ def phase_measure(results):
     lift = timed_lines(runs["perf_lift_stages"]["stdout"], LIFT_LINES)
     train_line = timed_lines(runs["perf_train"]["stdout"], ("train step",))
     steps = (perf_train.REPS + 1) * (perf_train.F1 + perf_train.F2)
-    want = {"perf_raster_stages": dict(blend_fwd=2 * 4 * RASTER_FRAMES, blend_bwd=0,
+    # perf_raster_stages: its full rasterize (no grad) on the indexed variant,
+    # K1 alone on the gathered payload; 4 passes of the frames each
+    want = {"perf_raster_stages": dict(blend_fwd=4 * RASTER_FRAMES,
+                                       blend_fwd_indexed=4 * RASTER_FRAMES, blend_bwd=0,
                                        blend_packed=0),
-            "perf_bin_dissect": dict(blend_fwd=0, blend_bwd=0, blend_packed=0),
-            "perf_lift_stages": dict(blend_fwd=0, blend_bwd=0, blend_packed=0),
-            "perf_train": dict(blend_fwd=steps, blend_bwd=steps, blend_packed=0)}
+            "perf_bin_dissect": dict(blend_fwd=0, blend_fwd_indexed=0, blend_bwd=0,
+                                     blend_packed=0),
+            "perf_lift_stages": dict(blend_fwd=0, blend_fwd_indexed=0, blend_bwd=0,
+                                     blend_packed=0),
+            "perf_train": dict(blend_fwd=steps, blend_fwd_indexed=0, blend_bwd=steps,
+                               blend_packed=0)}
     for name, counts in want.items():
         if runs[name]["launches"] != counts:
             raise AssertionError(f"{name} launched {runs[name]['launches']}, not {counts}")
@@ -4974,6 +5069,8 @@ def main(argv=None) -> int:
     occupancy = {k: {ch: blend_forward_occupancy(k, ch) for ch in widths}
                  for k, widths in (("blend_fwd", KERNEL_WIDTHS),
                                    ("blend_packed", PACKED_WIDTHS))}
+    occupancy["blend_fwd_indexed"] = {ch: blend_forward_occupancy("blend_fwd", ch, "_indexed")
+                                      for ch in KERNEL_WIDTHS}
     log(f"[occupancy] {json.dumps(occupancy)}")
 
     results = {"fwd_err": 0.0, "bwd_err": 0.0, "packed_err": 0.0, "scenes": {},
@@ -5028,15 +5125,38 @@ def main(argv=None) -> int:
     train_launches = results["launches"]["train"]
     logits, packed = results["logits_render"], results["packed"]
     headline = results["scenes"]["headline"]
+    k1_cli, k1_pipe = results["launches"]["render_semantics"], results["launches"]["pipeline"]
+    measure = results["measure"]
+    launches = measure["launches"]
     kernels = [
-        kernel_entry("blend_fwd", 32, fwd_src, k1_tpu,
-                     results["launches"]["render_semantics"]["blend_fwd"]
-                     + results["launches"]["pipeline"],
-                     headline["max_abs_err"], headline,
-                     path="render_semantics CLI + run_pipeline stage 5",
+        # the kernel every no-grad render on the card runs; its launches are the
+        # render CLI's and stage 5's own, their counters set to 0 just before
+        kernel_entry("blend_fwd_indexed", 32, fwd_src, k1_tpu,
+                     k1_cli["blend_fwd_indexed"] + k1_pipe["blend_fwd_indexed"],
+                     max(headline["indexed"]["max_abs_err"],
+                         results["scenes"]["hostile"]["indexed"]["max_abs_err"],
+                         results["main_indexed"]["max_abs_err"]),
+                     headline["indexed"],
+                     path="render_semantics CLI + run_pipeline stage 5 (no grad); times on "
+                          "phase 3's headline frame",
                      launches_by_path={
-                         "render_semantics": results["launches"]["render_semantics"]["blend_fwd"],
-                         "run_pipeline stage 5": results["launches"]["pipeline"]},
+                         "render_semantics": k1_cli["blend_fwd_indexed"],
+                         "run_pipeline stage 5": k1_pipe["blend_fwd_indexed"],
+                         "bench": launches["bench"]["blend_fwd_indexed"],
+                         "perf_raster_stages": launches["perf_raster_stages"]["blend_fwd_indexed"],
+                         f"rasterize_sharded strips, {STRIP_W}x{STRIP_H}":
+                             results["multi_strips"]["launches"]["blend_fwd_indexed"],
+                         "officescene_scale_run": results["launches"]["scale"]["blend_fwd_indexed"]},
+                     hostile=results["scenes"]["hostile"]["indexed"],
+                     render_cli_view0=results["main_indexed"],
+                     **occupancy["blend_fwd_indexed"][32]),
+        kernel_entry("blend_fwd", 32, fwd_src, k1_tpu,
+                     k1_cli["blend_fwd"] + k1_pipe["blend_fwd"],
+                     headline["max_abs_err"], headline,
+                     path="render_semantics CLI + run_pipeline stage 5 (their renders need no "
+                          "grad, so they launch blend_fwd_indexed); times on the gathered payload",
+                     launches_by_path={"render_semantics": k1_cli["blend_fwd"],
+                                       "run_pipeline stage 5": k1_pipe["blend_fwd"]},
                      scenes=results["scenes"],
                      **occupancy["blend_fwd"][32]),
         kernel_entry("blend_fwd", 19, fwd_src, k1_tpu, train_launches["blend_fwd"],
@@ -5069,8 +5189,10 @@ def main(argv=None) -> int:
         sw = slic[key]
         width = sw["fwd"]["kernel_width"]
         kernels.append(kernel_entry(
-            "blend_fwd", sw["ch"], fwd_src, k1_tpu, sw["launches"], sw["fwd"]["max_abs_err"],
-            sw["fwd"], path=f"pseudo_label_loop GT sweep, {label}, {SLIC_W}x{SLIC_H}",
+            "blend_fwd", sw["ch"], fwd_src, k1_tpu, sw["launches"]["blend_fwd"],
+            sw["fwd"]["max_abs_err"], sw["fwd"],
+            path=f"pseudo_label_loop GT sweep, {label}, {SLIC_W}x{SLIC_H}",
+            indexed_launches=sw["launches"]["blend_fwd_indexed"],
             kernel_width=width, k2_same_inputs=sw["bwd"], **occupancy["blend_fwd"][width]))
     kernels.append(kernel_entry(
         "blend_fwd", 19, fwd_src, k1_tpu,
@@ -5085,12 +5207,18 @@ def main(argv=None) -> int:
         path="pseudo_label_loop training, hard scene", **k2_occupancy[19]))
     edit = results["edit"]
     kernels.append(kernel_entry(
-        "blend_fwd", 19, fwd_src, k1_tpu, edit["launches"]["blend_fwd"] + edit["mask_launches"],
+        "blend_fwd", 19, fwd_src, k1_tpu,
+        edit["launches"]["blend_fwd"] + edit["mask_launches"]["blend_fwd"],
         edit["fwd19"]["max_abs_err"], edit["fwd19"],
         path="edit_object_inpaint finetune + the hole masks' renders, hard scene",
         launches_by_path={"finetune": edit["launches"]["blend_fwd"],
-                          "hole masks": edit["mask_launches"],
-                          "eval_hard_scene_checkpoint": results["offline"]["checkpoint_launches"]},
+                          "hole masks": edit["mask_launches"]["blend_fwd"],
+                          "eval_hard_scene_checkpoint":
+                              results["offline"]["checkpoint_launches"]["blend_fwd"]},
+        indexed_launches_by_path={
+            "hole masks": edit["mask_launches"]["blend_fwd_indexed"],
+            "eval_hard_scene_checkpoint":
+                results["offline"]["checkpoint_launches"]["blend_fwd_indexed"]},
         **occupancy["blend_fwd"][19]))
     kernels.append(kernel_entry(
         "blend_bwd", 19, bwd_src, k2_tpu, edit["launches"]["blend_bwd"],
@@ -5110,32 +5238,40 @@ def main(argv=None) -> int:
                               results["multi_cli"]["launches"][name]},
             train_step=multi, **occ))
     kernels.append(kernel_entry(
-        "blend_fwd", 32, fwd_src, k1_tpu, strips["launches"], strips["heaviest"]["max_abs_err"],
-        strips["heaviest"], path=f"rasterize_sharded strips, {STRIP_W}x{STRIP_H} in {STRIPS}",
+        "blend_fwd", 32, fwd_src, k1_tpu, strips["launches"]["blend_fwd"],
+        strips["heaviest"]["max_abs_err"], strips["heaviest"],
+        path=f"rasterize_sharded strips, {STRIP_W}x{STRIP_H} in {STRIPS}; times on the gathered "
+             f"payload", indexed_launches=strips["launches"]["blend_fwd_indexed"],
         strips=[{k: e[k] for k in ("strip", "num_pairs", "ms", "bound_ms", "plain_ms")}
                 for e in strips["per_strip"]], **occupancy["blend_fwd"][32]))
     viewer = results["viewer"]
     kernels.append(kernel_entry(
-        "blend_fwd", 19, fwd_src, k1_tpu, viewer["launches"], viewer["k1_1080p"]["max_abs_err"],
+        "blend_fwd", 19, fwd_src, k1_tpu, viewer["launches"]["blend_fwd"],
+        viewer["k1_1080p"]["max_abs_err"],
         viewer["k1_1080p"], path=f"viewer frames (NetworkGUI.poll_and_render), the "
-                                 f"{FRAME_W}x{FRAME_H} frame's inputs",
-        launches_by_path={f"{viewer['launches']} viewer frames": viewer["launches"],
+                                 f"{FRAME_W}x{FRAME_H} frame's inputs, gathered payload",
+        launches_by_path={"viewer frames": viewer["launches"]["blend_fwd"],
                           f"train CLI with --port, {TOOLS_CLI_ITERS} iterations":
-                          results["viewer_cli"]["launches"]},
+                          results["viewer_cli"]["launches"]["blend_fwd"]},
+        indexed_launches_by_path={
+            "viewer frames": viewer["launches"]["blend_fwd_indexed"],
+            f"train CLI with --port, {TOOLS_CLI_ITERS} iterations":
+                results["viewer_cli"]["launches"]["blend_fwd_indexed"]},
         **occupancy["blend_fwd"][19]))
     scale = results["scale"]
     kernels.append(kernel_entry(
-        "blend_fwd", 32, fwd_src, k1_tpu, results["launches"]["scale"],
+        "blend_fwd", 32, fwd_src, k1_tpu, results["launches"]["scale"]["blend_fwd"],
         scale["k1"]["max_abs_err"], scale["k1"],
         path=f"officescene_scale_run stage 5: {SCALE_VIEWS} views at 876x584, 13 logits padded "
-             f"to 32 channels; times on view 0's inputs", **occupancy["blend_fwd"][32]))
-    measure = results["measure"]
-    launches = measure["launches"]
+             f"to 32 channels; times on view 0's inputs, gathered payload",
+        indexed_launches=results["launches"]["scale"]["blend_fwd_indexed"],
+        **occupancy["blend_fwd"][32]))
     kernels.append(kernel_entry(
         "blend_fwd", 32, fwd_src, k1_tpu, launches["bench"]["blend_fwd"],
         headline["max_abs_err"], headline,
-        path=f"python -m segsplat_tpu_torch.bench: {launches['bench']['blend_fwd']} headline and "
-             f"hostile 1080p frames; times on phase 3's headline frame (the bench's frame 0)",
+        path=f"python -m segsplat_tpu_torch.bench: {launches['bench']['blend_fwd_indexed']} "
+             f"headline and hostile 1080p frames on blend_fwd_indexed; times on phase 3's "
+             f"headline frame (the bench's frame 0), gathered payload",
         launches_by_path={"bench": launches["bench"]["blend_fwd"],
                           "perf_raster_stages": launches["perf_raster_stages"]["blend_fwd"]},
         hostile=results["scenes"]["hostile"], **occupancy["blend_fwd"][32]))

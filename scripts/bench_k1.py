@@ -4,7 +4,7 @@
 NVIDIA GPU, on the inputs chip_smoke.py gives them.
 
     python3 scripts/bench_k1.py [--variant NAME=PATH] [--k3-variant NAME=PATH]
-                                [--rounds 3] [--only k1|k3]
+                                [--rounds 3] [--only k1|k3|indexed] [--seed N]
 
 A variant is a CUDA source with the kernel's C entry point
 (``segsplat_blend_fwd`` or ``segsplat_blend_packed``), or ``repo`` for the
@@ -30,6 +30,18 @@ also prints the warp-rows read, kept by the row lists and hit (a pixel passes
 the cut), by the plain counter, and the kept and hit warp-rows of every row up
 to each tile's count for the 8×4 block and the 16×2 strip footprints, then
 one JSON object per input and the card's name and power limit.
+
+``indexed`` (run by default, alone with ``--only indexed``): K1's indexed
+variant (``blend_tiles_indexed``, every no-grad render's blend) against K1 on
+the gathered payload (``blend_tiles``), both through their wrappers, in turns,
+on the headline and hostile frames and on the benchmark's two view scenes
+(benchmark/configs officescene-semantic32 and officescene-clustered, drawn
+from ``--seed``, at 1920×1080 from the viewer's camera at the origin). Per
+input: both kernels' ms, the same bits asserted, each path's payload build
+from the projection on (``build_blend_inputs``: binning, the N·m²-row gather
+and its K pad; ``chip_smoke.indexed_inputs``: binning and the N-row table),
+the plain version's rows and pair-pixels, K1's bound on them, each kernel's
+share of it and both instantiations' occupancy.
 """
 
 from __future__ import annotations
@@ -40,6 +52,8 @@ import json
 import statistics
 import subprocess
 import sys
+import importlib
+import math
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -158,24 +172,33 @@ def render_args(ch: int):
     if ch == 51:
         kw["semantic_logits"] = torch.as_tensor(np.random.default_rng(5).standard_normal(
             (S.TRAIN_CAP, 32), dtype=np.float32), device=S.DEV)
-    cap, k1 = {}, B.blend_tiles
+    from segsplat_tpu_torch.ops import rasterize as Pr
+
+    cap, k1, k1_indexed = {}, B.blend_tiles, Pr.blend_tiles_indexed
 
     def record(*args):
         cap["args"] = args
         return k1(*args)
 
+    def record_indexed(offsets, ids, table, bg, tx_n, ty_n, K):
+        # the no-grad render reads table[ids]: the gathered payload, bit for bit
+        cap["args"] = (offsets, torch.nn.functional.pad(table[ids], (0, 0, 0, K)), bg,
+                       tx_n, ty_n, K)
+        return k1_indexed(offsets, ids, table, bg, tx_n, ty_n, K)
+
     record.launches = 0     # blend_tiles counts under its module name, now this one
 
-    with torch.no_grad(), S.swapped(B, blend_tiles=record):
+    with torch.no_grad(), S.swapped(B, blend_tiles=record), \
+            S.swapped(Pr, blend_tiles_indexed=record_indexed):
         R.render(table, S.train_camera(0.0), torch.zeros(3, device=S.DEV),
                  max_tiles_per_axis=3, max_per_tile=256, **kw)
     return cap["args"]
 
 
-def frame_args(make, packed=False):
+def frame_args(name: str, packed=False):
     import torch
 
-    sc = make()
+    sc = S.bench_scene(name)
     _, bi = S.blend_inputs_on_card(sc, S.FRAME_W, S.FRAME_H, S.bench_camera(), sc["m"],
                                    sc["K"], pair_cap=sc["pair_cap"], packed=packed)
     return (bi.offsets, bi.sorted_payload, torch.zeros(32, device=S.DEV), bi.tx_n, bi.ty_n,
@@ -251,6 +274,99 @@ def bench(kernel: str, fns: dict, label: str, args, rounds: int):
     torch.cuda.empty_cache()
 
 
+def frame_pair(proj, colors, opac, W: int, H: int, m: int, K: int, pair_cap=None):
+    """One frame's K1 arguments on the gathered payload and the indexed
+    variant's, and each path's payload build from the projection on."""
+    import torch
+
+    from segsplat_tpu_torch.ops import rasterize as Pr
+
+    bg = torch.zeros(colors.shape[1], device=S.DEV)
+    bi = Pr.build_blend_inputs(proj, colors, opac, W, H, m, K, pair_cap=pair_cap)
+    builds = {"gathered_payload": lambda: Pr.build_blend_inputs(proj, colors, opac, W, H, m, K,
+                                                                pair_cap=pair_cap),
+              "indexed_table": lambda: S.indexed_inputs(proj, colors, opac, W, H, m, K, bg,
+                                                        pair_cap=pair_cap)}
+    return ((bi.offsets, bi.sorted_payload, bg, bi.tx_n, bi.ty_n, K), builds["indexed_table"](),
+            builds)
+
+
+def headline_pair(name: str):
+    """chip_smoke's 1080p frame of bench.py's ``name`` scene, as ``frame_pair``."""
+    import torch
+
+    from segsplat_tpu_torch.ops import rasterize as Pr
+
+    sc = S.bench_scene(name)
+    t = {k: torch.as_tensor(sc[k], device=S.DEV) for k in ("xyz", "scales", "quats", "opac",
+                                                           "logits")}
+    vm, fx, fy, cx, cy = S.bench_camera()
+    with torch.no_grad():
+        proj = Pr.project_gaussians(t["xyz"], t["scales"], t["quats"],
+                                    torch.as_tensor(vm, device=S.DEV), fx, fy, cx, cy,
+                                    S.FRAME_W, S.FRAME_H)
+        return frame_pair(proj, t["logits"], t["opac"], S.FRAME_W, S.FRAME_H, sc["m"],
+                          sc["K"], sc["pair_cap"])
+
+
+def view_pair(config: str, seed: int):
+    """The benchmark configuration's scene (``benchmark/scenes``) at 1920×1080
+    from the viewer's camera (fov 1.2 × 0.75 rad) at the origin, as
+    ``frame_pair``."""
+    import torch
+
+    from segsplat_tpu_torch.ops import rasterize as Pr
+
+    cfg = json.loads((ROOT / "benchmark" / "configs" / f"{config}.json").read_text())
+    s = importlib.import_module(f"benchmark.scenes.{cfg['scene']}").draw(cfg, seed, S.DEV)
+    W, H = 1920, 1080
+    with torch.no_grad():
+        proj = Pr.project_gaussians(s["xyz"], torch.exp(s["log_scales"]), s["quats"],
+                                    torch.eye(4, device=S.DEV), W / (2 * math.tan(0.6)),
+                                    H / (2 * math.tan(0.375)), W / 2, H / 2, W, H)
+        return frame_pair(proj, s["logits"], torch.sigmoid(s["opacity_logit"])[:, 0], W, H,
+                          cfg["max_tiles_per_axis"], cfg["max_per_tile"])
+
+
+def bench_indexed(label: str, pair, rounds: int):
+    """K1's indexed variant against K1 on the gathered payload on one frame."""
+    import torch
+
+    from segsplat_tpu_torch.ops import blend as B
+
+    args, iargs, builds = pair
+    kernels = {"gathered": lambda: B.blend_tiles(*args),
+               "indexed": lambda: B.blend_tiles_indexed(*iargs)}
+    got, ref = kernels["indexed"](), kernels["gathered"]()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+        raise AssertionError(f"{label}: K1's indexed variant parts from K1 on the gathered "
+                             f"payload")
+    p_img, p_alpha, rows, hits, _ = B.blend_tiles_plain_with_work(*args)
+    err = S.compare(f"{label} indexed", got, (p_img, p_alpha))
+    del got, ref, p_img, p_alpha
+    times = {n: [] for n in kernels}
+    for r in range(rounds):
+        for n in (list(kernels) if r % 2 == 0 else list(kernels)[::-1]):
+            times[n].append(S.cuda_time_ms(kernels[n], reps=20))
+    ms = {n: statistics.median(t) for n, t in times.items()}
+    offsets, bg, tx_n, ty_n = args[0], args[2], args[3], args[4]
+    ch = bg.shape[0]
+    bound_ms, bound_by, _, _ = S.k1_bound(offsets, rows, hits, ch, tx_n * ty_n)
+    with torch.no_grad():
+        build_ms = {n: S.cuda_time_ms(fn, reps=10) for n, fn in builds.items()}
+    print(json.dumps({
+        "kernel": "blend_fwd_indexed", "input": label, "ch": ch, "pairs": int(offsets[-1]),
+        "slots": int(iargs[1].shape[0]), "table_rows": int(iargs[2].shape[0]), "ms": ms,
+        "build_ms": build_ms, "max_abs_err": err, "rows_read": rows, "pixels_hit": hits,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "roofline_pct": {n: 100 * bound_ms / t for n, t in ms.items()},
+        "occupancy": {"gathered": B.blend_forward_occupancy("blend_fwd", ch),
+                      "indexed": B.blend_forward_occupancy("blend_fwd", ch, "_indexed")}}),
+          flush=True)
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -258,7 +374,9 @@ def main() -> int:
     ap.add_argument("--variant", action="append", default=[], metavar="NAME=PATH")
     ap.add_argument("--k3-variant", action="append", default=[], metavar="NAME=PATH")
     ap.add_argument("--rounds", type=int, default=3)
-    ap.add_argument("--only", choices=("k1", "k3"))
+    ap.add_argument("--only", choices=("k1", "k3", "indexed"))
+    ap.add_argument("--seed", type=int, default=3300000007,
+                    help="the benchmark view scenes' draw (indexed)")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         print("bench_k1: needs an NVIDIA GPU", file=sys.stderr)
@@ -271,7 +389,7 @@ def main() -> int:
                              ("clocks", CSRC / f"{kernel}.cu", ("-DSEGSPLAT_CLOCKS=1",))]
             specs[kernel] += [parse_variant(v, kernel) for v in extra]
     jobs = [(k, *v) for k, vs in specs.items() for v in vs]
-    with ThreadPoolExecutor(len(jobs)) as ex:
+    with ThreadPoolExecutor(max(len(jobs), 1)) as ex:
         built = list(ex.map(lambda j: build(*j), jobs))
     fns = {k: {} for k in specs}
     for (kernel, name, _, _), fn in zip(jobs, built):
@@ -279,15 +397,23 @@ def main() -> int:
 
     if "blend_fwd" in fns:
         for label, make in (("train CH=19", lambda: render_args(19)),
-                            ("headline CH=32", lambda: frame_args(S.headline_scene)),
-                            ("hostile CH=32", lambda: frame_args(S.hostile_scene)),
+                            ("headline CH=32", lambda: frame_args("headline")),
+                            ("hostile CH=32", lambda: frame_args("hostile")),
                             ("logits CH=51", lambda: render_args(51))):
             bench("blend_fwd", fns["blend_fwd"], label, make(), a.rounds)
     if "blend_packed" in fns:
-        for label, make in (("headline CH=32", lambda: frame_args(S.headline_scene, True)),
-                            ("hostile CH=32", lambda: frame_args(S.hostile_scene, True)),
+        for label, make in (("headline CH=32", lambda: frame_args("headline", True)),
+                            ("hostile CH=32", lambda: frame_args("hostile", True)),
                             ("logits CH=51", lambda: packed_of(render_args(51)))):
             bench("blend_packed", fns["blend_packed"], label, make(), a.rounds)
+    if a.only in (None, "indexed"):
+        for label, make in (("headline CH=32", lambda: headline_pair("headline")),
+                            ("hostile CH=32", lambda: headline_pair("hostile")),
+                            ("officescene-semantic32", lambda: view_pair(
+                                "officescene-semantic32", a.seed)),
+                            ("officescene-clustered", lambda: view_pair(
+                                "officescene-clustered", a.seed))):
+            bench_indexed(label, make(), a.rounds)
     print(S.nvidia_smi_line(), flush=True)
     return 0
 

@@ -13,7 +13,9 @@
 //   ops/blend.py ``warp_row_may_hit`` is its plain version, in the same order.
 // - Staging: a ring of chunks of rows in shared memory, filled by 1-D bulk
 //   copies (cp.async.bulk, completing on an mbarrier per stage) that the last
-//   warp done with a chunk issues; ``Layout`` sizes it per channel count, and
+//   warp done with a chunk issues, from rows in place or, for K1's indexed
+//   fill, from a table through the rows' ids; ``Layout`` sizes it per channel
+//   count, and
 //   ``run_chunks`` is the chunk loop with the G-row block early-out.
 // - A per-segment cycle counter for diagnostic builds (-DSEGSPLAT_CLOCKS):
 //   scripts/bench_k1.py reads each segment's share of the warps' cycles, and
@@ -236,6 +238,13 @@ __device__ __forceinline__ int chunk_len(int c0, int count, int g_block, int row
   return min(min(rows, count - c0), (c0 / g_block + 1) * g_block - c0);
 }
 
+// A tile's rows fetched through their ids: row i is table[ids[i]], a row of
+// the table kStride float4s long (K1's indexed fill).
+struct RowsById {
+  const float4* table;
+  const int64_t* ids;   // the tile's run: ids[0 .. count - 1]
+};
+
 // A ring of kStages chunks of up to kRows rows in shared memory. A row is the
 // first kW4 float4s of a source row kStride float4s long; chunk j goes to
 // stage j % kStages, filled by 1-D bulk copies that complete on full[stage]
@@ -274,6 +283,26 @@ struct RowRing {
                   static_cast<unsigned>(kW4 * sizeof(float4)), bar);
     }
   }
+  // warp-collective: copy rows table[ids[c0 + r]], r < n, as chunk j: the
+  // ids two a lane in one coalesced read, then lane l issues the copies of
+  // rows l and l + 32, each of kW4 float4s, on the same mbarrier
+  __device__ __forceinline__ void fill(int j, RowsById src, int c0, int n, int lane) {
+    constexpr int kPerLane = kRows / 32;
+    float4* dst = buf[j % kStages];
+    uint64_t* bar = &full[j % kStages];
+    int64_t id[kPerLane];
+#pragma unroll
+    for (int u = 0; u < kPerLane; ++u)
+      id[u] = lane + 32 * u < n ? src.ids[c0 + lane + 32 * u] : 0;
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    if (lane == 0) mbar_expect_tx(bar, static_cast<unsigned>(n * kW4 * sizeof(float4)));
+    __syncwarp();
+#pragma unroll
+    for (int u = 0; u < kPerLane; ++u)
+      if (lane + 32 * u < n)
+        bulk_copy(dst + (lane + 32 * u) * kW4, src.table + id[u] * kStride,
+                  static_cast<unsigned>(kW4 * sizeof(float4)), bar);
+  }
   // the rows of chunk j, once they have landed
   __device__ __forceinline__ const float4* wait(int j) {
     mbar_wait(&full[j % kStages], (j / kStages) & 1);
@@ -293,14 +322,15 @@ struct RowRing {
   }
 };
 
-// The chunk loop of K1 and K3 over a tile's first ``count`` rows of ``src``:
+// The chunk loop of K1 and K3 over a tile's first ``count`` rows of ``src``
+// (rows in place from a pointer, or a RowsById):
 // fill the ring, then per chunk (rows c0 .. c0 + n - 1, cut at g_block
 // boundaries) wait for its rows and call blend(rows, n); at a g_block's start,
 // stop once no pixel's transmittance ``T()`` is at least kSatEps (the
 // early-out; the copies in flight land first). Every thread of the block
 // calls it; ``ring`` is the block's shared RowRing, ``seg_`` its clock.
-template <class Ring, int kStages, int kRows, class Blend, class Trans>
-__device__ __forceinline__ void run_chunks(Ring& ring, const float4* src, int count, int g_block,
+template <class Ring, int kStages, int kRows, class Src, class Blend, class Trans>
+__device__ __forceinline__ void run_chunks(Ring& ring, Src src, int count, int g_block,
                                            int p, SegClock& seg_, Blend&& blend, Trans&& T) {
   const int warp = p / 32, lane = p % 32;
   if (p == 0) ring.init();

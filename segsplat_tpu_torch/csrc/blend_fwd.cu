@@ -44,6 +44,23 @@
 //   serial transmittance and colour sums of the batch.
 // What it costs and what each part bought is in PERF.md (scripts/bench_k1.py;
 // scripts/k1_variants.py writes the alternatives that were timed).
+//
+// The indexed variant (kIndexed, entry segsplat_blend_fwd_indexed) reads no
+// gathered payload: tile t's row i is table[ids[offsets[t] + i]], with the
+// table's N rows per Gaussian and ids the pairs' rows of it in per-tile runs
+// (the rasterizer's no-grad path: the table in depth order, ids the depth
+// ranks, so the rows and their order are those of the gathered payload and
+// the result is the same bits). Where it stands against the bound: the
+// gathered payload costs a write and a read of 16 kW4 bytes for every slot
+// of the sort (N m^2, most of them sentinels or past K), plus a copy for the
+// K zero rows, all of it before K1 starts; read through the ids, only the
+// rows K1 stages move, 8 bytes of id and one row each, and a Gaussian's row
+// repeats over the up to m^2 tiles it covers, so the table (32 MB at CH 32
+// for 200 000 Gaussians) is read from L2 after its first tile. The staging
+// changes only in the fill: the refilling warp reads the chunk's ids, two a
+// lane, coalesced, and each lane issues its rows' bulk copies on the stage's
+// mbarrier, which expects the same n kW4 16 bytes; the count bounds every
+// read, so no zero rows are needed past a run.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -56,10 +73,13 @@ using namespace segsplat;
 
 constexpr int kBatch = 2;       // rows whose cut the sweep computes together
 
-template <int CH>
+// payload: the gathered rows in per-tile runs, or with kIndexed the table
+// that ids index (ids is read only with kIndexed)
+template <int CH, bool kIndexed>
 __global__ void __launch_bounds__(kPx, Layout<CH>::kMinBlocks)
 blend_fwd_kernel(const int32_t* __restrict__ offsets,
                  const float4* __restrict__ payload,
+                 const int64_t* __restrict__ ids,
                  const float* __restrict__ bg,
                  float* __restrict__ img,
                  float* __restrict__ alpha_out,
@@ -133,22 +153,26 @@ blend_fwd_kernel(const int32_t* __restrict__ offsets,
       SEG_MARK(5)
     }
   };
-  run_chunks<decltype(ring), L::kStages, L::kRows>(
-      ring, payload + static_cast<size_t>(start) * kW4, count, g_block, p, seg_, blend,
-      [&] { return T; });
+  if constexpr (kIndexed)
+    run_chunks<decltype(ring), L::kStages, L::kRows>(ring, RowsById{payload, ids + start}, count,
+                                                     g_block, p, seg_, blend, [&] { return T; });
+  else
+    run_chunks<decltype(ring), L::kStages, L::kRows>(
+        ring, payload + static_cast<size_t>(start) * kW4, count, g_block, p, seg_, blend,
+        [&] { return T; });
 
   write_pixel<CH, CHP>(img, alpha_out, acc, T, bg, static_cast<size_t>(y) * (tx_n * kTile) + x);
   SEG_MARK(6)
   SEG_FLUSH
 }
 
-template <int CH>
-int launch(const void* offsets, const void* payload, const void* bg, void* img, void* alpha,
-           int tx_n, int ty_n, int k_max, int g_block, cudaStream_t stream) {
-  blend_fwd_kernel<CH><<<tx_n * ty_n, kPx, 0, stream>>>(
+template <int CH, bool kIndexed>
+int launch(const void* offsets, const void* payload, const void* ids, const void* bg, void* img,
+           void* alpha, int tx_n, int ty_n, int k_max, int g_block, cudaStream_t stream) {
+  blend_fwd_kernel<CH, kIndexed><<<tx_n * ty_n, kPx, 0, stream>>>(
       static_cast<const int32_t*>(offsets), static_cast<const float4*>(payload),
-      static_cast<const float*>(bg), static_cast<float*>(img), static_cast<float*>(alpha),
-      tx_n, k_max, g_block);
+      static_cast<const int64_t*>(ids), static_cast<const float*>(bg), static_cast<float*>(img),
+      static_cast<float*>(alpha), tx_n, k_max, g_block);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -166,8 +190,31 @@ extern "C" int segsplat_blend_fwd(const void* offsets, const void* payload,
   if (g_block <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (ch) {  // ops/blend.py pads CH up to one of these widths
-#define SEGSPLAT_CASE(W) \
-    case W: return launch<W>(offsets, payload, bg, img, alpha, tx_n, ty_n, k_max, g_block, s);
+#define SEGSPLAT_CASE(W)                                                                    \
+    case W:                                                                                 \
+      return launch<W, false>(offsets, payload, nullptr, bg, img, alpha, tx_n, ty_n, k_max, \
+                              g_block, s);
+    SEGSPLAT_WIDTHS(SEGSPLAT_CASE)
+#undef SEGSPLAT_CASE
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The indexed variant: tile t blends rows table[ids[offsets[t] + i]] for
+// i < min(offsets[t + 1] - offsets[t], k_max). table is [N, 2 + ceil(CH / 4)] float4s
+// (16-byte aligned), ids int64 with every id read in [0, N). Returns a
+// cudaError_t as segsplat_blend_fwd does.
+extern "C" int segsplat_blend_fwd_indexed(const void* offsets, const void* ids,
+                                          const void* table, const void* bg, void* img,
+                                          void* alpha, int tx_n, int ty_n, int k_max,
+                                          int g_block, int ch, void* stream) {
+  if (g_block <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (ch) {  // ops/blend.py pads CH up to one of these widths
+#define SEGSPLAT_CASE(W)                                                                   \
+    case W:                                                                                \
+      return launch<W, true>(offsets, table, ids, bg, img, alpha, tx_n, ty_n, k_max, g_block, \
+                             s);
     SEGSPLAT_WIDTHS(SEGSPLAT_CASE)
 #undef SEGSPLAT_CASE
     default: return static_cast<int>(cudaErrorInvalidValue);
@@ -177,14 +224,27 @@ extern "C" int segsplat_blend_fwd(const void* offsets, const void* payload,
 // Occupancy of the kernel at ``ch`` channels on the current device: blocks of
 // 256 threads an SM holds at once, static shared memory per block, registers
 // per thread and local (spill) memory per thread. Returns a cudaError_t.
-extern "C" int segsplat_blend_fwd_occupancy(int ch, int* blocks_per_sm, int* smem_bytes,
-                                            int* registers, int* local_bytes) {
+template <bool kIndexed>
+static int occupancy_at(int ch, int* blocks_per_sm, int* smem_bytes, int* registers,
+                        int* local_bytes) {
   switch (ch) {
-#define SEGSPLAT_CASE(W)                                                              \
-    case W: return segsplat::occupancy(blend_fwd_kernel<W>, blocks_per_sm, smem_bytes, \
-                                       registers, local_bytes);
+#define SEGSPLAT_CASE(W)                                                                   \
+    case W: return segsplat::occupancy(blend_fwd_kernel<W, kIndexed>, blocks_per_sm,       \
+                                       smem_bytes, registers, local_bytes);
     SEGSPLAT_WIDTHS(SEGSPLAT_CASE)
 #undef SEGSPLAT_CASE
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+extern "C" int segsplat_blend_fwd_occupancy(int ch, int* blocks_per_sm, int* smem_bytes,
+                                            int* registers, int* local_bytes) {
+  return occupancy_at<false>(ch, blocks_per_sm, smem_bytes, registers, local_bytes);
+}
+
+// The same of the indexed variant.
+extern "C" int segsplat_blend_fwd_indexed_occupancy(int ch, int* blocks_per_sm,
+                                                    int* smem_bytes, int* registers,
+                                                    int* local_bytes) {
+  return occupancy_at<true>(ch, blocks_per_sm, smem_bytes, registers, local_bytes);
 }

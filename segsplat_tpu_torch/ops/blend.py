@@ -11,6 +11,11 @@ ctypes) or raises; on a CPU tensor it runs ``blend_tiles_plain``.
 ``blend_tiles_bwd_plain`` on CPU tensors. ``blend`` is the differentiable blend
 that training renders through: K1's op, whose autograd calls K2's.
 
+``blend_tiles_indexed`` is K1's indexed variant, for renders that need no
+gradient: it reads each pair's row from a per-Gaussian table through the
+pair's id, so no gathered payload is built (the same bits as ``blend_tiles``
+on the gathered rows).
+
 K1 replaces the TPU kernel ``segsplat_tpu/ops/blend_pallas.py:188``
 ``blend_tiles_pallas_dma``. Its semantics are kept exactly: pixel centres at
 +0.5, sigma ≥ 0 and 1/255 ≤ alpha ≤ 0.999, a per-tile cap of K rows, and the
@@ -423,10 +428,11 @@ def blend_tiles_plain(offsets, sorted_payload, bg, tx_n: int, ty_n: int, k_max: 
 
 
 @functools.cache
-def _kernel_fn(name: str, n_ptrs: int, n_ints: int):
-    """The C entry point ``segsplat_<name>`` of ``csrc/<name>.cu``: ``n_ptrs``
-    pointers, ``n_ints`` ints, then the stream; returns a cudaError_t."""
-    fn = getattr(cuda_build.load_library(name), f"segsplat_{name}")
+def _kernel_fn(name: str, n_ptrs: int, n_ints: int, entry: str = ""):
+    """The C entry point ``segsplat_<name><entry>`` of ``csrc/<name>.cu``:
+    ``n_ptrs`` pointers, ``n_ints`` ints, then the stream; returns a
+    cudaError_t."""
+    fn = getattr(cuda_build.load_library(name), f"segsplat_{name}{entry}")
     fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -503,6 +509,73 @@ def blend_tiles(offsets, sorted_payload, bg, tx_n: int, ty_n: int, k_max: int):
 
 
 blend_tiles.launches = 0
+
+
+def _check_indexed(offsets, ids, table, bg, tx_n, ty_n, k_max):
+    if k_max <= 0:
+        raise ValueError(f"k_max must be positive, got {k_max}")
+    _check_common(offsets, table, bg, tx_n, ty_n, "table")
+    kernel_width(bg.shape[0])
+    w = payload_width(bg.shape[0])
+    if table.dtype != torch.float32 or table.dim() != 2 or table.shape[1] != w:
+        raise ValueError(f"table must be float32 [N, {w}], got {table.dtype} "
+                         f"{tuple(table.shape)}")
+    if ids.dtype != torch.int64 or ids.dim() != 1 or not ids.is_contiguous():
+        raise ValueError(f"ids must be contiguous int64 [L], got {ids.dtype} "
+                         f"{tuple(ids.shape)}")
+    if ids.device != table.device:
+        raise ValueError(f"ids are on {ids.device}, the table on {table.device}")
+
+
+def blend_tiles_indexed_plain(offsets, ids, table, bg, tx_n: int, ty_n: int, k_max: int):
+    """``blend_tiles_indexed`` on any device: the rows gathered by the ids,
+    with K zero rows appended, through ``blend_tiles_plain``."""
+    rows = torch.nn.functional.pad(table[ids], (0, 0, 0, k_max))
+    return blend_tiles_plain(offsets, rows, bg, tx_n, ty_n, k_max)
+
+
+def _launch_indexed(offsets, table, bg, tx_n, ty_n, k_max, ids):
+    """Launch K1's indexed variant on CUDA tensors at bg's width, one it is
+    built for; returns (img, alpha)."""
+    dev = table.device
+    if dev.type != "cuda":
+        raise ValueError(f"blend_fwd runs on cuda or cpu tensors, got {dev}")
+    if table.data_ptr() % 16:
+        raise ValueError("the table must be 16-byte aligned for its rows' bulk copies")
+    ch = bg.shape[0]
+    fn = _kernel_fn("blend_fwd", 6, 5, "_indexed")
+    img = torch.empty((ty_n * TILE, tx_n * TILE, ch), dtype=torch.float32, device=dev)
+    alpha = torch.empty((ty_n * TILE, tx_n * TILE), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = fn(offsets.data_ptr(), ids.data_ptr(), table.data_ptr(), bg.data_ptr(),
+                 img.data_ptr(), alpha.data_ptr(), tx_n, ty_n, k_max, g_block(k_max), ch,
+                 torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"blend_fwd (indexed) kernel launch failed: cudaError {err}")
+    return img, alpha
+
+
+def blend_tiles_indexed(offsets, ids, table, bg, tx_n: int, ty_n: int, k_max: int):
+    """K1 on rows it fetches through their ids, with no gathered payload:
+    tile t blends table[ids[offsets[t] + i]] for i < min(count_t, K), which
+    is ``blend_tiles`` on the payload ``table[ids]`` (K zero rows appended),
+    bit for bit. table [N, payload_width(CH)] float32 (``make_payload``'s
+    rows), ids int64 [L ≥ offsets[-1]], every id a tile reads in [0, N) (not
+    checked: that would wait for the card); the rest as ``blend_tiles_plain``.
+
+    CUDA tensors launch K1's indexed variant (``segsplat_blend_fwd_indexed``)
+    on the current stream, which counts in ``blend_tiles_indexed.launches``
+    (not in ``blend_tiles.launches``); CPU tensors run ``blend_tiles_indexed_plain``. Not differentiable: the
+    rasterizer takes it only where nothing needs a gradient."""
+    _check_indexed(offsets, ids, table, bg, tx_n, ty_n, k_max)
+    if table.device.type == "cpu":
+        return blend_tiles_indexed_plain(offsets, ids, table, bg, tx_n, ty_n, k_max)
+    out = forward_at_width(_launch_indexed, offsets, table, bg, tx_n, ty_n, k_max, ids)
+    blend_tiles_indexed.launches += 1
+    return out
+
+
+blend_tiles_indexed.launches = 0
 
 
 # ─────────────────────────── packed forward: kernel K3 ───────────────────────────
@@ -761,13 +834,14 @@ def blend_tiles_bwd_occupancy(ch: int) -> tuple[int, int]:
     return blocks.value, smem.value
 
 
-def blend_forward_occupancy(name: str, ch: int) -> dict:
+def blend_forward_occupancy(name: str, ch: int, entry: str = "") -> dict:
     """Occupancy of the forward kernel ``csrc/<name>.cu`` (``blend_fwd``, K1, or
-    ``blend_packed``, K3) at ``ch`` channels on the current card: blocks of
-    256 threads an SM holds at once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
-    static shared memory per block, registers and local (spill) bytes per
-    thread (``cudaFuncGetAttributes``)."""
-    fn = getattr(cuda_build.load_library(name), f"segsplat_{name}_occupancy")
+    ``blend_packed``, K3; ``entry`` ``"_indexed"``: K1's indexed variant) at
+    ``ch`` channels on the current card: blocks of 256 threads an SM holds at
+    once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), static shared
+    memory per block, registers and local (spill) bytes per thread
+    (``cudaFuncGetAttributes``)."""
+    fn = getattr(cuda_build.load_library(name), f"segsplat_{name}{entry}_occupancy")
     fn.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 4
     fn.restype = ctypes.c_int
     vals = [ctypes.c_int() for _ in range(4)]

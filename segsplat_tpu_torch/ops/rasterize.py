@@ -20,8 +20,11 @@ the K cap) is discrete and carries no gradient.
      in front-to-back order.
   3. blend: the pairs' payload rows, gathered into per-tile runs, are
      composited per 16×16 tile by ``blend``. The pair→Gaussian gradient
-     reduction is the autograd of that gather. The dense backend instead
-     gathers every tile's K slots and composites them with a cumulative
+     reduction is the autograd of that gather. Where nothing needs a
+     gradient on the card, no such gather is built: K1's indexed variant
+     fetches each pair's row from a per-Gaussian table through its depth
+     rank (``blend_tiles_indexed``), with the same bits. The dense backend
+     instead gathers every tile's K slots and composites them with a cumulative
      product, no early-out, ``tile_chunk`` tiles at a time.
 """
 
@@ -36,7 +39,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from segsplat_tpu_torch.ops.blend import (PACKED_MAX_CH, _block_alpha, _pixel_centres, blend,
-                                          blend_tiles_packed, make_payload, pack_payload)
+                                          blend_tiles_indexed, blend_tiles_packed, make_payload,
+                                          pack_payload)
 from segsplat_tpu_torch.utils import cuda_build
 from segsplat_tpu_torch.utils.profiling import annotate, count
 
@@ -76,6 +80,16 @@ class Projected(NamedTuple):
     conics: torch.Tensor    # [N, 3] (a, b, c) of inverse 2D covariance
     radii: torch.Tensor     # [N] float, 3σ screen radius (0 = culled)
     valid: torch.Tensor     # [N] bool
+
+
+class Binned(NamedTuple):
+    order: torch.Tensor           # [N] depth order
+    rank_sorted: torch.Tensor     # [L] depth ranks in per-tile runs (pair_cap applied)
+    offsets: torch.Tensor         # [T+1] int32 per-tile run starts (pair_cap applied)
+    tx_n: int
+    ty_n: int
+    num_pairs: torch.Tensor       # [] real pair count before pair_cap
+    tile_overflow: torch.Tensor   # [] pairs beyond the per-tile cap K
 
 
 class BlendInputs(NamedTuple):
@@ -127,10 +141,11 @@ def _on_card(means3d) -> bool:
 
 
 def _kernel_takes(means3d, others) -> bool:
-    """Whether ``project_gaussians`` launches the kernel: not under a
-    torch.compile or torch.export trace (Inductor fuses the plain version
-    there, and a fake tensor has no memory), the Gaussians on the card, and
-    nothing for autograd to record (the kernel has no backward)."""
+    """Whether a kernel with no backward takes the call (the projection's, K1's
+    indexed variant): not under a torch.compile or torch.export trace
+    (Inductor fuses the plain version there, and a fake tensor has no
+    memory), the Gaussians on the card, and nothing for autograd to record
+    on ``means3d`` or ``others``."""
     if torch.compiler.is_compiling() or not _on_card(means3d):
         return False
     return not (torch.is_grad_enabled() and any(
@@ -398,16 +413,6 @@ def tile_depth_counts(means3d, scales, quats, viewmat, fx, fy, cx, cy,
     return torch.diff(offsets)
 
 
-def _bin_gaussians(proj: Projected, width: int, height: int, max_tiles_per_axis: int,
-                   opacities: Optional[torch.Tensor] = None, tile_row0: int = 0):
-    """Binning resolved to Gaussian ids: (sorted_gid [N·m²] in per-tile runs,
-    offsets [T+1] int32, (tx_n, ty_n)). Binning sees detached values."""
-    order, rank_sorted, offsets, dims = bin_gaussian_ranks(
-        Projected(*(x.detach() for x in proj)), width, height, max_tiles_per_axis,
-        opacities=None if opacities is None else opacities.detach(), tile_row0=tile_row0)
-    return order[rank_sorted], offsets, dims
-
-
 def _pair_counts(offsets: torch.Tensor, K: int):
     """The real pairs of the tile runs and those past the per-tile cap K, 0-dim
     tensors, also given as the counts ``pairs`` and ``pairs_past_k`` of the
@@ -419,38 +424,50 @@ def _pair_counts(offsets: torch.Tensor, K: int):
     return num_pairs, tile_overflow
 
 
+def bin_pairs(proj: Projected, opacities, width: int, height: int,
+              max_tiles_per_axis: int, max_per_tile: int,
+              pair_cap: Optional[int] = None, opacity_cull: bool = False,
+              tile_row0: int = 0) -> Binned:
+    """Every backend's bin stage, in the span ``raster.bin``:
+    ``bin_gaussian_ranks`` on detached values, the counts ``pairs`` and
+    ``pairs_past_k`` (``_pair_counts``), then ``pair_cap``, which truncates
+    the sorted pairs: sentinel pairs sort to the tail, so any cap ≥ the
+    frame's real pair count is exact. On overflow the deepest runs of the
+    highest tile ids are dropped (the offsets are clamped, so reads stay in
+    bounds)."""
+    with annotate("raster.bin"):
+        order, rank_sorted, offsets, (tx_n, ty_n) = bin_gaussian_ranks(
+            Projected(*(x.detach() for x in proj)), width, height, max_tiles_per_axis,
+            opacities=opacities.detach() if opacity_cull else None, tile_row0=tile_row0)
+        num_pairs, tile_overflow = _pair_counts(offsets, max_per_tile)
+        if pair_cap is not None and pair_cap < rank_sorted.shape[0]:
+            rank_sorted = rank_sorted[:pair_cap]
+            offsets = torch.clamp_max(offsets, pair_cap)
+    return Binned(order, rank_sorted, offsets, tx_n, ty_n, num_pairs, tile_overflow)
+
+
 def build_blend_inputs(proj: Projected, colors, opacities, width: int, height: int,
                        max_tiles_per_axis: int, max_per_tile: int,
                        pair_cap: Optional[int] = None,
                        opacity_cull: bool = False, packed: bool = False,
                        tile_row0: int = 0) -> BlendInputs:
-    """Bin, then gather the pairs' payload rows into per-tile runs.
-
-    ``pair_cap`` truncates the sorted pair list before the gather: sentinel
-    pairs sort to the tail, so any cap ≥ the frame's real pair count is exact.
-    On overflow the deepest runs of the highest tile ids are dropped (offsets
-    are clamped, so reads stay in bounds). The payload keeps K zero rows past
-    the end; with ``packed`` it is K3's [R, 128] layout instead
-    (``pack_payload``). ``tile_row0``: see ``bin_gaussian_ranks``. Binning
-    sees detached values; the gather carries gradients. Runs in the spans
-    ``raster.bin`` (binning, the counts, the cap; it counts ``pairs`` and
-    ``pairs_past_k``, device values) and ``raster.gather`` (it counts
-    ``rows``, the payload rows gathered before the pad)."""
+    """Bin (``bin_pairs``: the counts, ``pair_cap``), then gather the pairs'
+    payload rows into per-tile runs, in the span ``raster.gather``, which
+    counts ``rows``, the payload rows gathered before the pad. The payload
+    keeps K zero rows past the end; with ``packed`` it is K3's [R, 128] layout
+    instead (``pack_payload``). ``tile_row0``: see ``bin_gaussian_ranks``.
+    The gather carries gradients."""
     K = max_per_tile
-    with annotate("raster.bin"):
-        sorted_gid, offsets, (tx_n, ty_n) = _bin_gaussians(
-            proj, width, height, max_tiles_per_axis,
-            opacities=opacities if opacity_cull else None, tile_row0=tile_row0)
-        num_pairs, tile_overflow = _pair_counts(offsets, K)
-        if pair_cap is not None and pair_cap < sorted_gid.shape[0]:
-            sorted_gid = sorted_gid[:pair_cap]
-            offsets = torch.clamp_max(offsets, pair_cap)
+    b = bin_pairs(proj, opacities, width, height, max_tiles_per_axis, K, pair_cap=pair_cap,
+                  opacity_cull=opacity_cull, tile_row0=tile_row0)
     with annotate("raster.gather"):
-        count("rows", sorted_gid.shape[0])
-        rows = make_payload(proj.means2d, proj.conics, opacities, colors)[sorted_gid]
+        count("rows", b.rank_sorted.shape[0])
+        rows = make_payload(proj.means2d, proj.conics, opacities, colors)[
+            b.order[b.rank_sorted]]
         sorted_payload = (pack_payload(rows, K) if packed
                           else torch.nn.functional.pad(rows, (0, 0, 0, K)))
-    return BlendInputs(offsets, sorted_payload, tx_n, ty_n, num_pairs, tile_overflow)
+    return BlendInputs(b.offsets, sorted_payload, b.tx_n, b.ty_n, b.num_pairs,
+                       b.tile_overflow)
 
 
 def _blend_tiles(sorted_gid, offsets, proj: Projected, colors, opacities, bg,
@@ -522,17 +539,24 @@ def rasterize(means3d, scales, quats, opacities, colors, viewmat, fx, fy, cx, cy
 
     backend: ``"cuda"`` (the JAX package's ``"pallas"``): kernels K1 forward and
     K2 backward, their plain versions on CPU tensors; ``pair_cap`` (see
-    ``build_blend_inputs``) applies to it only. While the module constant
-    ``USE_PACKED`` is True and CH ≤ 56 it blends with the packed kernel K3
-    instead, which has no backward: that branch raises when grad mode is on and
-    an input requires grad. ``"dense"`` (the JAX package's ``"xla"``):
+    ``build_blend_inputs``) applies to it only. Where the Gaussians are on the
+    card, no compile or export traces the call and nothing for autograd to
+    record reaches the blend (colours, opacities, bg, the projected geometry),
+    K1's indexed variant reads the rows through the pairs' depth ranks
+    (``blend_tiles_indexed``, the same bits, no gathered payload); everywhere
+    else it blends ``build_blend_inputs``' payload through K1's op. While the
+    module constant ``USE_PACKED`` is True and CH ≤ 56 it blends with the
+    packed kernel K3 instead, which has no backward: that branch raises when
+    grad mode is on and an input requires grad. ``"dense"`` (the JAX package's ``"xla"``):
     ``_blend_tiles`` in torch ops, ``tile_chunk`` tiles at a time.
 
     The stages run in spans (``utils/profiling.annotate``): ``raster.project``
     (with the offset's add), ``raster.bin`` (counting ``pairs`` and
     ``pairs_past_k``), ``raster.gather`` (the kernel path's payload rows,
-    counting ``rows``; the dense blend gathers inside its chunks) and
-    ``raster.blend`` (the blend's op dispatch and launch on the card).
+    counting ``rows``; on the indexed path the N-row table, which counts
+    nothing, since no pair's row is gathered; the dense blend gathers inside
+    its chunks) and ``raster.blend`` (the blend's op dispatch and launch on
+    the card).
 
     tile_row0 > 0: the image is ``height`` rows of a taller frame from its
     tile row tile_row0 on (``parallel/render.rasterize_strip``); cx, cy are
@@ -555,14 +579,12 @@ def rasterize(means3d, scales, quats, opacities, colors, viewmat, fx, fy, cx, cy
             proj = proj._replace(means2d=proj.means2d + means2d_offset)
     K = max_per_tile
     if backend == "dense":
-        with annotate("raster.bin"):
-            sorted_gid, offsets, (tx_n, ty_n) = _bin_gaussians(
-                proj, width, height, max_tiles_per_axis,
-                opacities=opacities if opacity_cull else None, tile_row0=tile_row0)
-            num_pairs, tile_overflow = _pair_counts(offsets, K)
+        b = bin_pairs(proj, opacities, width, height, max_tiles_per_axis, K,
+                      opacity_cull=opacity_cull, tile_row0=tile_row0)
         with annotate("raster.blend"):
-            img, alpha = _blend_tiles(sorted_gid, offsets, proj, colors, opacities, bg,
-                                      tx_n, ty_n, K, tile_chunk)
+            img, alpha = _blend_tiles(b.order[b.rank_sorted], b.offsets, proj, colors,
+                                      opacities, bg, b.tx_n, b.ty_n, K, tile_chunk)
+        num_pairs, tile_overflow = b.num_pairs, b.tile_overflow
     else:
         packed = USE_PACKED and colors.shape[1] <= PACKED_MAX_CH
         if packed and torch.is_grad_enabled() and any(
@@ -571,15 +593,28 @@ def rasterize(means3d, scales, quats, opacities, colors, viewmat, fx, fy, cx, cy
                           means2d_offset, fx, fy, cx, cy)):
             raise RuntimeError("the packed blend (USE_PACKED) has no backward: render "
                                "under torch.no_grad() or with inputs that need no grad")
-        inputs = build_blend_inputs(proj, colors, opacities, width, height,
-                                    max_tiles_per_axis, K, pair_cap=pair_cap,
-                                    opacity_cull=opacity_cull, packed=packed,
-                                    tile_row0=tile_row0)
-        blend_fn = blend_tiles_packed if packed else blend
-        with annotate("raster.blend"):
-            img, alpha = blend_fn(inputs.offsets, inputs.sorted_payload, bg,
-                                  inputs.tx_n, inputs.ty_n, K)
-        num_pairs, tile_overflow = inputs.num_pairs, inputs.tile_overflow
+        if not packed and _kernel_takes(means3d, (proj.means2d, proj.conics, opacities,
+                                                  colors, bg)):
+            # K1 reads each pair's row through its depth rank from the payload
+            # table in depth order: no N·m²-row gather, no ids, no K zero rows
+            b = bin_pairs(proj, opacities, width, height, max_tiles_per_axis, K,
+                          pair_cap=pair_cap, opacity_cull=opacity_cull, tile_row0=tile_row0)
+            with annotate("raster.gather"):
+                table = make_payload(proj.means2d, proj.conics, opacities, colors)[b.order]
+            with annotate("raster.blend"):
+                img, alpha = blend_tiles_indexed(b.offsets, b.rank_sorted, table, bg,
+                                                 b.tx_n, b.ty_n, K)
+            num_pairs, tile_overflow = b.num_pairs, b.tile_overflow
+        else:
+            inputs = build_blend_inputs(proj, colors, opacities, width, height,
+                                        max_tiles_per_axis, K, pair_cap=pair_cap,
+                                        opacity_cull=opacity_cull, packed=packed,
+                                        tile_row0=tile_row0)
+            blend_fn = blend_tiles_packed if packed else blend
+            with annotate("raster.blend"):
+                img, alpha = blend_fn(inputs.offsets, inputs.sorted_payload, bg,
+                                      inputs.tx_n, inputs.ty_n, K)
+            num_pairs, tile_overflow = inputs.num_pairs, inputs.tile_overflow
     return {
         "image": img[:height, :width],
         "alpha": alpha[:height, :width],

@@ -4,18 +4,26 @@ training raster's 19 channels, the semantic path's 32 and the one-pass
 render's 51; K3 against K1 on the same scene; K1 and K3 on edge tiles (count 0,
 one row, count > K, partial last chunks, the row test's edge rows); and
 rasterize on K1 and K2 against the dense blend at K = 200, no multiple of 128,
-forward and gradients. Imports no JAX, so it runs where the card is:
+forward and gradients; K1's indexed variant (the no-grad render path) against
+K1 on the gathered payload, bit for bit, on the benchmark's two view scenes.
+Imports no JAX, so it runs where the card is:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_blend_cuda.py
 
 (tests/conftest.py imports JAX, which that machine does not have.) Without a
 card every case skips."""
 
+import json
+import math
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
 from segsplat_tpu_torch.ops import blend as B
+from segsplat_tpu_torch.ops.rasterize import rasterize
+from segsplat_tpu_torch.parallel.render import rasterize_strip
 # by its bare name: pytest puts tests/ on sys.path, and a machine may have an
 # installed package named `tests` that hides this directory's
 from _torch_port import (BLEND_CASES, DEGENERATE_K, K_ODD, PACKED_CASES, PACKED_G,
@@ -201,3 +209,98 @@ def test_kernels_at_padded_widths_on_card(case, ch):
         pargs = blend_case_args(case, "cuda", ch=ch, packed=True)
         for g, r in zip(B.blend_tiles_packed(*pargs), B.blend_tiles_packed_plain(*pargs)):
             torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4)
+
+
+# ── K1's indexed variant against K1 on the gathered payload ──
+
+CONFIGS = Path(__file__).resolve().parents[1] / "benchmark" / "configs"
+
+
+def _view_scene(config: str, seed: int, ch=None) -> dict:
+    """The benchmark configuration's scene (``benchmark/scenes``) on the card,
+    as rasterize's inputs; ``ch`` logit channels in place of the config's."""
+    import importlib
+
+    cfg = json.loads((CONFIGS / f"{config}.json").read_text())
+    if ch is not None:
+        cfg["channels"] = ch
+    s = importlib.import_module(f"benchmark.scenes.{cfg['scene']}").draw(cfg, seed, "cuda")
+    return dict(xyz=s["xyz"], scales=torch.exp(s["log_scales"]), quats=s["quats"],
+                opac=torch.sigmoid(s["opacity_logit"])[:, 0], colors=s["logits"],
+                bg=torch.zeros(s["logits"].shape[1], device="cuda"),
+                m=cfg["max_tiles_per_axis"], K=cfg["max_per_tile"])
+
+
+def _both_paths(sc: dict, width: int = 1920, height: int = 1080, pair_cap=None, strip=None):
+    """rasterize under no_grad (K1's indexed variant, one launch of its own
+    counter, none of K1's) and with the colours needing grad (the gathered
+    payload through K1's op, one launch of K1's counter), each synchronised;
+    the viewer's camera (fov 1.2 × 0.75 rad) at the origin. Returns
+    (indexed, gathered) outputs."""
+    vm = torch.eye(4, device="cuda")
+    fx, fy = width / (2 * math.tan(0.6)), height / (2 * math.tan(0.375))
+
+    def call(colors):
+        args = (sc["xyz"], sc["scales"], sc["quats"], sc["opac"], colors, vm,
+                fx, fy, width / 2, height / 2, width, height)
+        kw = dict(bg=sc["bg"], max_tiles_per_axis=sc["m"], max_per_tile=sc["K"],
+                  pair_cap=pair_cap)
+        return rasterize_strip(*strip, *args, **kw) if strip else rasterize(*args, **kw)
+
+    counts = lambda: (B.blend_tiles_indexed.launches, B.blend_tiles.launches)
+    before = counts()
+    with torch.no_grad():
+        got = call(sc["colors"])
+    torch.cuda.synchronize()
+    mid = counts()
+    ref = call(sc["colors"].detach().clone().requires_grad_(True))
+    torch.cuda.synchronize()
+    assert (mid[0] - before[0], mid[1] - before[1]) == (1, 0)
+    assert (counts()[0] - mid[0], counts()[1] - mid[1]) == (0, 1)
+    assert ref["image"].requires_grad and not got["image"].requires_grad
+    return got, ref
+
+
+def _assert_same_bits(got, ref):
+    for key in ("image", "alpha", "num_pairs", "tile_overflow"):
+        assert torch.equal(got[key], ref[key].detach()), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [None, 0.5])
+def test_indexed_k1_matches_k1_on_the_clustered_scene_on_card(cap):
+    """officescene-clustered (m = 6, K = 512, tiles ~58 000 deep, three
+    quarters of the pairs past K), without a pair cap and with one at half
+    the frame's pairs."""
+    _need_card()
+    sc = _view_scene("officescene-clustered", 3300000011)
+    pair_cap = None
+    if cap is not None:
+        with torch.no_grad():
+            pairs = int(rasterize(sc["xyz"], sc["scales"], sc["quats"], sc["opac"],
+                                  sc["colors"], torch.eye(4, device="cuda"),
+                                  1920 / (2 * math.tan(0.6)), 1080 / (2 * math.tan(0.375)),
+                                  960, 540, 1920, 1080, bg=sc["bg"], max_tiles_per_axis=6,
+                                  max_per_tile=512)["num_pairs"])
+        pair_cap = int(pairs * cap)
+    got, ref = _both_paths(sc, pair_cap=pair_cap)
+    _assert_same_bits(got, ref)
+    assert int(ref["tile_overflow"]) > 0, "no tile is deeper than K"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ch", (8, 19, 24, 32, 51))
+def test_indexed_k1_matches_k1_on_the_box_scene_on_card(ch):
+    """officescene-semantic32's scene (m = 3, K = 256) at the widths the
+    paths render: the GT sweep's 8 and 24, training's 19, the semantic 32 and
+    the one-pass 51."""
+    _need_card()
+    _assert_same_bits(*_both_paths(_view_scene("officescene-semantic32", 3300000007, ch)))
+
+
+@pytest.mark.cuda
+def test_indexed_k1_matches_k1_on_a_strip_on_card():
+    """Strip 1 of 4 of a 1920 × 1024 frame (tile_row0 = 16) of the box scene."""
+    _need_card()
+    sc = _view_scene("officescene-semantic32", 3300000009)
+    _assert_same_bits(*_both_paths(sc, width=1920, height=1024, strip=(1, 4)))
