@@ -8,21 +8,14 @@ Phases, each fatal on failure:
      segsplat_tpu_torch/csrc with nvcc, one process per source, in parallel
      (the three blends at every width of csrc/blend_widths.cuh, and the
      projection).
-  2. kernels vs plain on small scenes, the cases of tests/_torch_port.py, at
-     19, 32 and 51 channels: K = 128, 256 and 384 (one 128-row block, one
-     256-row block, three 128-row blocks with the transmittance carry), an
-     opaque scene that takes the forward's block early-out, and a pair_cap
-     truncation. K1 (forward) at 1e-4; K2 (backward) at rtol 5e-3, atol
-     2e-4·max|ref|, with the rows no tile owns exactly 0, also on empty tiles
-     and a tile past its K cap; a wide, faint K = 256 scene whose tile counts
-     leave K2 a partial last chunk; K = 200, no multiple of 128 (the cap inside
-     a partial 128-row block), against the plain versions, and rasterize on K1
-     and K2 against the dense blend at that K, forward and gradients (19 and 32
-     channels); K3 (packed forward) on the same cases and
-     an opaque K = 256 one at 1e-4, and against K1; K1 and K3 at 1e-4 on the
-     degenerate tiles and on edge tiles (count 0, one row, count > K, partial
-     last chunks, rows at the edges of the row test). On every input the row
-     lists of K1 and K3 (the plain counter) keep no fewer warp-rows than hit.
+  2. the card tests: ``python -m pytest --noconftest -p no:cacheprovider -q``
+     on CARD_TESTS (tests/test_torch_blend_cuda.py, test_torch_project_cuda.py
+     and test_torch_lift_cuda.py) in one child process: K1, K2 and K3 against
+     their plain versions on the small scenes of tests/_torch_port.py at every
+     width, on degenerate and edge tiles, rasterize on K1 and K2 against the
+     dense blend, K1's indexed variant against K1, the projection kernel and
+     the lift's card paths. Fails on a non-zero exit or on any skipped case;
+     logs the counts of passes, failures and skips.
   3. K1 vs plain at full scale: 1920×1080, 200 000 Gaussians, 32 channels, the
      headline scene (seed 0, m=3, K=256, pair_cap 1.5M) and the hostile one
      (seed 7, m=6, K=512, pair_cap 6M), built as bench.py builds them; times the
@@ -63,11 +56,11 @@ Phases, each fatal on failure:
      gradient of a seeded linear functional of render, render_object and
      semantic_logits with K2 at 51 channels, against the same calls with the
      plain blends; K1 and K2 timed at 51 channels with their bounds;
-     (b) the packed kernel K3, turned on through ``rasterize``'s USE_PACKED in
-     this process only, on the headline and hostile 1080p scenes (32 channels)
-     and on (a)'s 51-channel render: its launch count must rise; against its
-     plain version at 1e-4 and against K1 at 1e-4 + 2·SAT_EPS·max(|colour|,
-     |bg|), timed with its bound and with the whole packed rasterize;
+     (b) the packed kernel K3, which no program path runs, on payloads packed
+     here with ``pack_payload`` from the headline and hostile 1080p frames'
+     rows (32 channels) and from (a)'s 51-channel render: against its plain
+     version at 1e-4 and against K1 at 1e-4 + 2·SAT_EPS·max(|colour|, |bg|),
+     timed with its bound;
      (c) the dense backend (the JAX package's "xla") on the headline scene,
      forward, against K1 at 1e-4, timed.
   8. feature lifting, which launches none of the kernels: (a) the DDA and the
@@ -109,13 +102,9 @@ Phases, each fatal on failure:
      (random weights, stamped), the pipeline twin's refusal of those maps, and
      ``python -m segsplat_tpu_torch.run_pipeline`` through all five stages on
      seeded unstamped maps of the same views, K1 launched in stage 5.
-  10. pseudo-labels and the LERF-Masked and ScanNet++ evaluation, in four
-     parts: (a) ``widths``: the kernels at every channel count the TPU kernels
-     take: K1 and K2 on phase 2's cases at 3, 8, 23 and 120 channels (padded
-     to the built widths 4, 8, 24 and 120), K3 at 8, 23 and 56, K1 and K2 at
-     every width 1..120 and K3 at 1..56 on one case, against their plain
-     versions, and rasterize on K1 and K2 at 3, 8, 23 and 120 channels
-     against the dense blend, forward and gradient; (b) ``slic``: the pseudo-label loop's GT sweep at 876×584 (K1 at
+  10. pseudo-labels and the LERF-Masked and ScanNet++ evaluation, in three
+     phases (lettered from (b); the kernels at every width run in phase 2):
+     (b) ``slic``: the pseudo-label loop's GT sweep at 876×584 (K1 at
      3 + 5 and 3 + 20 channels; K1 and K2 timed on a sweep frame's inputs with
      their bounds) and SLIC at prepare_pseudo_label's defaults on the hard
      scene's 30 frames: card against CPU (≥ 99.5 % of labels), the same bits on
@@ -229,13 +218,12 @@ Phases, each fatal on failure:
      1e-4, K1 once a call, and one backward through it (K2 once, d_payload
      against eager's at rtol 5e-3, atol 2e-4·max|ref|); (b) the 1080p headline
      frame compiled: labels equal to eager's on ≥ 99.99 % of pixels, both pair
-     counts, compile seconds, compiled and eager frames timed; (c) the same
-     frame with USE_PACKED, K3 once a call; (d) ``python -m
+     counts, compile seconds, compiled and eager frames timed; (c) ``python -m
      segsplat_tpu_torch.graft_entry`` (its ok lines: the entry, and the dry
-     run on 8 gloo ranks with one card) and the CPU half of (e), each a child
-     process running while this one compiles (a)-(c); the timings wait for
-     them; (e) ``python -m segsplat_tpu_torch.perf_guard`` on the card, alone,
-     its counts equal to the ``--device cpu --no-walltime`` run's; (f)
+     run on 8 gloo ranks with one card) and the CPU half of (d), each a child
+     process running while this one compiles (a) and (b); the timings wait for
+     them; (d) ``python -m segsplat_tpu_torch.perf_guard`` on the card, alone,
+     its counts equal to the ``--device cpu --no-walltime`` run's; (e)
      ``parity_real`` on seeded label maps at 584×876, 3 variants of 8 views.
      It prints phase 15's bench line.
 Prints a ``{"kernels": [...]}`` line (each kernel's blocks per SM, shared
@@ -388,7 +376,7 @@ def project_checked(*args, **kw):
     return got
 
 
-def blend_inputs_on_card(sc, W, H, cam, m, K, pair_cap=None, packed=False):
+def blend_inputs_on_card(sc, W, H, cam, m, K, pair_cap=None):
     import torch
 
     from segsplat_tpu_torch.ops.rasterize import build_blend_inputs
@@ -399,136 +387,45 @@ def blend_inputs_on_card(sc, W, H, cam, m, K, pair_cap=None, packed=False):
     vm, fx, fy, cx, cy = cam
     proj = project_checked(t["xyz"], t["scales"], t["quats"],
                            torch.as_tensor(vm, device=dev), fx, fy, cx, cy, W, H)
-    return t, build_blend_inputs(proj, t["logits"], t["opac"], W, H, m, K,
-                                 pair_cap=pair_cap, packed=packed)
+    return t, build_blend_inputs(proj, t["logits"], t["opac"], W, H, m, K, pair_cap=pair_cap)
 
 
-def phase_small(results):
-    import numpy as np
-    import torch
-
-    from segsplat_tpu_torch.ops import blend as B
-
-    # the case table and scenes of tests/test_torch_blend_cuda.py
-    _tests_on_path()
-    from _torch_port import (BLEND_CASES, DEGENERATE_K, PACKED_CASES, PACKED_G,
-                             assert_case_exercised, blend_case_args, degenerate_case_args,
-                             edge_case_args, owned_rows)
-
-    gen = torch.Generator("cuda").manual_seed(0)
-    for ch in B.KERNEL_CHANNELS:
-        for name in sorted(BLEND_CASES):
-            args = blend_case_args(name, "cuda", ch=ch)
-            offsets, payload, K = args[0], args[1], args[-1]
-            got = B.blend_tiles(*args)
-            ref_img, ref_alpha, rows, hits, _ = B.blend_tiles_plain_with_work(*args)
-            torch.cuda.synchronize()
-            err = compare(f"{name} CH={ch}", got, (ref_img, ref_alpha))
-            counts = np.minimum(np.diff(offsets.cpu().numpy()), K)
-            assert_case_exercised(name, offsets.cpu().numpy(), K, rows)
-            lists = warp_row_shares(f"{name} CH={ch} K1", B.blend_tiles_warp_rows(*args))
-            results["fwd_err"] = max(results["fwd_err"], err)
-
-            g_img = torch.randn(ref_img.shape, generator=gen, device="cuda")
-            g_alpha = torch.randn(ref_alpha.shape, generator=gen, device="cuda")
-            bargs = (offsets, payload, args[2], ref_img, ref_alpha, g_img, g_alpha) + args[3:]
-            d_pay, d_bg = B.blend_tiles_bwd(*bargs)
-            ref_pay, ref_bg, brows, bhits = B.blend_tiles_bwd_plain_with_work(*bargs)
-            torch.cuda.synchronize()
-            berr = max(compare_grad(f"{name} CH={ch} d_payload", d_pay, ref_pay),
-                       compare_grad(f"{name} CH={ch} d_bg", d_bg, ref_bg))
-            owned = torch.as_tensor(owned_rows(offsets.cpu().numpy(), K, payload.shape[0]),
-                                    device="cuda")
-            if bool((d_pay[~owned] != 0).any()):
-                raise AssertionError(f"{name} CH={ch}: K2 wrote a row no tile owns")
-            results["bwd_err"] = max(results["bwd_err"], berr)
-            log(f"[small] {name} CH={ch}: K={K} pairs={int(offsets[-1])} "
-                f"deepest={int(counts.max())} fwd rows_read={rows}/{int(counts.sum())} "
-                f"pixels_hit={hits} max_abs_err={err:.3g} warp-rows kept "
-                f"{lists['kept_share']:.3f} hit {lists['hit_share']:.3f}; bwd rows_read={brows} "
-                f"pixels_hit={bhits} max_abs_err={berr:.3g}")
-
-        # K2 on empty tiles and on a tile past its K cap: those rows stay 0
-        offsets, payload, bg, tx_n, ty_n, K = degenerate_case_args("cuda", ch=ch)
-        img, alpha = B.blend_tiles_plain(offsets, payload, bg, tx_n, ty_n, K)
-        bargs = (offsets, payload, bg, img, alpha, torch.randn(img.shape, generator=gen,
-                                                               device="cuda"),
-                 torch.randn(alpha.shape, generator=gen, device="cuda"), tx_n, ty_n, K)
-        d_pay, d_bg = B.blend_tiles_bwd(*bargs)
-        ref_pay, ref_bg = B.blend_tiles_bwd_plain(*bargs)
-        torch.cuda.synchronize()
-        berr = max(compare_grad(f"degenerate CH={ch} d_payload", d_pay, ref_pay),
-                   compare_grad(f"degenerate CH={ch} d_bg", d_bg, ref_bg))
-        owned = torch.as_tensor(owned_rows(offsets.cpu().numpy(), DEGENERATE_K,
-                                           payload.shape[0]), device="cuda")
-        if bool((d_pay[~owned] != 0).any()):
-            raise AssertionError(f"degenerate CH={ch}: K2 wrote a row no tile owns")
-        results["bwd_err"] = max(results["bwd_err"], berr)
-        log(f"[small] degenerate tiles CH={ch} (counts 0 and past K={K}): K2 "
-            f"max_abs_err={berr:.3g}, unowned rows 0")
-
-        # K1 and K3 on the degenerate tiles and on the edge tiles
-        for case, args in (("degenerate", degenerate_case_args("cuda", ch=ch)),
-                           ("edge", edge_case_args("cuda", ch=ch))):
-            offsets, payload, bg, tx_n, ty_n, K = args
-            pargs = (offsets, B.pack_payload(payload[:-K], K), bg, tx_n, ty_n, K)
-            err = compare(f"{case} tiles CH={ch} K1", B.blend_tiles(*args),
-                          B.blend_tiles_plain(*args))
-            perr = compare(f"{case} tiles CH={ch} K3", B.blend_tiles_packed(*pargs),
-                           B.blend_tiles_packed_plain(*pargs))
-            lists = warp_row_shares(f"{case} tiles CH={ch} K1", B.blend_tiles_warp_rows(*args))
-            plists = warp_row_shares(f"{case} tiles CH={ch} K3",
-                                     B.blend_tiles_packed_warp_rows(*pargs))
-            results["fwd_err"] = max(results["fwd_err"], err)
-            results["packed_err"] = max(results["packed_err"], perr)
-            log(f"[small] {case} tiles CH={ch} (counts {np.diff(offsets.cpu().numpy()).tolist()}, "
-                f"K={K}): K1 max_abs_err={err:.3g}, K3 {perr:.3g}; warp-rows kept/hit "
-                f"K1 {lists['warp_rows_kept']}/{lists['warp_rows_hit']}, K3 "
-                f"{plists['warp_rows_kept']}/{plists['warp_rows_hit']}")
-
-        if ch in (19, 32):
-            odd_k_against_dense(results, ch)
-
-        for name in sorted(PACKED_CASES):
-            args = blend_case_args(name, "cuda", ch=ch, packed=True)
-            got = B.blend_tiles_packed(*args)
-            ref_img, ref_alpha, rows, hits, stopped = B.blend_tiles_packed_plain_with_work(*args)
-            torch.cuda.synchronize()
-            err = compare(f"{name} CH={ch} K3", got, (ref_img, ref_alpha))
-            assert_case_exercised(name, args[0].cpu().numpy(), args[-1], rows, g=PACKED_G)
-            warp_row_shares(f"{name} CH={ch} K3", B.blend_tiles_packed_warp_rows(*args))
-            dense = blend_case_args(name, "cuda", ch=ch)
-            k1_err = compare(f"{name} CH={ch} K3 vs K1", got, B.blend_tiles(*dense),
-                             atol=packed_atol(dense[1], dense[2]))
-            results["packed_err"] = max(results["packed_err"], err)
-            log(f"[small] {name} CH={ch} K3: rows_read={rows} pixels_hit={hits} "
-                f"tiles_stopped={stopped} max_abs_err={err:.3g}; vs K1 {k1_err:.3g}")
+CARD_TESTS = ("tests/test_torch_blend_cuda.py", "tests/test_torch_project_cuda.py",
+              "tests/test_torch_lift_cuda.py")
+CARD_TESTS_TIMEOUT = 900
 
 
-def odd_k_against_dense(results, ch: int):
-    """rasterize at K = 200, no multiple of 128, on K1 and K2 against the dense
-    blend: forward at 1e-4, gradients at compare_grad's tolerance."""
-    import torch
+def phase_card_tests(root: str):
+    """Phase 2: CARD_TESTS in one child process (``--noconftest``:
+    tests/conftest.py imports JAX). Raises on a non-zero exit, on any skipped
+    case or on no passes; logs the counts of passes, failures and skips."""
+    import xml.etree.ElementTree as ET
 
-    from segsplat_tpu_torch.ops import blend as B
-    from _torch_port import K_ODD, odd_k_raster
-
-    before = (B.blend_tiles.launches, B.blend_tiles_bwd.launches)
-    img, alpha, over, grads = odd_k_raster("cuda", "cuda", ch)
-    torch.cuda.synchronize()
-    if (B.blend_tiles.launches - before[0], B.blend_tiles_bwd.launches - before[1]) != (1, 1):
-        raise AssertionError(f"K={K_ODD}: rasterize did not launch K1 and K2 once each")
-    d_img, d_alpha, d_over, d_grads = odd_k_raster("cuda", "dense", ch)
-    if int(over) != int(d_over) or int(over) == 0:
-        raise AssertionError(f"K={K_ODD}: tile overflow {int(over)} on the kernels, "
-                             f"{int(d_over)} on the dense blend")
-    err = compare(f"K={K_ODD} CH={ch} K1 vs dense", (img, alpha), (d_img, d_alpha))
-    gerr = max(compare_grad(f"K={K_ODD} CH={ch} K2 vs dense d_{k}", grads[k], d_grads[k])
-               for k in d_grads)
-    results.setdefault("odd_k", {})[ch] = dict(k=K_ODD, fwd_max_abs_err=err,
-                                               grad_max_abs_err=gerr, tile_overflow=int(over))
-    log(f"[small] K={K_ODD} CH={ch} rasterize on K1 + K2 vs the dense blend: forward "
-        f"max_abs_err={err:.3g}, gradients {gerr:.3g}, {int(over)} pairs past the cap")
+    report = os.path.join(root, "card_tests.xml")
+    t0 = time.perf_counter()
+    try:
+        r = subprocess.run([sys.executable, "-m", "pytest", "--noconftest", "-p",
+                            "no:cacheprovider", "-q", "-rs", f"--junitxml={report}", *CARD_TESTS],
+                           cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                           text=True, timeout=CARD_TESTS_TIMEOUT)
+    except subprocess.TimeoutExpired as e:
+        out, err = (b.decode(errors="replace") if isinstance(b, bytes) else b or ""
+                    for b in (e.stdout, e.stderr))
+        raise AssertionError(f"the card tests ran past {CARD_TESTS_TIMEOUT} s:"
+                             f"\n{out[-6000:]}\n{err[-3000:]}") from e
+    if not os.path.exists(report):
+        raise AssertionError(f"the card tests exited {r.returncode} with no report:"
+                             f"\n{r.stdout[-6000:]}\n{r.stderr[-3000:]}")
+    suite = ET.parse(report).getroot()
+    suite = suite if suite.tag == "testsuite" else suite.find("testsuite")
+    n = {k: int(suite.get(k, 0)) for k in ("tests", "failures", "errors", "skipped")}
+    counts = dict(passed=n["tests"] - n["failures"] - n["errors"] - n["skipped"],
+                  failed=n["failures"], errors=n["errors"], skipped=n["skipped"],
+                  seconds=time.perf_counter() - t0, files=list(CARD_TESTS))
+    log(f"[small] the card tests: {json.dumps(counts)}")
+    if r.returncode != 0 or counts["skipped"] or not counts["passed"]:
+        raise AssertionError(f"the card tests exited {r.returncode} with {json.dumps(counts)}:"
+                             f"\n{r.stdout[-6000:]}\n{r.stderr[-3000:]}")
 
 
 def warp_row_shares(name: str, work: dict) -> dict:
@@ -883,7 +780,9 @@ def phase_main_path(results, root: str):
                                                    project=project_gaussians.launches)
     results["cli_s"] = time.perf_counter() - t0
     # no grad: every view blends through K1's indexed variant, none gathers
-    if launches["blend_fwd_indexed"] < n_views or launches["blend_fwd"] != 0:
+    # and none runs K3
+    if (launches["blend_fwd_indexed"] < n_views or launches["blend_fwd"] != 0
+            or launches["blend_packed"] != 0):
         raise AssertionError(f"main path launched K1 {launches} for {n_views} views")
     if project_gaussians.launches < n_views:
         raise AssertionError(f"main path launched the projection kernel "
@@ -967,22 +866,25 @@ def swapped(module, **replacements):
 
 
 def reset_k1() -> None:
-    """Set both of K1's launch counters to 0: ``blend_tiles`` (K1 on the
-    gathered payload: renders that autograd records or a compile traces) and
+    """Set the forward blends' launch counters to 0: ``blend_tiles`` (K1 on the
+    gathered payload: renders that autograd records or a compile traces),
     ``blend_tiles_indexed`` (its indexed variant: every other render on the
-    card)."""
+    card) and ``blend_tiles_packed`` (K3, which no program path launches)."""
     from segsplat_tpu_torch.ops import blend as B
 
     B.blend_tiles.launches = B.blend_tiles_indexed.launches = 0
+    B.blend_tiles_packed.launches = 0
 
 
 def k1_launches() -> dict:
-    """K1's launches by variant since ``reset_k1``: ``blend_fwd`` on the
-    gathered payload, ``blend_fwd_indexed`` the indexed variant."""
+    """The forward blends' launches by kernel since ``reset_k1``:
+    ``blend_fwd`` K1 on the gathered payload, ``blend_fwd_indexed`` its
+    indexed variant, ``blend_packed`` K3."""
     from segsplat_tpu_torch.ops import blend as B
 
     return {"blend_fwd": B.blend_tiles.launches,
-            "blend_fwd_indexed": B.blend_tiles_indexed.launches}
+            "blend_fwd_indexed": B.blend_tiles_indexed.launches,
+            "blend_packed": B.blend_tiles_packed.launches}
 
 
 def indexed_inputs(proj, colors, opac, W, H, m, K, bg, pair_cap=None):
@@ -1430,54 +1332,38 @@ def phase_logits_render(results):
     packed = B.pack_payload(payload[:-K], K)
     with torch.no_grad():
         results["packed"]["logits51"] = packed_stats(
-            "logits51", lambda: R.render(table, cam, bg, semantic_logits=logits,
-                                         max_tiles_per_axis=3, max_per_tile=256),
-            (offsets, packed, torch.zeros(51, device=DEV), tx_n, ty_n, K),
+            "logits51", (offsets, packed, torch.zeros(51, device=DEV), tx_n, ty_n, K),
             (offsets, payload, torch.zeros(51, device=DEV), tx_n, ty_n, K))
     del cap, table, leaves, logits
     torch.cuda.empty_cache()
 
 
-def packed_stats(name, raster, pargs, dargs):
-    """K3 through ``rasterize`` with USE_PACKED on (``raster()`` renders; its
-    count is the launches), then on the same frame's packed payload ``pargs``
+def packed_stats(name, pargs, dargs):
+    """K3 on a frame's packed payload ``pargs`` (no program path runs it)
     against its plain version at 1e-4 and against K1 on the K1 payload
     ``dargs`` at ``packed_atol``; timed with its bound."""
     import torch
 
     from segsplat_tpu_torch.ops import blend as B
-    from segsplat_tpu_torch.ops import rasterize as Rz
 
-    with swapped(Rz, USE_PACKED=True):
-        B.blend_tiles_packed.launches = 0
-        out = raster()
-        torch.cuda.synchronize()
-        launches = B.blend_tiles_packed.launches
-        raster_ms = cuda_time_ms(raster, reps=5)
-    if launches < 1:
-        raise AssertionError(f"{name}: rasterize with USE_PACKED launched K3 {launches} times")
-    img = out["image"] if "image" in out else torch.cat(
-        [out[k].permute(1, 2, 0) for k, _ in LOGIT_OUTPUTS], dim=2)
-    h, w = img.shape[:2]
-    del out
-
+    before = B.blend_tiles_packed.launches
     got = B.blend_tiles_packed(*pargs)
     ref_img, ref_alpha, rows, hits, stopped = B.blend_tiles_packed_plain_with_work(*pargs)
     torch.cuda.synchronize()
+    if B.blend_tiles_packed.launches != before + 1:
+        raise AssertionError(f"{name}: blend_tiles_packed did not launch K3")
     err = compare(f"{name} K3", got, (ref_img, ref_alpha))
-    compare(f"{name} rasterize(USE_PACKED) image", [img], [got[0][:h, :w]])
     k1_img, k1_alpha, _, _, k1_stopped = B.blend_tiles_plain_with_work(*dargs)
     k1_err = compare(f"{name} K3 vs K1", got, (k1_img, k1_alpha),
                      atol=packed_atol(dargs[1], dargs[2]))
-    del got, ref_img, ref_alpha, k1_img, k1_alpha, img
+    del got, ref_img, ref_alpha, k1_img, k1_alpha
     offsets, ch, num_tiles = pargs[0], pargs[2].shape[0], pargs[3] * pargs[4]
-    stats = dict(launches=launches, max_abs_err=err, vs_k1_max_abs_err=k1_err, ch=ch,
+    stats = dict(max_abs_err=err, vs_k1_max_abs_err=k1_err, ch=ch,
                  rows_read=rows, pixels_hit=hits, tiles_stopped=stopped,
                  k1_tiles_stopped=k1_stopped,
                  ms=cuda_time_ms(lambda: B.blend_tiles_packed(*pargs), reps=10),
                  plain_ms=cuda_time_ms(lambda: B.blend_tiles_packed_plain(*pargs), reps=3,
                                        warmup=1),
-                 rasterize_ms=raster_ms,
                  **warp_row_shares(f"{name} K3", B.blend_tiles_packed_warp_rows(*pargs)))
     stats["bound_ms"], stats["bound_by"], stats["ops"], stats["bytes"] = k1_bound(
         offsets, rows, hits, ch, num_tiles, row_bytes=k3_row_bytes(ch))
@@ -1486,10 +1372,11 @@ def packed_stats(name, raster, pargs, dargs):
 
 
 def phase_other_blends(results):
-    """(b) K3 through rasterize's packed branch on the 1080p headline and
-    hostile scenes; (c) the dense backend on the headline scene against K1."""
+    """(b) K3 on the 1080p headline and hostile frames' rows, packed with
+    ``pack_payload``; (c) the dense backend on the headline scene against K1."""
     import torch
 
+    from segsplat_tpu_torch.ops.blend import pack_payload
     from segsplat_tpu_torch.ops.rasterize import rasterize
 
     W, H = FRAME_W, FRAME_H
@@ -1501,15 +1388,14 @@ def phase_other_blends(results):
         sc = bench_scene(name)
         m, K, cap = sc["m"], sc["K"], sc["pair_cap"]
         t, bi = blend_inputs_on_card(sc, W, H, cam, m, K, pair_cap=cap)
-        _, pbi = blend_inputs_on_card(sc, W, H, cam, m, K, pair_cap=cap, packed=True)
         raster = lambda backend="cuda": rasterize(
             t["xyz"], t["scales"], t["quats"], t["opac"], t["logits"], vm_t, fx, fy, cx,
             cy, W, H, bg=bg, max_tiles_per_axis=m, max_per_tile=K, pair_cap=cap,
             backend=backend)
         with torch.no_grad():
             results["packed"][name] = packed_stats(
-                name, raster, (pbi.offsets, pbi.sorted_payload, bg, pbi.tx_n, pbi.ty_n, K),
-                (bi.offsets, bi.sorted_payload, bg, bi.tx_n, bi.ty_n, K))
+                name, (bi.offsets, pack_payload(bi.sorted_payload[:-K], K), bg, bi.tx_n, bi.ty_n,
+                       K), (bi.offsets, bi.sorted_payload, bg, bi.tx_n, bi.ty_n, K))
             if name == "headline":
                 # K = 256 is one 256-row block: K1 never skips work, as the dense
                 # blend does not
@@ -1521,7 +1407,7 @@ def phase_other_blends(results):
                     raster, reps=5))
                 log("[dense] headline: " + json.dumps(results["dense"]))
                 del dense, kern
-        del t, bi, pbi
+        del t, bi
         torch.cuda.empty_cache()
 
 
@@ -2337,8 +2223,10 @@ def phase_pipeline(results, root: str):
     out["wall_s"] = time.perf_counter() - t0
     launches = k1_launches()
     results["launches"]["pipeline"] = launches
-    # stage 5 renders as the render CLI does: K1's indexed variant, no gather
-    if launches["blend_fwd_indexed"] < len(names) or launches["blend_fwd"] != 0:
+    # stage 5 renders as the render CLI does: K1's indexed variant, no gather,
+    # no K3
+    if (launches["blend_fwd_indexed"] < len(names) or launches["blend_fwd"] != 0
+            or launches["blend_packed"] != 0):
         raise AssertionError(f"stage 5 launched K1 {launches} for {len(names)} views")
     sem = run["semantics"]
     for p in (run["grid_ply"], run["voxel_features"], sem, os.path.join(run_work, "gauss2voxel.npy"),
@@ -2380,9 +2268,6 @@ def phase_query(results, root: str):
 
 # ──────────── phase 10: pseudo-labels, the LERF-Masked and ScanNet++ protocols ────────────
 
-WIDTH_CASES = (3, 8, 23, 120)           # K1 and K2 on phase 2's cases at these widths
-PACKED_WIDTH_CASES = (8, 23, 56)        # K3
-WIDTH_SWEEP_CASE = "k128_one_block"     # every width 1..120 (K3 1..56) on this case
 SLIC_W, SLIC_H = 876, 584               # the lift's and the train step's view
 SLIC_FRAMES = 30                        # the hard scene's frames
 SLIC_CPU_FRAMES = 3                     # card against CPU on these
@@ -2406,87 +2291,6 @@ MESH_VIEWS = 8
 MESH_IMAGE = (1752, 1168)               # a ScanNet++ DSLR frame, rendered at 0.5
 MESH_DOWNSAMPLE = 0.5
 MESH_DEPTH_TIE = 1e-5                   # labels may differ only between nearer-than-this depths
-
-
-def _width_case(B, args, gen, label: str, results):
-    """K1 and K2 on one blend case against their plain versions (K1 1e-4, K2
-    compare_grad's tolerance, the rows no tile owns exactly 0)."""
-    import torch
-
-    from _torch_port import owned_rows
-
-    offsets, payload, bg, tx_n, ty_n, K = args
-    ref_img, ref_alpha = B.blend_tiles_plain(*args)
-    err = compare(f"{label} K1", B.blend_tiles(*args), (ref_img, ref_alpha))
-    g_img = torch.randn(ref_img.shape, generator=gen, device="cuda")
-    g_alpha = torch.randn(ref_alpha.shape, generator=gen, device="cuda")
-    bargs = (offsets, payload, bg, ref_img, ref_alpha, g_img, g_alpha, tx_n, ty_n, K)
-    d_pay, d_bg = B.blend_tiles_bwd(*bargs)
-    ref_pay, ref_bg = B.blend_tiles_bwd_plain(*bargs)
-    berr = max(compare_grad(f"{label} K2 d_payload", d_pay, ref_pay),
-               compare_grad(f"{label} K2 d_bg", d_bg, ref_bg))
-    owned = torch.as_tensor(owned_rows(offsets.cpu().numpy(), K, payload.shape[0]),
-                            device="cuda")
-    if bool((d_pay[~owned] != 0).any()):
-        raise AssertionError(f"{label}: K2 wrote a row no tile owns")
-    results["fwd_err"] = max(results["fwd_err"], err)
-    results["bwd_err"] = max(results["bwd_err"], berr)
-    return err, berr
-
-
-def phase_widths(results):
-    """(a) The widths the TPU kernels take: K1 and K2 on phase 2's cases at 3,
-    8, 23 and 120 channels, K3 at 8, 23 and 56; every width 1..120 (K3 1..56)
-    on one case; rasterize on K1 and K2 at 3, 8, 23 and 120 channels against
-    the dense blend, forward and gradients."""
-    import torch
-
-    from segsplat_tpu_torch.ops import blend as B
-
-    _tests_on_path()
-    from _torch_port import BLEND_CASES, PACKED_CASES, blend_case_args
-
-    gen = torch.Generator("cuda").manual_seed(10)
-    out = {"cases": {}, "sweep": {}}
-    for ch in WIDTH_CASES:
-        errs = [_width_case(B, blend_case_args(name, "cuda", ch=ch), gen,
-                            f"{name} CH={ch}", results) for name in sorted(BLEND_CASES)]
-        out["cases"][f"K1/K2 CH={ch}"] = dict(kernel_width=B.kernel_width(ch),
-                                             fwd_max_abs_err=max(e[0] for e in errs),
-                                             bwd_max_abs_err=max(e[1] for e in errs))
-    for ch in PACKED_WIDTH_CASES:
-        perr = 0.0
-        for name in sorted(PACKED_CASES):
-            args = blend_case_args(name, "cuda", ch=ch, packed=True)
-            perr = max(perr, compare(f"{name} CH={ch} K3", B.blend_tiles_packed(*args),
-                                     B.blend_tiles_packed_plain(*args)))
-        results["packed_err"] = max(results["packed_err"], perr)
-        out["cases"][f"K3 CH={ch}"] = dict(kernel_width=B.kernel_width(ch, B.PACKED_WIDTHS),
-                                          max_abs_err=perr)
-    torch.cuda.synchronize()
-    log(f"[widths] phase 2's cases: {json.dumps(out['cases'])}")
-
-    t0 = time.perf_counter()
-    worst = [0.0, 0.0, 0.0]
-    for ch in range(1, B.MAX_CH + 1):
-        args = blend_case_args(WIDTH_SWEEP_CASE, "cuda", ch=ch)
-        err, berr = _width_case(B, args, gen, f"{WIDTH_SWEEP_CASE} CH={ch}", results)
-        worst[0], worst[1] = max(worst[0], err), max(worst[1], berr)
-        if ch <= B.PACKED_MAX_CH:
-            pargs = blend_case_args(WIDTH_SWEEP_CASE, "cuda", ch=ch, packed=True)
-            worst[2] = max(worst[2], compare(f"{WIDTH_SWEEP_CASE} CH={ch} K3",
-                                             B.blend_tiles_packed(*pargs),
-                                             B.blend_tiles_packed_plain(*pargs)))
-    torch.cuda.synchronize()
-    results["packed_err"] = max(results["packed_err"], worst[2])
-    out["sweep"] = dict(case=WIDTH_SWEEP_CASE, k1_k2_channels=[1, B.MAX_CH],
-                        k3_channels=[1, B.PACKED_MAX_CH], k1_max_abs_err=worst[0],
-                        k2_max_abs_err=worst[1], k3_max_abs_err=worst[2],
-                        seconds=time.perf_counter() - t0)
-    log(f"[widths] every width: {json.dumps(out['sweep'])}")
-    for ch in WIDTH_CASES:
-        odd_k_against_dense(results, ch)
-    results["widths"] = out
 
 
 def _hard_objects():
@@ -4801,9 +4605,9 @@ def compile_entry(results) -> tuple:
 def compile_frames() -> dict:
     """(b) the 1080p headline frame (200 000 Gaussians, 32 channels, m = 3,
     K = 256) through Inductor: eager against compiled (max |Δ|, argmax labels
-    equal on ≥ 99.99 % of pixels, both pair counts) and compile seconds; (c)
-    the same frame with USE_PACKED, K3 once a call. Returns {name: (stats, a
-    function that times the compiled and the eager frame)}."""
+    equal on ≥ 99.99 % of pixels, both pair counts), K1 once a call, and
+    compile seconds. Returns {"headline": (stats, a function that times the
+    compiled and the eager frame)}."""
     import torch
 
     from segsplat_tpu_torch import bench
@@ -4824,42 +4628,38 @@ def compile_frames() -> dict:
                            max_tiles_per_axis=m, max_per_tile=K, pair_cap=cap)
         return out["image"], out["num_pairs"], out["tile_overflow"]
 
-    frames = {}
-    for name, packed, counter in (("headline", False, "blend_tiles"),
-                                  ("headline_packed", True, "blend_tiles_packed")):
-        with swapped(Rz, USE_PACKED=packed), torch.no_grad():
-            compiled = torch.compile(frame, fullgraph=True)
-            t0 = time.perf_counter()
-            got = compiled(*args)
-            torch.cuda.synchronize()
-            compile_s = time.perf_counter() - t0
-            ref = frame(*args)
-            setattr(getattr(B, counter), "launches", 0)
-            got = compiled(*args)
-            torch.cuda.synchronize()
-            launches = getattr(B, counter).launches
-            if launches != 1:
-                raise AssertionError(f"the compiled {name} frame launched {counter} "
-                                     f"{launches} times")
-            agree = float((got[0].argmax(-1) == ref[0].argmax(-1)).float().mean())
-            s = dict(compile_s=compile_s, launches=launches,
-                     max_abs_diff=float((got[0] - ref[0]).abs().max()), label_agree=agree,
-                     num_pairs=int(got[1]), eager_num_pairs=int(ref[1]),
-                     tile_overflow=int(got[2]), eager_tile_overflow=int(ref[2]))
-            del got, ref
-        log(f"[compile] {name}: " + json.dumps(s))
-        if agree < COMPILE_LABEL_AGREE:
-            raise AssertionError(f"the compiled {name} frame's labels agree with eager's on "
-                                 f"{agree:.6f} of the pixels, under {COMPILE_LABEL_AGREE}")
+    with torch.no_grad():
+        compiled = torch.compile(frame, fullgraph=True)
+        t0 = time.perf_counter()
+        got = compiled(*args)
+        torch.cuda.synchronize()
+        compile_s = time.perf_counter() - t0
+        ref = frame(*args)
+        B.blend_tiles.launches = 0
+        got = compiled(*args)
+        torch.cuda.synchronize()
+        launches = B.blend_tiles.launches
+        if launches != 1:
+            raise AssertionError(f"the compiled headline frame launched blend_tiles "
+                                 f"{launches} times")
+        agree = float((got[0].argmax(-1) == ref[0].argmax(-1)).float().mean())
+        s = dict(compile_s=compile_s, launches=launches,
+                 max_abs_diff=float((got[0] - ref[0]).abs().max()), label_agree=agree,
+                 num_pairs=int(got[1]), eager_num_pairs=int(ref[1]),
+                 tile_overflow=int(got[2]), eager_tile_overflow=int(ref[2]))
+        del got, ref
+    log("[compile] headline: " + json.dumps(s))
+    if agree < COMPILE_LABEL_AGREE:
+        raise AssertionError(f"the compiled headline frame's labels agree with eager's on "
+                             f"{agree:.6f} of the pixels, under {COMPILE_LABEL_AGREE}")
 
-        def timed(s=s, compiled=compiled, packed=packed):
-            with swapped(Rz, USE_PACKED=packed), torch.no_grad():
-                s["compiled_ms"] = cuda_time_ms(lambda: compiled(*args), reps=COMPILE_TIMED)
-                s["eager_ms"] = cuda_time_ms(lambda: frame(*args), reps=COMPILE_TIMED)
-            return s
+    def timed():
+        with torch.no_grad():
+            s["compiled_ms"] = cuda_time_ms(lambda: compiled(*args), reps=COMPILE_TIMED)
+            s["eager_ms"] = cuda_time_ms(lambda: frame(*args), reps=COMPILE_TIMED)
+        return s
 
-        frames[name] = (s, timed)
-    return frames
+    return {"headline": (s, timed)}
 
 
 @contextlib.contextmanager
@@ -4910,12 +4710,12 @@ def guard_rows(text: str) -> dict:
 
 
 def phase_compile(results, root: str):
-    """Phase 16. (d) ``python -m segsplat_tpu_torch.graft_entry`` (its ok lines)
-    and the CPU half of (e), ``python -m segsplat_tpu_torch.perf_guard --device
-    cpu --no-walltime``, run as children while this process compiles (a)-(c);
-    then, with the host quiet, the frames and K1/K2 on the compiled entry's
-    inputs are timed, and (e)'s card half runs alone: its counts must equal the
-    CPU's. (f) ``parity_real`` on seeded label maps at 584×876, 3 variants of
+    """Phase 16. (c) ``python -m segsplat_tpu_torch.graft_entry`` (its ok lines)
+    and the CPU half of (d), ``python -m segsplat_tpu_torch.perf_guard --device
+    cpu --no-walltime``, run as children while this process compiles (a) and
+    (b); then, with the host quiet, the frame and K1/K2 on the compiled entry's
+    inputs are timed, and (d)'s card half runs alone: its counts must equal the
+    CPU's. (e) ``parity_real`` on seeded label maps at 584×876, 3 variants of
     8 views. Prints phase 15's bench line."""
     _tests_on_path()
     from _torch_port import write_label_maps
@@ -4980,7 +4780,7 @@ def phase_compile(results, root: str):
     if len(exact) != 3 or len(pairs) != 3:
         raise AssertionError("parity_real's report:\n" + "\n".join(lines))
 
-    log(f"[compile] (a)-(c) and the children {compiles_s:.1f} s, the card's perf_guard "
+    log(f"[compile] (a), (b) and the children {compiles_s:.1f} s, the card's perf_guard "
         f"{guard_s:.1f} s, parity_real {parity_s:.1f} s")
     results["compile"] = dict(
         entry=entry, frames={k: s for k, (s, _) in frames.items()}, compiles_s=compiles_s,
@@ -5004,9 +4804,9 @@ def kernel_entry(name, ch, source, replaces, launches, max_abs_err, t, **extra):
 
 
 PHASES = ("small", "full", "main", "train", "train-cli", "logits", "other-blends", "lift",
-          "query", "widths", "slic", "loop", "mesh", "edit", "multi", "tools", "scale", "measure",
+          "query", "slic", "loop", "mesh", "edit", "multi", "tools", "scale", "measure",
           "compile")
-PSEUDO_LABEL_PHASES = ("widths", "slic", "loop", "mesh")      # phase 10 (a)-(e)
+PSEUDO_LABEL_PHASES = ("slic", "loop", "mesh")      # phase 10 (b)-(e)
 
 
 def main(argv=None) -> int:
@@ -5073,10 +4873,10 @@ def main(argv=None) -> int:
                                       for ch in KERNEL_WIDTHS}
     log(f"[occupancy] {json.dumps(occupancy)}")
 
-    results = {"fwd_err": 0.0, "bwd_err": 0.0, "packed_err": 0.0, "scenes": {},
+    results = {"fwd_err": 0.0, "bwd_err": 0.0, "scenes": {},
                "launches": {}, "packed": {}}
     root = tempfile.mkdtemp(prefix="chip_smoke_")
-    run = {"small": lambda: phase_small(results),
+    run = {"small": lambda: phase_card_tests(root),
            "full": lambda: phase_full(results),
            "main": lambda: phase_main_path(results, root),
            "train": lambda: phase_train_step(results),
@@ -5085,7 +4885,6 @@ def main(argv=None) -> int:
            "other-blends": lambda: phase_other_blends(results),
            "lift": lambda: phase_lift(results, root),
            "query": lambda: phase_query(results, root),
-           "widths": lambda: phase_widths(results),
            "slic": lambda: phase_slic(results),
            "loop": lambda: phase_loop(results, root),
            "mesh": lambda: phase_mesh(results, root),
@@ -5128,6 +4927,12 @@ def main(argv=None) -> int:
     k1_cli, k1_pipe = results["launches"]["render_semantics"], results["launches"]["pipeline"]
     measure = results["measure"]
     launches = measure["launches"]
+    k3_by_path = {"render_semantics": k1_cli["blend_packed"],
+                  "run_pipeline stage 5": k1_pipe["blend_packed"],
+                  **{name: c["blend_packed"] for name, c in launches.items()}}
+    k3_program = k1_cli["blend_packed"] + k1_pipe["blend_packed"]
+    if any(k3_by_path.values()):
+        raise AssertionError(f"a program path launched K3: {k3_by_path}")
     kernels = [
         # the kernel every no-grad render on the card runs; its launches are the
         # render CLI's and stage 5's own, their counters set to 0 just before
@@ -5174,15 +4979,21 @@ def main(argv=None) -> int:
         kernel_entry("blend_bwd", 51, bwd_src, k2_tpu, logits["launches"]["blend_bwd"],
                      logits["bwd"]["max_abs_err"], logits["bwd"],
                      path="render(semantic_logits) gradient", **k2_occupancy[51]),
-        kernel_entry("blend_packed", 32, packed_src, k3_tpu,
-                     packed["headline"]["launches"] + packed["hostile"]["launches"],
+        # no program path runs K3 (the render CLI, stage 5 and the measure
+        # child's runs each check its counter at 0): phase 7 (b) launches it on
+        # payloads it packs
+        kernel_entry("blend_packed", 32, packed_src, k3_tpu, k3_program,
                      max(packed["headline"]["max_abs_err"], packed["hostile"]["max_abs_err"]),
-                     packed["headline"], path="rasterize with USE_PACKED",
+                     packed["headline"], path="render_semantics CLI + run_pipeline stage 5; "
+                                              "times on phase 7 (b)'s packed payload of the "
+                                              "headline frame",
+                     launches_by_path=k3_by_path,
                      hostile=packed["hostile"], **occupancy["blend_packed"][32]),
-        kernel_entry("blend_packed", 51, packed_src, k3_tpu, packed["logits51"]["launches"],
+        kernel_entry("blend_packed", 51, packed_src, k3_tpu, k3_program,
                      packed["logits51"]["max_abs_err"], packed["logits51"],
-                     path="render(semantic_logits) with USE_PACKED",
-                     **occupancy["blend_packed"][51]),
+                     path="render_semantics CLI + run_pipeline stage 5; times on phase 7 (b)'s "
+                          "packed payload of the render(semantic_logits) frame",
+                     launches_by_path=k3_by_path, **occupancy["blend_packed"][51]),
     ]
     slic, loop = results["slic"], results["loop"]
     for key, label in (("sweep20", "hard scene, 20 objects"), ("sweep5", "5 objects")):
@@ -5300,11 +5111,6 @@ def main(argv=None) -> int:
         entry["bwd"]["max_abs_err"], entry["bwd"],
         path="the backward of the compiled graft_entry.entry() frame",
         **k2_occupancy[entry["bwd"]["kernel_width"]]))
-    kernels.append(kernel_entry(
-        "blend_packed", 32, packed_src, k3_tpu, frames["headline_packed"]["launches"],
-        packed["headline"]["max_abs_err"], packed["headline"],
-        path="torch.compile of the 1080p headline frame with USE_PACKED; times on phase 7's "
-             "headline packed inputs", **occupancy["blend_packed"][32]))
     proj_launches = results["launches"]["render_semantics"]["project"]
     kernels.append(kernel_entry(
         "project", None, project_src, "none: XLA ops, segsplat_tpu/ops/rasterize.py "

@@ -195,12 +195,12 @@ def render_args(ch: int):
     return cap["args"]
 
 
-def frame_args(name: str, packed=False):
+def frame_args(name: str):
     import torch
 
     sc = S.bench_scene(name)
     _, bi = S.blend_inputs_on_card(sc, S.FRAME_W, S.FRAME_H, S.bench_camera(), sc["m"],
-                                   sc["K"], pair_cap=sc["pair_cap"], packed=packed)
+                                   sc["K"], pair_cap=sc["pair_cap"])
     return (bi.offsets, bi.sorted_payload, torch.zeros(32, device=S.DEV), bi.tx_n, bi.ty_n,
             sc["K"])
 
@@ -402,8 +402,8 @@ def main() -> int:
                             ("logits CH=51", lambda: render_args(51))):
             bench("blend_fwd", fns["blend_fwd"], label, make(), a.rounds)
     if "blend_packed" in fns:
-        for label, make in (("headline CH=32", lambda: frame_args("headline", True)),
-                            ("hostile CH=32", lambda: frame_args("hostile", True)),
+        for label, make in (("headline CH=32", lambda: packed_of(frame_args("headline"))),
+                            ("hostile CH=32", lambda: packed_of(frame_args("hostile"))),
                             ("logits CH=51", lambda: packed_of(render_args(51)))):
             bench("blend_packed", fns["blend_packed"], label, make(), a.rounds)
     if a.only in (None, "indexed"):

@@ -123,7 +123,7 @@ def headline_inputs():
 
     from segsplat_tpu_torch.ops import blend as B
 
-    sc = S.headline_scene()
+    sc = S.bench_scene("headline")
     _, bi = S.blend_inputs_on_card(sc, S.FRAME_W, S.FRAME_H, S.bench_camera(), sc["m"],
                                    sc["K"], pair_cap=sc["pair_cap"])
     bg = torch.zeros(32, device=S.DEV)

@@ -3,14 +3,15 @@
 Counterpart of segsplat_tpu/ops/rasterize.py. Projection is one hand-written
 CUDA kernel (csrc/project.cu) where nothing differentiates or compiles it, else
 ordinary torch ops, with the same bits; binning is ordinary torch ops. The
-blend has two backends: ``"cuda"``, the counterpart of
-the JAX package's ``"pallas"`` — kernel K1 forward and kernel K2 backward
-(ops/blend.py), or the packed kernel K3 where ``USE_PACKED`` turns it on — and
+blend has two backends: ``"cuda"``, the counterpart of the JAX package's
+``"pallas"`` — kernel K1 forward and kernel K2 backward (ops/blend.py) — and
 ``"dense"``, the counterpart of its ``"xla"`` — ``_blend_tiles`` in torch ops,
 differentiated by autograd. ``rasterize`` is differentiable in the means,
-scales, rotations, opacities, colours, ``means2d_offset`` and bg (except on the
-packed branch, which has no backward). Binning (tile membership, depth order,
-the K cap) is discrete and carries no gradient.
+scales, rotations, opacities, colours, ``means2d_offset`` and bg. Binning
+(tile membership, depth order, the K cap) is discrete and carries no
+gradient. The packed kernel K3 (``blend_tiles_packed``) takes no route here,
+as the JAX package's ``use_packed = False`` takes none there: a caller that
+wants it packs the gathered rows with ``pack_payload``.
 
   1. project: EWA splatting — camera-space means, 2D covariance
      J W Σ Wᵀ Jᵀ + 0.3·I, conic, 3σ radius, in planar [N] components.
@@ -38,20 +39,13 @@ from typing import NamedTuple, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from segsplat_tpu_torch.ops.blend import (PACKED_MAX_CH, _block_alpha, _pixel_centres, blend,
-                                          blend_tiles_indexed, blend_tiles_packed, make_payload,
-                                          pack_payload)
+from segsplat_tpu_torch.ops.blend import (_block_alpha, _pixel_centres, blend,
+                                          blend_tiles_indexed, make_payload)
 from segsplat_tpu_torch.utils import cuda_build
 from segsplat_tpu_torch.utils.profiling import annotate, count
 
 TILE = 16
 BACKENDS = ("cuda", "dense")   # the JAX package's "pallas" and "xla"
-
-# The JAX package's packed blend branch (K3) is switched off by a local
-# ``use_packed = False`` (segsplat_tpu/ops/rasterize.py:423-427: on the TPU it
-# measured slower than the padded single-pair layout). The port keeps the same
-# gate; ``rasterize`` reads it at call time, so a caller may turn it on.
-USE_PACKED = False
 
 
 def map_tile_chunks(tile_fn, num_tiles: int, tile_chunk: int, device):
@@ -446,28 +440,30 @@ def bin_pairs(proj: Projected, opacities, width: int, height: int,
     return Binned(order, rank_sorted, offsets, tx_n, ty_n, num_pairs, tile_overflow)
 
 
+def _gather_payload(proj: Projected, colors, opacities, b: Binned, K: int) -> torch.Tensor:
+    """K1's payload [L+K, W]: ``make_payload``'s rows gathered into per-tile
+    runs through ``b.order[b.rank_sorted]``, with K zero rows past the end, in
+    the span ``raster.gather``, which counts ``rows``, the rows gathered
+    before the pad. The gather carries gradients."""
+    with annotate("raster.gather"):
+        count("rows", b.rank_sorted.shape[0])
+        rows = make_payload(proj.means2d, proj.conics, opacities, colors)[b.order[b.rank_sorted]]
+        return torch.nn.functional.pad(rows, (0, 0, 0, K))
+
+
 def build_blend_inputs(proj: Projected, colors, opacities, width: int, height: int,
                        max_tiles_per_axis: int, max_per_tile: int,
                        pair_cap: Optional[int] = None,
-                       opacity_cull: bool = False, packed: bool = False,
-                       tile_row0: int = 0) -> BlendInputs:
+                       opacity_cull: bool = False, tile_row0: int = 0) -> BlendInputs:
     """Bin (``bin_pairs``: the counts, ``pair_cap``), then gather the pairs'
-    payload rows into per-tile runs, in the span ``raster.gather``, which
-    counts ``rows``, the payload rows gathered before the pad. The payload
-    keeps K zero rows past the end; with ``packed`` it is K3's [R, 128] layout
-    instead (``pack_payload``). ``tile_row0``: see ``bin_gaussian_ranks``.
-    The gather carries gradients."""
+    payload rows into K1's payload (``_gather_payload``). K3's layout is
+    ``pack_payload(sorted_payload[:-K], K)``. ``tile_row0``: see
+    ``bin_gaussian_ranks``."""
     K = max_per_tile
     b = bin_pairs(proj, opacities, width, height, max_tiles_per_axis, K, pair_cap=pair_cap,
                   opacity_cull=opacity_cull, tile_row0=tile_row0)
-    with annotate("raster.gather"):
-        count("rows", b.rank_sorted.shape[0])
-        rows = make_payload(proj.means2d, proj.conics, opacities, colors)[
-            b.order[b.rank_sorted]]
-        sorted_payload = (pack_payload(rows, K) if packed
-                          else torch.nn.functional.pad(rows, (0, 0, 0, K)))
-    return BlendInputs(b.offsets, sorted_payload, b.tx_n, b.ty_n, b.num_pairs,
-                       b.tile_overflow)
+    return BlendInputs(b.offsets, _gather_payload(proj, colors, opacities, b, K), b.tx_n,
+                       b.ty_n, b.num_pairs, b.tile_overflow)
 
 
 def _blend_tiles(sorted_gid, offsets, proj: Projected, colors, opacities, bg,
@@ -537,23 +533,28 @@ def rasterize(means3d, scales, quats, opacities, colors, viewmat, fx, fy, cx, cy
     on both backends. opacity_cull: exact opacity-aware tile culling in
     binning (both backends).
 
-    backend: ``"cuda"`` (the JAX package's ``"pallas"``): kernels K1 forward and
-    K2 backward, their plain versions on CPU tensors; ``pair_cap`` (see
-    ``build_blend_inputs``) applies to it only. Where the Gaussians are on the
-    card, no compile or export traces the call and nothing for autograd to
-    record reaches the blend (colours, opacities, bg, the projected geometry),
-    K1's indexed variant reads the rows through the pairs' depth ranks
-    (``blend_tiles_indexed``, the same bits, no gathered payload); everywhere
-    else it blends ``build_blend_inputs``' payload through K1's op. While the
-    module constant ``USE_PACKED`` is True and CH ≤ 56 it blends with the
-    packed kernel K3 instead, which has no backward: that branch raises when
-    grad mode is on and an input requires grad. ``"dense"`` (the JAX package's ``"xla"``):
-    ``_blend_tiles`` in torch ops, ``tile_chunk`` tiles at a time.
+    The blend takes one of three routes, from the backend and what the call
+    shows:
+
+    - ``backend="dense"`` (the JAX package's ``"xla"``): ``_blend_tiles`` in
+      torch ops, ``tile_chunk`` tiles at a time.
+    - ``backend="cuda"`` (the JAX package's ``"pallas"``), where the Gaussians
+      are on the card, no compile or export traces the call and nothing for
+      autograd to record reaches the blend (colours, opacities, bg, the
+      projected geometry): K1's indexed variant reads the rows through the
+      pairs' depth ranks (``blend_tiles_indexed``, the same bits, no gathered
+      payload).
+    - ``backend="cuda"`` everywhere else: the gathered rows (``_gather_payload``)
+      through K1's op ``blend``, K2 its backward; their plain versions on CPU
+      tensors.
+
+    Every route bins once (``bin_pairs``); ``pair_cap`` (see ``bin_pairs``)
+    applies to the ``"cuda"`` routes only.
 
     The stages run in spans (``utils/profiling.annotate``): ``raster.project``
     (with the offset's add), ``raster.bin`` (counting ``pairs`` and
-    ``pairs_past_k``), ``raster.gather`` (the kernel path's payload rows,
-    counting ``rows``; on the indexed path the N-row table, which counts
+    ``pairs_past_k``), ``raster.gather`` (the gathered route's payload rows,
+    counting ``rows``; on the indexed route the N-row table, which counts
     nothing, since no pair's row is gathered; the dense blend gathers inside
     its chunks) and ``raster.blend`` (the blend's op dispatch and launch on
     the card).
@@ -578,51 +579,33 @@ def rasterize(means3d, scales, quats, opacities, colors, viewmat, fx, fy, cx, cy
         if means2d_offset is not None:
             proj = proj._replace(means2d=proj.means2d + means2d_offset)
     K = max_per_tile
+    b = bin_pairs(proj, opacities, width, height, max_tiles_per_axis, K,
+                  pair_cap=pair_cap if backend == "cuda" else None,
+                  opacity_cull=opacity_cull, tile_row0=tile_row0)
     if backend == "dense":
-        b = bin_pairs(proj, opacities, width, height, max_tiles_per_axis, K,
-                      opacity_cull=opacity_cull, tile_row0=tile_row0)
         with annotate("raster.blend"):
             img, alpha = _blend_tiles(b.order[b.rank_sorted], b.offsets, proj, colors,
                                       opacities, bg, b.tx_n, b.ty_n, K, tile_chunk)
-        num_pairs, tile_overflow = b.num_pairs, b.tile_overflow
+    elif _kernel_takes(means3d, (proj.means2d, proj.conics, opacities, colors, bg)):
+        # K1 reads each pair's row through its depth rank from the payload
+        # table in depth order: no N·m²-row gather, no ids, no K zero rows
+        with annotate("raster.gather"):
+            table = make_payload(proj.means2d, proj.conics, opacities, colors)[b.order]
+        with annotate("raster.blend"):
+            img, alpha = blend_tiles_indexed(b.offsets, b.rank_sorted, table, bg,
+                                             b.tx_n, b.ty_n, K)
     else:
-        packed = USE_PACKED and colors.shape[1] <= PACKED_MAX_CH
-        if packed and torch.is_grad_enabled() and any(
-                isinstance(t, torch.Tensor) and t.requires_grad
-                for t in (means3d, scales, quats, opacities, colors, viewmat, bg,
-                          means2d_offset, fx, fy, cx, cy)):
-            raise RuntimeError("the packed blend (USE_PACKED) has no backward: render "
-                               "under torch.no_grad() or with inputs that need no grad")
-        if not packed and _kernel_takes(means3d, (proj.means2d, proj.conics, opacities,
-                                                  colors, bg)):
-            # K1 reads each pair's row through its depth rank from the payload
-            # table in depth order: no N·m²-row gather, no ids, no K zero rows
-            b = bin_pairs(proj, opacities, width, height, max_tiles_per_axis, K,
-                          pair_cap=pair_cap, opacity_cull=opacity_cull, tile_row0=tile_row0)
-            with annotate("raster.gather"):
-                table = make_payload(proj.means2d, proj.conics, opacities, colors)[b.order]
-            with annotate("raster.blend"):
-                img, alpha = blend_tiles_indexed(b.offsets, b.rank_sorted, table, bg,
-                                                 b.tx_n, b.ty_n, K)
-            num_pairs, tile_overflow = b.num_pairs, b.tile_overflow
-        else:
-            inputs = build_blend_inputs(proj, colors, opacities, width, height,
-                                        max_tiles_per_axis, K, pair_cap=pair_cap,
-                                        opacity_cull=opacity_cull, packed=packed,
-                                        tile_row0=tile_row0)
-            blend_fn = blend_tiles_packed if packed else blend
-            with annotate("raster.blend"):
-                img, alpha = blend_fn(inputs.offsets, inputs.sorted_payload, bg,
-                                      inputs.tx_n, inputs.ty_n, K)
-            num_pairs, tile_overflow = inputs.num_pairs, inputs.tile_overflow
+        payload = _gather_payload(proj, colors, opacities, b, K)
+        with annotate("raster.blend"):
+            img, alpha = blend(b.offsets, payload, bg, b.tx_n, b.ty_n, K)
     return {
         "image": img[:height, :width],
         "alpha": alpha[:height, :width],
         "radii": proj.radii,
         "visible": proj.valid,
         "depths": proj.depths,
-        "num_pairs": num_pairs,
-        "tile_overflow": tile_overflow,
+        "num_pairs": b.num_pairs,
+        "tile_overflow": b.tile_overflow,
     }
 
 

@@ -69,9 +69,11 @@ PACKED_G = 128                  # K3's early-out block, whatever K is
 def blend_case_args(case: str, device, ch: int = 32, packed: bool = False):
     """The blend's arguments ``(offsets, sorted_payload, bg, tx_n, ty_n, K)`` for
     a PACKED_CASES case, projected and binned by the port on ``device`` with the
-    identity camera and m = 4; with ``packed`` the payload is K3's [R, 128]."""
+    identity camera and m = 4; with ``packed`` the payload is K3's [R, 128],
+    ``pack_payload`` of the gathered rows."""
     import torch
 
+    from segsplat_tpu_torch.ops.blend import pack_payload
     from segsplat_tpu_torch.ops.rasterize import build_blend_inputs, project_gaussians
 
     kind, K, cap_frac = PACKED_CASES[case]
@@ -81,12 +83,12 @@ def blend_case_args(case: str, device, ch: int = 32, packed: bool = False):
     proj = project_gaussians(sc["xyz"], sc["scales"], sc["quats"],
                              torch.as_tensor(viewmat("identity"), device=device),
                              F, F, W / 2, H / 2, W, H)
-    bi = build_blend_inputs(proj, sc["colors"], sc["opac"], W, H, 4, K, packed=packed)
+    bi = build_blend_inputs(proj, sc["colors"], sc["opac"], W, H, 4, K)
     if cap_frac is not None:
         cap = int(int(bi.num_pairs) * cap_frac)
-        bi = build_blend_inputs(proj, sc["colors"], sc["opac"], W, H, 4, K, pair_cap=cap,
-                                packed=packed)
-    return bi.offsets, bi.sorted_payload, sc["bg"], bi.tx_n, bi.ty_n, K
+        bi = build_blend_inputs(proj, sc["colors"], sc["opac"], W, H, 4, K, pair_cap=cap)
+    payload = pack_payload(bi.sorted_payload[:-K], K) if packed else bi.sorted_payload
+    return bi.offsets, payload, sc["bg"], bi.tx_n, bi.ty_n, K
 
 
 K_ODD = 200                     # a per-tile K that is no multiple of 128

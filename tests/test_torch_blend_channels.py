@@ -9,7 +9,7 @@ gradient to rtol 1e-6 (the padded sums over channels add zero terms, which
 may round differently); and the plain K1, K2 and K3 match the Pallas
 kernels in interpret mode at 8 and 23 channels, the pseudo-label loop's GT
 sweep widths (1e-4; gradients rtol 5e-3, atol 2e-4·max|ref|). The kernels
-themselves run at these widths on the card in chip_smoke.py phase 10."""
+themselves run at every width on the card in tests/test_torch_blend_cuda.py."""
 
 import jax.numpy as jnp
 import numpy as np

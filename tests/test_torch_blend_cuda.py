@@ -1,11 +1,13 @@
 """Kernels K1 (segsplat_tpu_torch/csrc/blend_fwd.cu), K2 (csrc/blend_bwd.cu) and
-K3 (csrc/blend_packed.cu) against their plain versions on the card, at the
-training raster's 19 channels, the semantic path's 32 and the one-pass
-render's 51; K3 against K1 on the same scene; K1 and K3 on edge tiles (count 0,
-one row, count > K, partial last chunks, the row test's edge rows); and
-rasterize on K1 and K2 against the dense blend at K = 200, no multiple of 128,
-forward and gradients; K1's indexed variant (the no-grad render path) against
-K1 on the gathered payload, bit for bit, on the benchmark's two view scenes.
+K3 (csrc/blend_packed.cu) against their plain versions on the card, K1 and
+K2 on every blend case at the training raster's 19 channels, the semantic
+path's 32, the one-pass render's 51 and at 3, 8, 23 and 120; K3 at 8, 19,
+23, 32, 51 and 56, and against K1 on the same scene; K1 and K3 on edge tiles (count 0, one row, count > K, partial last chunks, the row
+test's edge rows); every width, K1 and K2 at 1..120 and K3 at 1..56, on one
+case; rasterize on K1 and K2 against the dense blend at K = 200, no multiple of
+128, forward and gradients, at 3 to 120 channels; K1's indexed variant (the
+no-grad render path) against K1 on the gathered payload, bit for bit, on the
+benchmark's two view scenes. chip_smoke.py phase 2 runs this file.
 Imports no JAX, so it runs where the card is:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_blend_cuda.py
@@ -36,8 +38,13 @@ def _need_card():
         pytest.skip("needs an NVIDIA GPU")
 
 
+# the main paths' widths, and widths run padded (3 → 4, 23 → 24), the GT
+# sweep's 8 and 24 and the widest
+CASE_CHANNELS = sorted(set(B.KERNEL_CHANNELS) | {3, 8, 23, 120})
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("ch", B.KERNEL_CHANNELS)
+@pytest.mark.parametrize("ch", CASE_CHANNELS)
 @pytest.mark.parametrize("case", sorted(BLEND_CASES))
 def test_kernel_matches_plain_version_on_card(case, ch):
     _need_card()
@@ -53,7 +60,7 @@ def test_kernel_matches_plain_version_on_card(case, ch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("ch", B.KERNEL_CHANNELS)
+@pytest.mark.parametrize("ch", CASE_CHANNELS)
 @pytest.mark.parametrize("case", sorted(BLEND_CASES))
 def test_backward_kernel_matches_plain_version_on_card(case, ch):
     _need_card()
@@ -103,12 +110,13 @@ def test_backward_kernel_on_degenerate_tiles_on_card(ch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("ch", B.KERNEL_CHANNELS)
+@pytest.mark.parametrize("ch", sorted(set(B.KERNEL_CHANNELS) | {8, 23, B.PACKED_MAX_CH}))
 @pytest.mark.parametrize("case", sorted(PACKED_CASES))
 def test_packed_kernel_matches_plain_version_and_k1_on_card(case, ch):
     """K3 against its plain version at 1e-4, and against K1 on the same scene
     at 1e-4 + 2·SAT_EPS·max(|colour|, |bg|) (its 128-pair early-out may stop a
-    saturated tile one block before K1's 256-row one)."""
+    saturated tile one block before K1's 256-row one); at the main paths'
+    widths and at 8, 23 (run padded to 24) and 56, K3's widest."""
     _need_card()
     args = blend_case_args(case, "cuda", ch=ch, packed=True)
     before = B.blend_tiles_packed.launches
@@ -158,11 +166,12 @@ def test_forward_kernels_on_edge_tiles_on_card(kernel, ch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("ch", [19, 32])
+@pytest.mark.parametrize("ch", [3, 8, 19, 23, 32, 120])
 def test_kernels_match_dense_blend_at_odd_k_on_card(ch):
     """K = 200, no multiple of 128: rasterize on the kernels (K1 forward, K2
     backward, one launch each) against the dense blend, forward at 1e-4,
-    gradients at rtol 5e-3, atol 2e-4·max|ref|."""
+    gradients at rtol 5e-3, atol 2e-4·max|ref|; at the main paths' widths and
+    at widths run padded (3 → 4, 23 → 24) or the widest."""
     _need_card()
     before = (B.blend_tiles.launches, B.blend_tiles_bwd.launches)
     img, alpha, over, grads = odd_k_raster("cuda", "cuda", ch)
@@ -209,6 +218,40 @@ def test_kernels_at_padded_widths_on_card(case, ch):
         pargs = blend_case_args(case, "cuda", ch=ch, packed=True)
         for g, r in zip(B.blend_tiles_packed(*pargs), B.blend_tiles_packed_plain(*pargs)):
             torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4)
+
+
+WIDTH_SWEEP_CASE = "k128_one_block"
+
+
+@pytest.mark.cuda
+def test_kernels_at_every_width_on_card():
+    """K1 and K2 at every CH in 1..MAX_CH, and K3 at every CH in
+    1..PACKED_MAX_CH, on one case against their plain versions: K1 and K3 at
+    1e-4, K2 at rtol 5e-3, atol 2e-4·max|ref|, with the rows no tile owns
+    exactly 0."""
+    _need_card()
+    gen = torch.Generator("cuda").manual_seed(10)
+    for ch in range(1, B.MAX_CH + 1):
+        args = blend_case_args(WIDTH_SWEEP_CASE, "cuda", ch=ch)
+        offsets, payload, bg, tx_n, ty_n, K = args
+        img, alpha = B.blend_tiles_plain(*args)
+        for g, r in zip(B.blend_tiles(*args), (img, alpha)):
+            torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4,
+                                       msg=lambda m: f"K1 CH={ch}: {m}")
+        bargs = (offsets, payload, bg, img, alpha,
+                 torch.randn(img.shape, generator=gen, device="cuda"),
+                 torch.randn(alpha.shape, generator=gen, device="cuda"), tx_n, ty_n, K)
+        got = B.blend_tiles_bwd(*bargs)
+        for g, r in zip(got, B.blend_tiles_bwd_plain(*bargs)):
+            torch.testing.assert_close(g, r, rtol=5e-3, atol=2e-4 * float(r.abs().max()),
+                                       msg=lambda m: f"K2 CH={ch}: {m}")
+        owned = owned_rows(offsets.cpu().numpy(), K, payload.shape[0])
+        assert not got[0].cpu().numpy()[~owned].any(), f"K2 CH={ch}: a row no tile owns"
+        if ch <= B.PACKED_MAX_CH:
+            pargs = blend_case_args(WIDTH_SWEEP_CASE, "cuda", ch=ch, packed=True)
+            for g, r in zip(B.blend_tiles_packed(*pargs), B.blend_tiles_packed_plain(*pargs)):
+                torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4,
+                                           msg=lambda m: f"K3 CH={ch}: {m}")
 
 
 # ── K1's indexed variant against K1 on the gathered payload ──

@@ -27,12 +27,14 @@ def on_card(monkeypatch):
 @pytest.fixture
 def spans():
     """Spans record (``profiling.enable``) for the test; yields a reader of
-    the last ``raster.gather`` count ``rows`` (None where it counts none)."""
+    the last ``raster.gather`` count ``rows`` (None where it counts none, or
+    where no such span ran)."""
     TP.reset()
     TP.enable()
 
     def rows():
-        return [r.counts.get("rows") for r in TP.records() if r.name == "raster.gather"][-1]
+        counts = [r.counts.get("rows") for r in TP.records() if r.name == "raster.gather"]
+        return counts[-1] if counts else None
     try:
         yield rows
     finally:
@@ -75,36 +77,39 @@ def _staged_rows(sc, vm, m: int, K: int, pair_cap=None, opacity_cull=False) -> i
     return int(torch.clamp_max(torch.diff(off), K).sum())
 
 
-# ── which path rasterize takes ──
+# ── which route rasterize takes ──
 
-# name: (the Gaussians on the card, grad mode, an input needs grad, traced by
-# torch.compile, USE_PACKED, the path)
+# name: (backend, the Gaussians on the card, grad mode, an input needs grad,
+# traced by torch.compile, the route)
 DISPATCH_CASES = {
-    "cpu": (False, False, False, False, False, "gathered"),
-    "card_no_grad_mode": (True, False, False, False, False, "indexed"),
-    "card_grad_mode_nothing_needs_grad": (True, True, False, False, False, "indexed"),
-    "card_needs_grad_no_grad_mode": (True, False, True, False, False, "indexed"),
-    "card_needs_grad": (True, True, True, False, False, "gathered"),
-    "card_compiled": (True, False, False, True, False, "gathered"),
-    "card_packed": (True, False, False, False, True, "gathered"),
-    "cpu_packed": (False, False, False, False, True, "gathered"),
+    "cpu": ("cuda", False, False, False, False, "gathered"),
+    "card_no_grad_mode": ("cuda", True, False, False, False, "indexed"),
+    "card_grad_mode_nothing_needs_grad": ("cuda", True, True, False, False, "indexed"),
+    "card_needs_grad_no_grad_mode": ("cuda", True, False, True, False, "indexed"),
+    "card_needs_grad": ("cuda", True, True, True, False, "gathered"),
+    "card_compiled": ("cuda", True, False, False, True, "gathered"),
+    "cpu_dense": ("dense", False, False, False, False, "dense"),
+    "card_dense": ("dense", True, False, False, False, "dense"),
 }
+ROUTES = {"indexed": "blend_tiles_indexed", "gathered": "_gather_payload",
+          "dense": "_blend_tiles"}
 
 
 @pytest.mark.parametrize("case", sorted(DISPATCH_CASES))
 def test_rasterize_blend_dispatch(case, monkeypatch, spans):
-    """The indexed path runs only on the card, outside a compile trace, with
-    nothing for autograd to record and the packed blend off; everywhere else
-    the gathered payload and K1's (or K3's) op, as before. The count ``rows``
-    is the gathered rows (N·m², no cap) on the gathered path; the indexed path
-    gathers no pair's row and gives none. The kernel's launch counter moves
-    only on the card (never here)."""
-    card, grad_mode, needs_grad, compiled, packed, path = DISPATCH_CASES[case]
+    """Every route bins once (``bin_pairs``). The indexed route runs only on
+    the card's ``"cuda"`` backend, outside a compile trace, with nothing for
+    autograd to record; the dense backend takes neither it nor the gathered
+    route; everywhere else the gathered payload and K1's op. The count
+    ``rows`` is the gathered rows (N·m², no cap) on the gathered route; the
+    indexed route gathers no pair's row and gives none, and the dense blend
+    gathers inside its chunks. The kernel's launch counter moves only on the
+    card (never here)."""
+    backend, card, grad_mode, needs_grad, compiled, route = DISPATCH_CASES[case]
     monkeypatch.setattr(Pr, "_on_card", lambda means3d: card)
     monkeypatch.setattr(Pr, "_project_on_card", lambda *a: Pr.project_gaussians_plain(*a))
-    monkeypatch.setattr(Pr, "USE_PACKED", packed)
     ran = []
-    for name in ("blend_tiles_indexed", "build_blend_inputs"):
+    for name in ("bin_pairs", *ROUTES.values()):
         fn = getattr(Pr, name)
         monkeypatch.setattr(Pr, name, lambda *a, _fn=fn, _name=name, **k: (
             ran.append(_name), _fn(*a, **k))[1])
@@ -113,12 +118,12 @@ def test_rasterize_blend_dispatch(case, monkeypatch, spans):
     render = (torch.compile(_render, backend="eager") if compiled else _render)
     before = B.blend_tiles_indexed.launches
     with torch.set_grad_enabled(grad_mode):
-        out = render(sc, vm, m, K)
-    assert ran == [{"indexed": "blend_tiles_indexed", "gathered": "build_blend_inputs"}[path]]
+        out = render(sc, vm, m, K, backend=backend)
+    assert ran == ["bin_pairs", ROUTES[route]]
     assert B.blend_tiles_indexed.launches == before
     if not compiled:
         n = sc["xyz"].shape[0]
-        assert spans() == (None if path == "indexed" else n * m * m)
+        assert spans() == (n * m * m if route == "gathered" else None)
     assert out["image"].requires_grad == (grad_mode and needs_grad)
 
 

@@ -2,7 +2,7 @@
 ``blend_tiles_packed_plain``) held against the JAX Pallas kernel
 blend_tiles_pallas_packed in interpret mode, on the packed payload built as
 segsplat_tpu/ops/rasterize.py:431-439 builds it; against K1's plain version;
-the wrapper's checks; and the packed branch of the port's ``rasterize``. The
+the wrapper's checks; and K3 on the port's binning against ``rasterize``. The
 CUDA kernel itself is held against the plain version on the card by
 tests/test_torch_blend_cuda.py and chip_smoke.py.
 
@@ -72,7 +72,7 @@ def test_packed_plain_matches_pallas_kernel(case, ch):
     starts = offsets[:-1][np.diff(offsets) > 0]
     assert (starts % 2 == 1).any() and (starts % 2 == 0).any()
 
-    # the port's own packing (build_blend_inputs(packed=True)) gives this layout
+    # the port's own packing (pack_payload of build_blend_inputs' rows) gives this layout
     p_off, p_packed = blend_case_args(case, "cpu", ch=ch, packed=True)[:2]
     np.testing.assert_array_equal(p_off.numpy(), offsets)
     np.testing.assert_allclose(p_packed.numpy(), packed, rtol=1e-5, atol=1e-5)
@@ -128,42 +128,25 @@ def test_packed_wrapper_runs_plain_version_and_checks_inputs():
         B.pack_payload(torch.zeros((10, 68)), K)
 
 
-def _raster_inputs(ch: int, requires_grad: bool = False):
+def test_k3_on_the_rasterizer_binning():
+    """K3 on ``pack_payload`` of ``build_blend_inputs``' rows (the light
+    scene, rotated view, m = 4, K = 256, a pair cap of 1000 below the frame's
+    pairs) against ``rasterize``'s image and alpha at the K3-vs-K1
+    tolerance, with the same pair counts."""
     seed, n, log_scale, opac_range = SCENES["light"]
-    sc = scene(seed, n, log_scale, opac_range, ch=ch)
-    t = {k: torch.from_numpy(v).requires_grad_(requires_grad) for k, v in sc.items()}
-    return ((t["xyz"], t["scales"], t["quats"], t["opac"], t["colors"],
-             torch.from_numpy(viewmat("rotated")), F, F, W / 2, H / 2, W, H),
-            dict(bg=t["bg"], max_tiles_per_axis=4, max_per_tile=256))
-
-
-def test_rasterize_packed_branch(monkeypatch):
-    calls = []
-    packed_blend = Pr.blend_tiles_packed
-    monkeypatch.setattr(Pr, "blend_tiles_packed",
-                        lambda *a: calls.append(a) or packed_blend(*a))
-    args, kw = _raster_inputs(32)
-    ref = Pr.rasterize(*args, **kw, pair_cap=1000)
-    monkeypatch.setattr(Pr, "USE_PACKED", True)
-    got = Pr.rasterize(*args, **kw, pair_cap=1000)
-    assert len(calls) == 1 and calls[0][1].shape[1] == 128
-    atol = 1e-4 + 2 * B.SAT_EPS * float(args[4].abs().max())
-    for k in ("image", "alpha"):
-        torch.testing.assert_close(got[k], ref[k], rtol=1e-4, atol=atol)
-    for k in ("radii", "visible", "depths", "num_pairs", "tile_overflow"):
-        assert torch.equal(got[k], ref[k]), k
-    assert int(got["num_pairs"]) > 1000            # the cap truncates on both branches
-
-    # no backward on the packed branch: it refuses inputs that need a gradient
-    g_args, g_kw = _raster_inputs(32, requires_grad=True)
-    with pytest.raises(RuntimeError, match="no backward"):
-        Pr.rasterize(*g_args, **g_kw)
-    with torch.no_grad():
-        torch.testing.assert_close(Pr.rasterize(*g_args, **g_kw)["image"],
-                                   Pr.rasterize(*args, **kw)["image"], rtol=0, atol=0)
-    assert len(calls) == 3
-
-    # more channels than a packed pair holds take the default, differentiable branch
-    w_args, w_kw = _raster_inputs(B.PACKED_MAX_CH + 1, requires_grad=True)
-    Pr.rasterize(*w_args, **w_kw)["image"].sum().backward()
-    assert len(calls) == 3 and w_args[4].grad.abs().max() > 0
+    sc = {k: torch.from_numpy(v)
+          for k, v in scene(seed, n, log_scale, opac_range, ch=32).items()}
+    vm, K, cap = torch.from_numpy(viewmat("rotated")), 256, 1000
+    args = (sc["xyz"], sc["scales"], sc["quats"], vm, F, F, W / 2, H / 2, W, H)
+    ref = Pr.rasterize(*args[:3], sc["opac"], sc["colors"], *args[3:], bg=sc["bg"],
+                       max_tiles_per_axis=4, max_per_tile=K, pair_cap=cap)
+    bi = Pr.build_blend_inputs(Pr.project_gaussians(*args), sc["colors"], sc["opac"], W, H, 4,
+                               K, pair_cap=cap)
+    img, alpha = B.blend_tiles_packed(bi.offsets, B.pack_payload(bi.sorted_payload[:-K], K),
+                                      sc["bg"], bi.tx_n, bi.ty_n, K)
+    atol = 1e-4 + 2 * B.SAT_EPS * float(sc["colors"].abs().max())
+    torch.testing.assert_close(img[:H, :W], ref["image"], rtol=1e-4, atol=atol)
+    torch.testing.assert_close(alpha[:H, :W], ref["alpha"], rtol=1e-4, atol=atol)
+    assert torch.equal(bi.num_pairs, ref["num_pairs"])
+    assert torch.equal(bi.tile_overflow, ref["tile_overflow"])
+    assert int(ref["num_pairs"]) > cap            # the cap truncates

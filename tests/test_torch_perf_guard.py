@@ -9,7 +9,7 @@ import json
 import pytest
 import torch
 
-from _torch_port import torch_threads
+from _torch_port import blend_case_args, torch_threads
 
 SMALL = dict(width=64, height=48, n=500, lift_views=2, lift_size=(64, 48, 16, 500))
 
@@ -68,20 +68,24 @@ def test_counts_are_identical_run_to_run(monkeypatch, tmp_path):
         P.main(["--device", "cpu", "--no-walltime", "--compare", str(a)])
 
 
-def test_each_blend_is_one_op_node_of_the_export(monkeypatch):
+def test_each_blend_is_one_op_node_of_the_export():
     """The render program exports with K1 as one ``segsplat_torch::blend_fwd``
-    node (K3's ``blend_packed`` with USE_PACKED) and nothing of the blend's
-    plain version in the graph; its counts are the run's."""
+    node, and a program that calls K3's ``blend_tiles_packed`` on a packed
+    payload with one ``segsplat_torch::blend_packed`` node; nothing of a
+    blend's plain version is in either graph, and the render's counts are the
+    run's."""
     from segsplat_tpu_torch import bench
     from segsplat_tpu_torch import perf_guard as P
-    from segsplat_tpu_torch.ops import rasterize as R
+    from segsplat_tpu_torch.ops import blend as B
 
     fn, arrays, units = P.render_program(bench.headline_render_scene(64, 48, 500))
     args = tuple(torch.as_tensor(a) for a in arrays)
+    offsets, payload, bg, tx_n, ty_n, K = blend_case_args("k128_one_block", "cpu", packed=True)
+    k3 = lambda offsets, payload, bg: B.blend_tiles_packed(offsets, payload, bg, tx_n, ty_n, K)
     with torch_threads(2):
         nodes = P.graph_counts(torch.export.export(P.Program(fn), args))["nodes"]
-        monkeypatch.setattr(R, "USE_PACKED", True)
-        packed = P.graph_counts(torch.export.export(P.Program(fn), args))["nodes"]
+        packed = P.graph_counts(torch.export.export(P.Program(k3),
+                                                    (offsets, payload, bg)))["nodes"]
     assert units == 1
     assert nodes["segsplat_torch.blend_fwd.default"] == 1
     assert packed["segsplat_torch.blend_packed.default"] == 1
