@@ -13,8 +13,8 @@ Phases, each fatal on failure:
      and test_torch_lift_cuda.py) in one child process: K1, K2 and K3 against
      their plain versions on the small scenes of tests/_torch_port.py at every
      width, on degenerate and edge tiles, rasterize on K1 and K2 against the
-     dense blend, K1's indexed variant against K1, the projection kernel and
-     the lift's card paths. Fails on a non-zero exit or on any skipped case;
+     dense blend, K1's indexed variant against K1, the projection's forward
+     and backward kernels and the lift's card paths. Fails on a non-zero exit or on any skipped case;
      logs the counts of passes, failures and skips.
   3. K1 vs plain at full scale: 1920×1080, 200 000 Gaussians, 32 channels, the
      headline scene (seed 0, m=3, K=256, pair_cap 1.5M) and the hostile one
@@ -40,8 +40,12 @@ Phases, each fatal on failure:
      256 classes): step 1's loss terms and gradients with K1 + K2 against the
      same step with both plain versions on the card; K1 (19 channels) and K2 vs
      their plain versions on that step's own blend inputs and cotangents, timed,
-     with their bounds; then 10 steps timed with CUDA events, split into forward
-     render, losses, the host LAP, backward and optimizers.
+     with their bounds; the projection's backward kernel (csrc/project.cu's
+     ``segsplat_project_bwd``) on the step's table and camera against the
+     plain version's autograd backward, timed, with its bound; then 10 steps
+     timed with CUDA events, split into forward render, losses, the host LAP,
+     backward and optimizers, each launching the projection's forward and
+     backward kernels once.
   6. the training path through its entry point: the CLI twin
      ``python -m segsplat_tpu_torch.train`` for 20 iterations on a Blender-style
      scene written here (3 views at 876×584, a 200 000-point cloud, capacity
@@ -211,7 +215,8 @@ Phases, each fatal on failure:
      3's), ``perf_raster_stages`` (its eight lines and "accounted"; K1 128),
      ``perf_bin_dissect`` (its 8 stages; no kernel), ``perf_lift_stages`` (its
      six lines; no kernel) and ``perf_train`` (its line; K1 and K2 once a
-     step, 40 each; the projection kernel never, as autograd records it).
+     step, 40 each; the projection's forward and backward kernels once a
+     step, 40 each, and no backward in the bench or the raster scoreboard).
   16. ``compile``: the blends as registered ops under torch.compile and the
      harness programs: (a) ``graft_entry.entry()``'s frame compiled by
      Inductor with fullgraph, its logits requiring grad: against eager within
@@ -254,6 +259,9 @@ ATOL = RTOL = 1e-4          # K1 against its plain version
 GRAD_RTOL, GRAD_ATOL_REL = 5e-3, 2e-4   # gradients: rtol, atol as a share of max|ref|
 KERNELS = ("blend_fwd", "blend_bwd", "blend_packed", "project")
 PROJECT_BYTES = 73          # a Gaussian: 44 read (t_cam, norm, scales, quats), 29 written
+# the backward on the train step's path: 44 read as the forward, 20 of cotangents
+# (means2d, conics; depths get none), 44 written (t_cam, norm, scales, quats)
+PROJECT_BWD_BYTES = 108
 PEAK_FP32_FLOPS = 67e12     # H100 SXM, fp32 outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12    # H100 SXM HBM3
 FRAME_W, FRAME_H = 1920, 1080   # the headline and hostile frames (bench.py)
@@ -599,6 +607,50 @@ def project_stats(project, plain, n: int) -> dict:
                     host_ms=host_ms(project), plain_host_ms=host_ms(plain, calls=20),
                     bound_ms=bytes_ / PEAK_HBM_BYTES * 1e3, bound_by="bytes", bytes=bytes_,
                     gaussians=n)
+
+
+def project_bwd_stats(table, camera) -> dict:
+    """The projection's backward kernel at the train step's size, on its
+    table and camera: the kernel's device ms (profiler) inside autograd's
+    backward of the projection (the kernel, then the eager matmul's and
+    norm's backward), that whole backward's ms and the plain version's
+    autograd backward (CUDA events), host ms of each, its bound
+    (PROJECT_BWD_BYTES a row over 3.35 TB/s), and the gradients of xyz,
+    scales and quats against the plain version's. The cotangents are the
+    step's: means2d and conics, none for depths."""
+    import torch
+
+    from segsplat_tpu_torch.ops import rasterize as R
+
+    K = camera.intrinsics()
+    cam = (camera.world_view_transform(), K[0, 0], K[1, 1], K[0, 2], K[1, 2], TRAIN_W, TRAIN_H)
+    leaves = [x.detach().clone().requires_grad_(True)
+              for x in (table.xyz, table.get_scaling(), table.get_rotation())]
+    gen = torch.Generator(DEV).manual_seed(3)
+    n = leaves[0].shape[0]
+    cots = (torch.randn((n, 2), device=DEV, generator=gen),
+            torch.randn((n, 3), device=DEV, generator=gen))
+    before = R.project_gaussians.backward_launches
+    out = R.project_gaussians(*leaves, *cam)
+    plain = R.project_gaussians_plain(*leaves, *cam)
+    kernel_bwd = lambda: torch.autograd.grad((out.means2d, out.conics), leaves, cots,
+                                             retain_graph=True)
+    plain_bwd = lambda: torch.autograd.grad((plain.means2d, plain.conics), leaves, cots,
+                                            retain_graph=True)
+    got, ref = kernel_bwd(), plain_bwd()
+    if R.project_gaussians.backward_launches != before + 1:
+        raise AssertionError("the projection's backward did not launch its kernel once")
+    err = {k: compare_grad(f"projection backward {k}", g, r)
+           for k, g, r in zip(("xyz", "scales", "quats"), got, ref)}
+    trace = device_trace(lambda v: kernel_bwd(), 20, share_of="project_bwd_kernel")
+    kernel = trace.get("project_bwd_kernel")
+    bytes_ = PROJECT_BWD_BYTES * n
+    return dict(ms=kernel["ms_per_view"] if kernel else "not measured",
+                kernel_launches_per_call=kernel["launches_per_view"] if kernel else None,
+                call_ms=cuda_time_ms(kernel_bwd, reps=20), plain_ms=cuda_time_ms(plain_bwd, reps=10),
+                host_ms=host_ms(kernel_bwd), plain_host_ms=host_ms(plain_bwd, calls=20),
+                bound_ms=bytes_ / PEAK_HBM_BYTES * 1e3, bound_by="bytes", bytes=bytes_,
+                gaussians=n, max_abs_err=max(err.values()), grad_max_abs_diff=err)
 
 
 def k2_on_frame(results, t, bi, bg, cam, W, H, m, K, cap):
@@ -1026,6 +1078,7 @@ def phase_train_step(results):
     import torch
 
     from segsplat_tpu_torch.ops import blend as B
+    from segsplat_tpu_torch.ops import rasterize as R
     from segsplat_tpu_torch.train import losses as L
     from segsplat_tpu_torch.train import trainer as T
     from segsplat_tpu_torch.train.densify import PARAM_FIELDS
@@ -1088,6 +1141,9 @@ def phase_train_step(results):
     # K1 (19 channels) and K2 on the step's own blend inputs and cotangents
     results["train_fwd"], results["train_bwd"] = kernels_on_captured(results, cap, "train")
     del cap
+    # the projection's backward kernel on the step's table and camera
+    results["project_bwd"] = project_bwd_stats(state.table, train_camera(0.0))
+    log("[train] projection backward: " + json.dumps(results["project_bwd"]))
 
     # the step, timed part by part: CUDA events around the render, the losses
     # (compute_losses less the render) and the optimizers; the backward is the
@@ -1115,6 +1171,7 @@ def phase_train_step(results):
     step_fn = T.make_train_step(cfg, raster_kw)
     warm, timed_steps = 2, 10
     rows, wall = [], []
+    proj_before = R.project_gaussians.launches, R.project_gaussians.backward_launches
     with swapped(T, render=timed("render", T.render),
                  compute_losses=timed("compute_losses", T.compute_losses),
                  apply_updates=timed("optimizers", T.apply_updates)), \
@@ -1139,8 +1196,13 @@ def phase_train_step(results):
                              backward=step - span["compute_losses"] - span["optimizers"]))
     med = {k: statistics.median(r[k] for r in rows[warm:]) for k in rows[0]}
     med["wall"] = statistics.median(wall[warm:])
+    proj = (R.project_gaussians.launches - proj_before[0],
+            R.project_gaussians.backward_launches - proj_before[1])
+    if proj != (warm + timed_steps,) * 2:     # the projection's kernels, once each a step
+        raise AssertionError(f"{warm + timed_steps} train steps launched the projection's "
+                             f"forward and backward kernels {proj} times")
     results["train_step"] = dict(
-        median_ms=med, steps=timed_steps, init_table_s=init_s,
+        median_ms=med, steps=timed_steps, init_table_s=init_s, project_launches=proj,
         num_pairs=int(m["num_pairs"]), tile_overflow=int(m["tile_overflow"]),
         total=float(m["total"]), peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     log(f"[train] step at {TRAIN_W}x{TRAIN_H}, capacity {TRAIN_CAP}, {TRAIN_N} Gaussians, "
@@ -4379,6 +4441,7 @@ from segsplat_tpu_torch.ops import rasterize as R
 for mod in {modules!r}:
     B.blend_tiles.launches = B.blend_tiles_bwd.launches = B.blend_tiles_packed.launches = 0
     B.blend_tiles_indexed.launches = R.project_gaussians.launches = 0
+    R.project_gaussians.backward_launches = 0
     sys.argv = [mod]
     out = io.StringIO()
     t0 = time.perf_counter()
@@ -4394,7 +4457,8 @@ for mod in {modules!r}:
                     blend_fwd_indexed=B.blend_tiles_indexed.launches,
                     blend_bwd=B.blend_tiles_bwd.launches, blend_packed=B.blend_tiles_packed.launches)
     print(json.dumps(dict(module=mod, seconds=time.perf_counter() - t0, stdout=out.getvalue(),
-                          launches=launches, project_launches=R.project_gaussians.launches)),
+                          launches=launches, project_launches=R.project_gaussians.launches,
+                          project_bwd_launches=R.project_gaussians.backward_launches)),
           flush=True)
 """
 
@@ -4463,7 +4527,8 @@ def phase_measure(results):
         for text in rec["stdout"].rstrip().splitlines():
             log(f"[measure] {name}: {text}")
         log(f"[measure] {name}: {rec['seconds']:.1f} s, launches {json.dumps(rec['launches'])}, "
-            f"projection kernel {rec['project_launches']}")
+            f"projection kernels {rec['project_launches']} forward, "
+            f"{rec['project_bwd_launches']} backward")
 
     # the bench: bench.py's keys, K1 once a frame rendered, the pair maximum
     b = runs["bench"]
@@ -4513,14 +4578,17 @@ def phase_measure(results):
     for name, counts in want.items():
         if runs[name]["launches"] != counts:
             raise AssertionError(f"{name} launched {runs[name]['launches']}, not {counts}")
-    if runs["perf_train"]["project_launches"] != 0:     # its projection is differentiated
-        raise AssertionError(f"perf_train's {steps} steps launched the projection kernel "
-                             f"{runs['perf_train']['project_launches']} times")
+    # the projection's kernels: a forward a frame or step, a backward a step
+    proj = {name: (rec["project_launches"], rec["project_bwd_launches"])
+            for name, rec in runs.items()}
+    if proj["perf_train"] != (steps, steps) or proj["bench"][1] or proj["perf_raster_stages"][1]:
+        raise AssertionError(f"projection kernel launches (forward, backward) {proj}; "
+                             f"perf_train took {steps} steps")
     results["measure"] = dict(
         bench=line, hostile_recount=dict(max=max(recount), frame0=recount[0], phase3=phase3),
         raster=raster, bin_dissect=bins, lift=lift, train=train_line,
         launches={k: v["launches"] for k, v in runs.items()},
-        project_launches={k: v["project_launches"] for k, v in runs.items()},
+        project_launches=proj,
         seconds={k: v["seconds"] for k, v in runs.items()})
     log("[measure] " + json.dumps(results["measure"]))
 
@@ -5119,6 +5187,15 @@ def main(argv=None) -> int:
         launches_by_path={"render_semantics CLI": proj_launches},
         **{k: results["project"][k] for k in ("call_ms", "host_ms", "plain_host_ms",
                                               "bytes", "gaussians")}))
+    pbwd, step_bwd = results["project_bwd"], results["train_step"]["project_launches"][1]
+    kernels.append(kernel_entry(
+        "project_bwd", None, project_src, "none: jax.grad of XLA ops, "
+        "segsplat_tpu/ops/rasterize.py project_gaussians", step_bwd, pbwd["max_abs_err"], pbwd,
+        path=f"train step, autograd's backward of the projection once a step: {step_bwd} in "
+             f"phase 5's steps, {measure['project_launches']['perf_train'][1]} in perf_train; "
+             f"times on phase 5's table, {TRAIN_W}x{TRAIN_H}",
+        **{k: pbwd[k] for k in ("call_ms", "host_ms", "plain_host_ms", "bytes", "gaussians",
+                                "grad_max_abs_diff")}))
     log(f"[total] {time.perf_counter() - t_all:.1f} s on {smi}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,9 +1,10 @@
 """N-channel tile rasterizer for 3D Gaussians: project → bin → blend.
 
-Counterpart of segsplat_tpu/ops/rasterize.py. Projection is one hand-written
-CUDA kernel (csrc/project.cu) where nothing differentiates or compiles it, else
-ordinary torch ops, with the same bits; binning is ordinary torch ops. The
-blend has two backends: ``"cuda"``, the counterpart of the JAX package's
+Counterpart of segsplat_tpu/ops/rasterize.py. Projection is a hand-written
+CUDA kernel (csrc/project.cu) on the card, under autograd a forward and
+backward pair, where no compile traces it and the camera needs no gradient;
+else ordinary torch ops, with the forward's bits. Binning is ordinary torch
+ops. The blend has two backends: ``"cuda"``, the counterpart of the JAX package's
 ``"pallas"`` — kernel K1 forward and kernel K2 backward (ops/blend.py) — and
 ``"dense"``, the counterpart of its ``"xla"`` — ``_blend_tiles`` in torch ops,
 differentiated by autograd. ``rasterize`` is differentiable in the means,
@@ -34,9 +35,11 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import types
 from typing import NamedTuple, Optional
 
 import torch
+from torch.autograd.function import once_differentiable
 from torch.utils.checkpoint import checkpoint
 
 from segsplat_tpu_torch.ops.blend import (_block_alpha, _pixel_centres, blend,
@@ -108,18 +111,24 @@ def project_gaussians(means3d, scales, quats, viewmat, fx, fy, cx, cy,
     its first row (a multiple of 16): the means are then the frame's less
     row0, which is exact, so the strip's pixel offsets are the frame's bits.
 
-    Where nothing differentiates or traces the call and the Gaussians are on
-    the card, it launches the kernel ``csrc/project.cu``, which counts in
-    ``project_gaussians.launches`` and gives the plain version's bits; on
-    the card, an input the kernel cannot read (not float32, another device or
-    shape, a tensor subclass) raises ValueError there rather than taking the
-    plain version. The intrinsics and tan-FoVs may be 0-dim tensors on the
-    card, Python or NumPy numbers, or 0-dim CPU tensors. Everywhere else
-    (the CPU, training's differentiable renders, the compiled frame) it runs
+    Where the Gaussians are on the card and no compile or export trace runs,
+    it launches the kernel ``csrc/project.cu``, which counts in
+    ``project_gaussians.launches`` and gives the plain version's bits. Where
+    autograd records the Gaussians (means3d, scales or quats need grad), the
+    launch is the forward of a ``torch.autograd.Function`` whose backward is
+    the kernel's twin ``segsplat_project_bwd`` (``backward_launches``), the
+    bits of ``project_gaussians_vjp_plain``. That backward gives the
+    Gaussians' gradients alone, none to the camera. On the card, an input the
+    kernel cannot read raises ValueError rather than take the plain version:
+    one not float32, on another device or of another shape, a tensor
+    subclass, or, under grad mode, a camera input (viewmat, the intrinsics,
+    the tan-FoVs) that needs grad. The intrinsics and tan-FoVs may be 0-dim
+    tensors on the card, Python or NumPy numbers, or 0-dim CPU tensors.
+    Everywhere else (the CPU, the compiled frame) it runs
     ``project_gaussians_plain``."""
     args = (means3d, scales, quats, viewmat, fx, fy, cx, cy, width, height, znear, eps2d,
             tan_fovx, tan_fovy, row0)
-    if _kernel_takes(means3d, (scales, quats, viewmat, fx, fy, cx, cy, tan_fovx, tan_fovy)):
+    if _card_route(means3d):
         out = _project_on_card(*args)
         project_gaussians.launches += 1
         return out
@@ -127,6 +136,7 @@ def project_gaussians(means3d, scales, quats, viewmat, fx, fy, cx, cy,
 
 
 project_gaussians.launches = 0
+project_gaussians.backward_launches = 0
 
 
 def _on_card(means3d) -> bool:
@@ -134,16 +144,24 @@ def _on_card(means3d) -> bool:
     return means3d.is_cuda
 
 
+def _needs_grad(xs) -> bool:
+    """Whether any of ``xs`` is a tensor that needs grad."""
+    return any(isinstance(x, torch.Tensor) and x.requires_grad for x in xs)
+
+
+def _card_route(means3d) -> bool:
+    """Whether a kernel may take the call: the Gaussians on the card and no
+    torch.compile or torch.export trace running (Inductor fuses the plain
+    version there, and a fake tensor has no memory)."""
+    return not torch.compiler.is_compiling() and _on_card(means3d)
+
+
 def _kernel_takes(means3d, others) -> bool:
-    """Whether a kernel with no backward takes the call (the projection's, K1's
-    indexed variant): not under a torch.compile or torch.export trace
-    (Inductor fuses the plain version there, and a fake tensor has no
-    memory), the Gaussians on the card, and nothing for autograd to record
-    on ``means3d`` or ``others``."""
-    if torch.compiler.is_compiling() or not _on_card(means3d):
-        return False
-    return not (torch.is_grad_enabled() and any(
-        isinstance(x, torch.Tensor) and x.requires_grad for x in (means3d,) + others))
+    """Whether a kernel with no backward takes the call (K1's indexed
+    variant): ``_card_route``, and nothing for autograd to record on
+    ``means3d`` or ``others``."""
+    return _card_route(means3d) and not (
+        torch.is_grad_enabled() and _needs_grad((means3d,) + others))
 
 
 def _card_tensor(x, name: str, dev, shape) -> None:
@@ -181,55 +199,207 @@ def _frustum_lim(tan_fov, f, half_extent: float, dev):
     return 0, None, _card_scalar(lim, "the frustum limit", dev)[1]
 
 
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+# the arguments of csrc/project.cu's Camera, the same in both entries
+_CAMERA_ARGTYPES = [_P, _I, _I] + [_P] * 4 + [_F] * 4 + [_I, _I, _P, _P, _F, _F] + [_F] * 5
+# each entry's arguments after the camera and before (n, stream): the
+# forward's five outputs; the backward's three cotangents (pointer and
+# strides) and four gradients
+_ENTRY_ARGTYPES = {
+    "segsplat_project": [_P] * 5,
+    "segsplat_project_bwd": [_P, _L, _L, _P, _L, _P, _L, _L] + [_P] * 4,
+}
+
+
 @functools.cache
-def _project_fn():
-    """The C entry point ``segsplat_project`` of ``csrc/project.cu``."""
-    fn = cuda_build.load_library("project").segsplat_project
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = ([P] * 5 + [I, I] + [P] * 4 + [F] * 4 + [I, I, P, P, F, F] + [F] * 5
-                   + [P] * 5 + [ctypes.c_longlong, P])
+def _project_fn(entry: str):
+    """The C entry point ``entry`` of ``csrc/project.cu``: ``segsplat_project``
+    or ``segsplat_project_bwd``, one library for both."""
+    fn = getattr(cuda_build.load_library("project"), entry)
+    fn.argtypes = [_P] * 4 + _CAMERA_ARGTYPES + _ENTRY_ARGTYPES[entry] + [_L, _P]
     fn.restype = ctypes.c_int
     return fn
 
 
+def _call(entry: str, dev, args) -> None:
+    with torch.cuda.device(dev):
+        err = _project_fn(entry)(*args, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} launch failed: cudaError {err}")
+
+
 def _launch(dev, *args) -> None:
     """``segsplat_project(*args)`` on ``dev``'s current stream."""
-    with torch.cuda.device(dev):
-        err = _project_fn()(*args, torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"project kernel launch failed: cudaError {err}")
+    _call("segsplat_project", dev, args)
 
 
-def _project_on_card(means3d, scales, quats, viewmat, fx, fy, cx, cy, width, height,
-                     znear, eps2d, tan_fovx, tan_fovy, row0) -> Projected:
-    """Check the inputs and launch ``csrc/project.cu``. The camera-space means
-    (a cuBLAS product) and the quaternions' norms (a PyTorch reduction) run
-    first, as the plain version runs them: the kernel cannot reproduce their
-    library's rounding, so it reads them."""
+def _launch_backward(dev, *args) -> None:
+    """``segsplat_project_bwd(*args)`` on ``dev``'s current stream."""
+    _call("segsplat_project_bwd", dev, args)
+
+
+def _camera_args(means3d, viewmat, fx, fy, cx, cy, width, height, znear, eps2d, tan_fovx,
+                 tan_fovy, row0):
+    """The kernels' camera arguments (csrc/project.cu's ``Camera``), checked,
+    and the tensors on the card they point into."""
     dev = means3d.device
-    n = means3d.shape[0] if means3d.dim() else 0
-    for x, name, shape in ((means3d, "means3d", (n, 3)), (scales, "scales", (n, 3)),
-                           (quats, "quats", (n, 4)), (viewmat, "viewmat", (4, 4))):
-        _card_tensor(x, name, dev, shape)
+    _card_tensor(viewmat, "viewmat", dev, (4, 4))
     intr = [_card_scalar(x, name, dev) for x, name in ((fx, "fx"), (fy, "fy"),
                                                        (cx, "cx"), (cy, "cy"))]
     lx = _frustum_lim(tan_fovx, fx, 0.5 * width, dev)
     ly = _frustum_lim(tan_fovy, fy, 0.5 * height, dev)
+    cam = (viewmat.data_ptr(), viewmat.stride(0), viewmat.stride(1),
+           *(p for p, _ in intr), *(v for _, v in intr),
+           lx[0], ly[0], lx[1], ly[1], lx[2], ly[2], float(znear), float(eps2d), row0,
+           width, height)
+    pointed = [viewmat] + [x for x in (fx, fy, cx, cy, tan_fovx, tan_fovy)
+                           if isinstance(x, torch.Tensor) and x.is_cuda]
+    return cam, pointed
+
+
+def _project_on_card(means3d, scales, quats, viewmat, fx, fy, cx, cy, width, height,
+                     znear, eps2d, tan_fovx, tan_fovy, row0) -> Projected:
+    """Check the inputs and launch ``csrc/project.cu``: under autograd, as
+    the forward of ``_ProjectFn``. The camera-space means (a cuBLAS product)
+    and the quaternions' norms (a PyTorch reduction) run first, as the plain
+    version runs them, and autograd records them: the kernel cannot reproduce
+    their library's rounding, so it reads them."""
+    n = means3d.shape[0] if means3d.dim() else 0
+    for x, name, shape in ((means3d, "means3d", (n, 3)), (scales, "scales", (n, 3)),
+                           (quats, "quats", (n, 4))):
+        _card_tensor(x, name, means3d.device, shape)
+    cam, pointed = _camera_args(means3d, viewmat, fx, fy, cx, cy, width, height, znear, eps2d,
+                                tan_fovx, tan_fovy, row0)
+    if torch.is_grad_enabled() and _needs_grad((viewmat, fx, fy, cx, cy, tan_fovx, tan_fovy)):
+        raise ValueError("project_gaussians: the projection kernel reads the camera (viewmat, "
+                         "fx, fy, cx, cy, tan_fovx, tan_fovy) as constants and gives it no "
+                         "gradient; got a camera input that needs grad under grad mode")
     R_w2c = viewmat[:3, :3]
     t_cam = (means3d @ R_w2c.T + viewmat[:3, 3]).contiguous()
     qnorm = torch.linalg.norm(quats, dim=-1, keepdim=True)
-    scales, quats = scales.contiguous(), quats.contiguous()
+    inputs = (t_cam, qnorm, scales.contiguous(), quats.contiguous())
+    if torch.is_grad_enabled() and _needs_grad(inputs):
+        return Projected(*_ProjectFn.apply(*inputs, cam, *pointed))
+    return _project_forward(*inputs, cam)
+
+
+def _project_forward(t_cam, qnorm, scales, quats, cam) -> Projected:
+    """One launch of ``segsplat_project`` on contiguous inputs."""
+    dev, n = t_cam.device, t_cam.shape[0]
     f32 = dict(dtype=torch.float32, device=dev)
     means2d, depths = torch.empty((n, 2), **f32), torch.empty((n,), **f32)
     conics, radii = torch.empty((n, 3), **f32), torch.empty((n,), **f32)
     valid = torch.empty((n,), dtype=torch.bool, device=dev)
     _launch(dev, t_cam.data_ptr(), qnorm.data_ptr(), scales.data_ptr(), quats.data_ptr(),
-            viewmat.data_ptr(), viewmat.stride(0), viewmat.stride(1),
-            *(p for p, _ in intr), *(v for _, v in intr),
-            lx[0], ly[0], lx[1], ly[1], lx[2], ly[2], float(znear), float(eps2d), row0,
-            width, height, means2d.data_ptr(), depths.data_ptr(), conics.data_ptr(),
+            *cam, means2d.data_ptr(), depths.data_ptr(), conics.data_ptr(),
             radii.data_ptr(), valid.data_ptr(), n)
     return Projected(means2d, depths, conics, radii, valid)
+
+
+def _cotangent(g, cols: int):
+    """(pointer, row stride[, column stride]) of a cotangent for the backward
+    kernel, which reads it in place; (None, 0[, 0]) where autograd gives none
+    (it reads as zero)."""
+    if g is None or g._is_zerotensor():
+        return (None, 0, 0)[:2 + (cols > 1)]
+    return (g.data_ptr(), g.stride(0)) + ((g.stride(1),) if cols > 1 else ())
+
+
+class _ProjectFn(torch.autograd.Function):
+    """``csrc/project.cu`` under autograd: the forward launches
+    ``segsplat_project`` on (t_cam, the quaternions' norms, scales, quats) and
+    keeps those four and the camera (its arguments and the tensors on the
+    card they point into), no [N] intermediate; the backward launches
+    ``segsplat_project_bwd``, which recomputes the forward's terms in
+    registers and gives the four inputs' gradients from the cotangents of
+    means2d, depths and conics. radii and valid carry no gradient."""
+
+    @staticmethod
+    def forward(ctx, t_cam, qnorm, scales, quats, cam, *pointed):
+        out = _project_forward(t_cam, qnorm, scales, quats, cam)
+        ctx.mark_non_differentiable(out.radii, out.valid)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(t_cam, qnorm, scales, quats, *pointed)
+        ctx.cam = cam
+        return tuple(out)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_means2d, g_depths, g_conics, _g_radii, _g_valid):
+        t_cam, qnorm, scales, quats, *pointed = ctx.saved_tensors
+        grads = [torch.empty_like(x) for x in (t_cam, qnorm, scales, quats)]
+        _launch_backward(t_cam.device, t_cam.data_ptr(), qnorm.data_ptr(), scales.data_ptr(),
+                         quats.data_ptr(), *ctx.cam, *_cotangent(g_means2d, 2),
+                         *_cotangent(g_depths, 1), *_cotangent(g_conics, 3),
+                         *(g.data_ptr() for g in grads), t_cam.shape[0])
+        project_gaussians.backward_launches += 1
+        return (*grads, None) + (None,) * len(pointed)
+
+
+def _ewa_terms(t_cam, qnorm, scales, quats, R_w2c, fx, fy, znear, eps2d, lim_x, lim_y) -> dict:
+    """The projection's terms by name, planar [N] tensors (3×3 lists of them
+    for R, M, C) in eager operators, shared by the plain forward and the
+    plain backward (``csrc/project.cu``'s ``ewa_terms`` names them alike). A
+    dict, which torch.compile traces."""
+    x, y, z = t_cam[:, 0], t_cam[:, 1], t_cam[:, 2]
+    zc = torch.clamp_min(z, znear)
+    rx, ry = x / zc, y / zc
+    clx, cly = torch.clamp(rx, -lim_x, lim_x), torch.clamp(ry, -lim_y, lim_y)
+    tx, ty = clx * zc, cly * zc
+
+    qd = qnorm + 1e-12
+    qn = quats / qd
+    q = qw, qx, qy, qz = qn[:, 0], qn[:, 1], qn[:, 2], qn[:, 3]
+    R = [[1 - 2 * (qy * qy + qz * qz), 2 * (qx * qy - qw * qz), 2 * (qx * qz + qw * qy)],
+         [2 * (qx * qy + qw * qz), 1 - 2 * (qx * qx + qz * qz), 2 * (qy * qz - qw * qx)],
+         [2 * (qx * qz - qw * qy), 2 * (qy * qz + qw * qx), 1 - 2 * (qx * qx + qy * qy)]]
+    s = [scales[:, 0], scales[:, 1], scales[:, 2]]
+    # M = R diag(s); Σ = M Mᵀ (symmetric, 6 unique components)
+    M = [[R[r][j] * s[j] for j in range(3)] for r in range(3)]
+    S = [[None] * 3 for _ in range(3)]
+    for r in range(3):
+        for c in range(r, 3):
+            S[r][c] = S[c][r] = M[r][0] * M[c][0] + M[r][1] * M[c][1] + M[r][2] * M[c][2]
+    # P = W Σ as planar arrays, a row at a time, W = R_w2c; C = P Wᵀ (upper)
+    W = R_w2c
+    P = [[W[r, 0] * S[0][c] + W[r, 1] * S[1][c] + W[r, 2] * S[2][c] for c in range(3)]
+         for r in range(3)]
+    C = [[None] * 3 for _ in range(3)]
+    for r in range(3):
+        for c in range(r, 3):
+            C[r][c] = P[r][0] * W[c, 0] + P[r][1] * W[c, 1] + P[r][2] * W[c, 2]
+
+    inv_z = 1.0 / zc
+    inv_z2 = inv_z * inv_z
+    # J rows: [fx/z, 0, -fx·x/z²], [0, fy/z, -fy·y/z²]
+    t02, t12 = -fx * tx, -fy * ty
+    j00, j02 = fx * inv_z, t02 * inv_z2
+    j11, j12 = fy * inv_z, t12 * inv_z2
+    A1 = j00 * C[0][0] + j02 * C[0][2]
+    A2 = j00 * C[0][2] + j02 * C[2][2]
+    B1 = j11 * C[0][1] + j12 * C[0][2]
+    B2 = j11 * C[1][2] + j12 * C[2][2]
+    D1 = j11 * C[1][1] + j12 * C[1][2]
+    D2 = j11 * C[1][2] + j12 * C[2][2]
+    a = j00 * A1 + j02 * A2 + eps2d
+    b = j00 * B1 + j02 * B2
+    c = j11 * D1 + j12 * D2 + eps2d
+
+    det = a * c - b * b
+    keep = det > 1e-12
+    det = torch.where(keep, det, 1.0)
+    return dict(x=x, y=y, z=z, zc=zc, rx=rx, ry=ry, clx=clx, cly=cly, qd=qd[:, 0], q=q, R=R,
+                s=s, M=M, C=C, inv_z=inv_z, inv_z2=inv_z2, t02=t02, t12=t12, j00=j00, j02=j02,
+                j11=j11, j12=j12, A1=A1, A2=A2, B1=B1, B2=B2, D1=D1, D2=D2, a=a, b=b, c=c,
+                keep=keep, det=det, inv_det=1.0 / det)
+
+
+def _frustum_lims(fx, fy, width, height, tan_fovx, tan_fovy):
+    if tan_fovx is None:
+        tan_fovx = (0.5 * width) / fx
+    if tan_fovy is None:
+        tan_fovy = (0.5 * height) / fy
+    return 1.3 * tan_fovx, 1.3 * tan_fovy
 
 
 def project_gaussians_plain(means3d, scales, quats, viewmat, fx, fy, cx, cy,
@@ -237,88 +407,23 @@ def project_gaussians_plain(means3d, scales, quats, viewmat, fx, fy, cx, cy,
                             eps2d: float = 0.3, tan_fovx=None, tan_fovy=None,
                             row0: int = 0) -> Projected:
     """``project_gaussians`` in eager PyTorch operators, differentiable: every
-    call on the CPU, under autograd or in a compiled trace; the kernel's
-    yardstick, bit for bit."""
+    call on the CPU or in a compiled trace; the forward kernel's yardstick,
+    bit for bit."""
     R_w2c = viewmat[:3, :3]
     t_cam = means3d @ R_w2c.T + viewmat[:3, 3]
-    z = t_cam[:, 2]
-    valid = z > znear
-
-    if tan_fovx is None:
-        tan_fovx = (0.5 * width) / fx
-    if tan_fovy is None:
-        tan_fovy = (0.5 * height) / fy
-
-    zc = torch.clamp_min(z, znear)
-    lim_x = 1.3 * tan_fovx
-    lim_y = 1.3 * tan_fovy
-    tx = torch.clamp(t_cam[:, 0] / zc, -lim_x, lim_x) * zc
-    ty = torch.clamp(t_cam[:, 1] / zc, -lim_y, lim_y) * zc
-
-    qn = quats / (torch.linalg.norm(quats, dim=-1, keepdim=True) + 1e-12)
-    qw, qx, qy, qz = qn[:, 0], qn[:, 1], qn[:, 2], qn[:, 3]
-    r00 = 1 - 2 * (qy * qy + qz * qz)
-    r01 = 2 * (qx * qy - qw * qz)
-    r02 = 2 * (qx * qz + qw * qy)
-    r10 = 2 * (qx * qy + qw * qz)
-    r11 = 1 - 2 * (qx * qx + qz * qz)
-    r12 = 2 * (qy * qz - qw * qx)
-    r20 = 2 * (qx * qz - qw * qy)
-    r21 = 2 * (qy * qz + qw * qx)
-    r22 = 1 - 2 * (qx * qx + qy * qy)
-    s0, s1, s2 = scales[:, 0], scales[:, 1], scales[:, 2]
-    # M = R diag(s); Σ = M Mᵀ (symmetric, 6 unique components)
-    m00, m01, m02 = r00 * s0, r01 * s1, r02 * s2
-    m10, m11, m12 = r10 * s0, r11 * s1, r12 * s2
-    m20, m21, m22 = r20 * s0, r21 * s1, r22 * s2
-    s00 = m00 * m00 + m01 * m01 + m02 * m02
-    s01 = m00 * m10 + m01 * m11 + m02 * m12
-    s02 = m00 * m20 + m01 * m21 + m02 * m22
-    s11 = m10 * m10 + m11 * m11 + m12 * m12
-    s12 = m10 * m20 + m11 * m21 + m12 * m22
-    s22 = m20 * m20 + m21 * m21 + m22 * m22
-
-    def _wsigma_row(i):
-        # (W Σ)ᵢ· as three planar arrays, W = R_w2c
-        a = R_w2c[i, 0] * s00 + R_w2c[i, 1] * s01 + R_w2c[i, 2] * s02
-        b = R_w2c[i, 0] * s01 + R_w2c[i, 1] * s11 + R_w2c[i, 2] * s12
-        c_ = R_w2c[i, 0] * s02 + R_w2c[i, 1] * s12 + R_w2c[i, 2] * s22
-        return a, b, c_
-
-    p00, p01, p02 = _wsigma_row(0)
-    p10, p11, p12 = _wsigma_row(1)
-    p20, p21, p22 = _wsigma_row(2)
-    c00 = p00 * R_w2c[0, 0] + p01 * R_w2c[0, 1] + p02 * R_w2c[0, 2]
-    c01 = p00 * R_w2c[1, 0] + p01 * R_w2c[1, 1] + p02 * R_w2c[1, 2]
-    c02 = p00 * R_w2c[2, 0] + p01 * R_w2c[2, 1] + p02 * R_w2c[2, 2]
-    c11 = p10 * R_w2c[1, 0] + p11 * R_w2c[1, 1] + p12 * R_w2c[1, 2]
-    c12 = p10 * R_w2c[2, 0] + p11 * R_w2c[2, 1] + p12 * R_w2c[2, 2]
-    c22 = p20 * R_w2c[2, 0] + p21 * R_w2c[2, 1] + p22 * R_w2c[2, 2]
-
-    inv_z = 1.0 / zc
-    inv_z2 = inv_z * inv_z
-    # J rows: [fx/z, 0, -fx·x/z²], [0, fy/z, -fy·y/z²]
-    j00 = fx * inv_z
-    j02 = -fx * tx * inv_z2
-    j11 = fy * inv_z
-    j12 = -fy * ty * inv_z2
-
-    a = j00 * (j00 * c00 + j02 * c02) + j02 * (j00 * c02 + j02 * c22) + eps2d
-    b = j00 * (j11 * c01 + j12 * c02) + j02 * (j11 * c12 + j12 * c22)
-    c = j11 * (j11 * c11 + j12 * c12) + j12 * (j11 * c12 + j12 * c22) + eps2d
-
-    det = a * c - b * b
-    valid = valid & (det > 1e-12)
-    det = torch.where(det > 1e-12, det, 1.0)
-    inv_det = 1.0 / det
+    e = _ewa_terms(t_cam, torch.linalg.norm(quats, dim=-1, keepdim=True), scales, quats, R_w2c,
+                   fx, fy, znear, eps2d, *_frustum_lims(fx, fy, width, height, tan_fovx,
+                                                        tan_fovy))
+    a, b, c, det, inv_det = e["a"], e["b"], e["c"], e["det"], e["inv_det"]
+    valid = (e["z"] > znear) & e["keep"]
     conic = torch.stack([c * inv_det, -b * inv_det, a * inv_det], dim=1)
 
     mid = 0.5 * (a + c)
     lam1 = mid + torch.sqrt(torch.clamp_min(mid * mid - det, 0.1))
     radius = torch.ceil(3.0 * torch.sqrt(lam1))
 
-    u = fx * t_cam[:, 0] * inv_z + cx
-    v = fy * t_cam[:, 1] * inv_z + cy
+    u = fx * e["x"] * e["inv_z"] + cx
+    v = fy * e["y"] * e["inv_z"] + cy
     if row0:
         v = v - row0
     means2d = torch.stack([u, v], dim=1)
@@ -327,7 +432,125 @@ def project_gaussians_plain(means3d, scales, quats, viewmat, fx, fy, cx, cy,
                  (v + radius > 0) & (v - radius < height))
     valid = valid & on_screen
     radius = torch.where(valid, radius, 0.0)
-    return Projected(means2d, z, conic, radius, valid)
+    return Projected(means2d, e["z"], conic, radius, valid)
+
+
+def project_gaussians_vjp_plain(cotangents, t_cam, qnorm, scales, quats, viewmat, fx, fy,
+                                cx, cy, width: int, height: int, znear: float = 0.2,
+                                eps2d: float = 0.3, tan_fovx=None, tan_fovy=None,
+                                row0: int = 0):
+    """The projection's vector-Jacobian product in eager PyTorch operators:
+    from the cotangents (means2d [N, 2], depths [N], conics [N, 3]; None
+    reads as zero) to the gradients of t_cam [N, 3] = means3d @ R_w2cᵀ + t,
+    the quaternions' norms [N, 1], scales [N, 3] and quats [N, 4] (the
+    quotient's numerator; autograd adds the norm's share). The backward
+    kernel's yardstick, bit for bit, in its order; autograd's conventions:
+    clamp_min and clamp pass the gradient where the input lies within their
+    bounds, ends included; ``where(det > 1e-12, det, 1)`` passes none through
+    the 1; ceil gives the radius none; rows that are not valid get their
+    chain-rule gradient. No program path runs it: the CPU differentiates
+    ``project_gaussians_plain`` by autograd."""
+    W = viewmat[:3, :3]
+    lim_x, lim_y = _frustum_lims(fx, fy, width, height, tan_fovx, tan_fovy)
+    e = types.SimpleNamespace(**_ewa_terms(t_cam, qnorm, scales, quats, W, fx, fy, znear,
+                                           eps2d, lim_x, lim_y))
+    zero = torch.zeros_like(e.z)
+    g_m, g_d, g_c = cotangents
+    gu, gv = (zero, zero) if g_m is None else (g_m[:, 0], g_m[:, 1])
+    gz = zero if g_d is None else g_d
+    g = [zero] * 3 if g_c is None else [g_c[:, j] for j in range(3)]
+
+    # conic = (c, -b, a) / det
+    d_c = g[0] * e.inv_det
+    d_b = -(g[1] * e.inv_det)
+    d_a = g[2] * e.inv_det
+    d_inv = g[0] * e.c + g[1] * -e.b + g[2] * e.a
+    d_det = torch.where(e.keep, -(d_inv * (e.inv_det * e.inv_det)), 0.0)
+    d_a = d_a + d_det * e.c
+    d_c = d_c + d_det * e.a
+    d_b = d_b - (2.0 * e.b) * d_det
+
+    # a = j00 A1 + j02 A2 + eps, b = j00 B1 + j02 B2, c = j11 D1 + j12 D2 + eps
+    C = e.C
+    dA1, dA2 = d_a * e.j00, d_a * e.j02
+    dB1, dB2 = d_b * e.j00, d_b * e.j02
+    dD1, dD2 = d_c * e.j11, d_c * e.j12
+    d_j00 = (d_a * e.A1 + d_b * e.B1) + (dA1 * C[0][0] + dA2 * C[0][2])
+    d_j02 = (d_a * e.A2 + d_b * e.B2) + (dA1 * C[0][2] + dA2 * C[2][2])
+    d_j11 = (d_c * e.D1 + (dB1 * C[0][1] + dB2 * C[1][2])) + (dD1 * C[1][1] + dD2 * C[1][2])
+    d_j12 = (d_c * e.D2 + (dB1 * C[0][2] + dB2 * C[2][2])) + (dD1 * C[1][2] + dD2 * C[2][2])
+    dC = [[None] * 3 for _ in range(3)]
+    dC[0][0] = dA1 * e.j00
+    dC[0][1] = dB1 * e.j11
+    dC[0][2] = dA1 * e.j02 + dA2 * e.j00 + dB1 * e.j12
+    dC[1][1] = dD1 * e.j11
+    dC[1][2] = dB2 * e.j11 + dD1 * e.j12 + dD2 * e.j11
+    dC[2][2] = dA2 * e.j02 + dB2 * e.j12 + dD2 * e.j12
+
+    # j00 = fx/z, j02 = (-fx·tx)/z², j11 = fy/z, j12 = (-fy·ty)/z²; u = (fx·x)/z + cx
+    ux, vy = fx * e.x, fy * e.y
+    d_inv_z = d_j00 * fx + d_j11 * fy + gu * ux + gv * vy
+    d_inv_z2 = d_j02 * e.t02 + d_j12 * e.t12
+    d_inv_z = d_inv_z + (2.0 * e.inv_z) * d_inv_z2
+    d_tx = (d_j02 * e.inv_z2) * -fx
+    d_ty = (d_j12 * e.inv_z2) * -fy
+    d_x = (gu * e.inv_z) * fx
+    d_y = (gv * e.inv_z) * fy
+    # inv_z = 1/zc; tx = clamp(x/zc, ±lim_x)·zc, ty likewise
+    d_zc = -(d_inv_z * e.inv_z2)
+    d_zc = d_zc + d_tx * e.clx
+    d_zc = d_zc + d_ty * e.cly
+    d_rx = torch.where((e.rx >= -lim_x) & (e.rx <= lim_x), d_tx * e.zc, 0.0)
+    d_ry = torch.where((e.ry >= -lim_y) & (e.ry <= lim_y), d_ty * e.zc, 0.0)
+    d_x = d_x + d_rx / e.zc
+    d_y = d_y + d_ry / e.zc
+    d_zc = d_zc - d_rx * (e.rx / e.zc)
+    d_zc = d_zc - d_ry * (e.ry / e.zc)
+    # zc = clamp_min(z, znear); depth = z
+    d_z = torch.where(e.z >= znear, d_zc, 0.0) + gz
+    d_t_cam = torch.stack([d_x, d_y, d_z], dim=1)
+
+    # C = P Wᵀ (upper), P = W Σ: dP[r][j] = Σ over c ≥ r of dC[r][c]·W[c][j]
+    dP = [[None] * 3 for _ in range(3)]
+    for r in range(3):
+        for j in range(3):
+            acc = dC[r][r] * W[r, j]
+            for c in range(r + 1, 3):
+                acc = acc + dC[r][c] * W[c, j]
+            dP[r][j] = acc
+    # dS = Wᵀ dP over Σ's nine places; each of its six entries fills two of
+    # them (one on the diagonal), and Σ = M Mᵀ, so dM = (dS + dSᵀ) M
+    dS = [[W[0, m] * dP[0][c] + W[1, m] * dP[1][c] + W[2, m] * dP[2][c] for c in range(3)]
+          for m in range(3)]
+    G = [[dS[r][c] + dS[c][r] for c in range(3)] for r in range(3)]
+    # M = R diag(s)
+    dR = [[None] * 3 for _ in range(3)]
+    ds = [None] * 3
+    for r in range(3):
+        for j in range(3):
+            dM = G[r][0] * e.M[0][j] + G[r][1] * e.M[1][j] + G[r][2] * e.M[2][j]
+            dR[r][j] = dM * e.s[j]
+            term = dM * e.R[r][j]
+            ds[j] = term if r == 0 else ds[j] + term
+    d_scales = torch.stack(ds, dim=1)
+
+    # R of the normalised quaternion (w, x, y, z)
+    qw, qx, qy, qz = e.q
+    d = dR
+    dq = [2.0 * (qz * (d[1][0] - d[0][1]) + qy * (d[0][2] - d[2][0]) + qx * (d[2][1] - d[1][2])),
+          2.0 * (qy * (d[0][1] + d[1][0]) + qz * (d[0][2] + d[2][0]) + qw * (d[2][1] - d[1][2])
+                 - (2.0 * qx) * (d[1][1] + d[2][2])),
+          2.0 * (qx * (d[0][1] + d[1][0]) + qz * (d[1][2] + d[2][1]) + qw * (d[0][2] - d[2][0])
+                 - (2.0 * qy) * (d[0][0] + d[2][2])),
+          2.0 * (qx * (d[0][2] + d[2][0]) + qy * (d[1][2] + d[2][1]) + qw * (d[1][0] - d[0][1])
+                 - (2.0 * qz) * (d[0][0] + d[1][1]))]
+    # q = quat / (|quat| + 1e-12)
+    dot = dq[0] * e.q[0]
+    for j in range(1, 4):
+        dot = dot + dq[j] * e.q[j]
+    d_quats = torch.stack([x / e.qd for x in dq], dim=1)
+    d_qnorm = -(dot / e.qd)
+    return d_t_cam, d_qnorm[:, None], d_scales, d_quats
 
 
 def bin_gaussian_ranks(proj: Projected, width: int, height: int,

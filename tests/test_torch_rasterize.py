@@ -190,8 +190,10 @@ def _dispatch_args(case):
     f32 = lambda x: torch.tensor(x, dtype=torch.float32)
     args = [t(sc["xyz"]), t(sc["scales"]), t(sc["quats"]), t(viewmat("rotated")),
             f32(F), f32(F), f32(W / 2), f32(H / 2), W, H]
-    if case == "needs_grad":
+    if case in ("needs_grad", "needs_grad_compiled", "camera_needs_grad"):
         args[0].requires_grad_(True)
+    if case == "camera_needs_grad":
+        args[3].requires_grad_(True)
     elif case == "numpy_intrinsics":
         args[4:8] = [np.float32(F), np.float32(F), np.float32(W / 2), np.float64(H / 2)]
     elif case == "python_intrinsics":
@@ -207,10 +209,15 @@ def _dispatch_args(case):
 
 # name: (the Gaussians on the card, grad mode, traced by torch.compile, what
 # the call does). On the CPU ``_on_card`` is False; the other cases stand it
-# in True and the launch ``_launch`` in a recorder, so that the gates decide.
+# in True and the launches ``_launch`` and ``_launch_backward`` in
+# recorders, so that the gates decide. "kernel": the forward kernel alone;
+# "kernel_grad": the forward under autograd, the backward kernel once
+# ``.backward()`` runs.
 DISPATCH_CASES = {
     "cpu_tensors": (False, False, False, "plain"),
-    "needs_grad": (True, True, False, "plain"),
+    "needs_grad": (True, True, False, "kernel_grad"),
+    "needs_grad_compiled": (True, True, True, "plain"),
+    "camera_needs_grad": (True, True, False, "raises"),
     "compiled": (True, False, True, "plain"),
     "no_grad_mode": (True, False, False, "kernel"),
     "no_input_needs_grad": (True, True, False, "kernel"),
@@ -224,35 +231,46 @@ DISPATCH_CASES = {
 
 @pytest.mark.parametrize("case", sorted(DISPATCH_CASES))
 def test_project_gaussians_dispatch(case, monkeypatch):
-    """CPU tensors, an input that needs grad and a torch.compile trace
-    (fullgraph, so with no graph break) take the plain version and launch
-    nothing, with the plain version's results. With the Gaussians on the card
-    and nothing for autograd to record, the call launches the kernel once,
-    also with NumPy or Python numbers for the intrinsics; and inputs it
-    cannot read (float64 scales, a focal of shape [1], a tensor subclass)
-    raise rather than take the plain version, which would run them."""
+    """CPU tensors and a torch.compile trace (fullgraph, so with no graph
+    break) take the plain version and launch nothing, with the plain
+    version's results. With the Gaussians on the card the call launches the
+    forward kernel once, also with NumPy or Python numbers for the
+    intrinsics; where means3d needs grad, under autograd, whose
+    ``.backward()`` then launches the backward kernel once. Inputs it cannot
+    read (float64 scales, a focal of shape [1], a tensor subclass, a viewmat
+    that needs grad under grad mode) raise rather than take the plain
+    version, which would run them."""
     on_card, grad_mode, compiled, does = DISPATCH_CASES[case]
     args = _dispatch_args(case)
-    launched = []
+    launched, launched_bwd = [], []
     monkeypatch.setattr(Pr, "_on_card", lambda means3d: on_card)
     monkeypatch.setattr(Pr, "_launch", lambda dev, *a: launched.append(a))
+    monkeypatch.setattr(Pr, "_launch_backward", lambda dev, *a: launched_bwd.append(a))
     fn = (torch.compile(Pr.project_gaussians, backend="eager", fullgraph=True)
           if compiled else Pr.project_gaussians)
-    before = Pr.project_gaussians.launches
+    before = Pr.project_gaussians.launches, Pr.project_gaussians.backward_launches
     with torch.set_grad_enabled(grad_mode):
         if does == "raises":
             with pytest.raises(ValueError, match="projection kernel reads"):
                 fn(*args)
         else:
             got = fn(*args)
-    assert Pr.project_gaussians.launches - before == len(launched) == int(does == "kernel")
+    kernel = does in ("kernel", "kernel_grad")
+    assert Pr.project_gaussians.launches - before[0] == len(launched) == int(kernel)
     if does == "plain":
         ref = Pr.project_gaussians_plain(*args)
         for name in Pr.Projected._fields:
             assert torch.equal(getattr(got, name).detach(), getattr(ref, name).detach()), name
-        assert got.means2d.requires_grad == (case == "needs_grad")
-    elif does == "kernel":
+        assert got.means2d.requires_grad == (case != "cpu_tensors" and grad_mode)
+    elif kernel:
         n = args[0].shape[0]
         assert [tuple(getattr(got, k).shape) for k in Pr.Projected._fields] == [
             (n, 2), (n,), (n, 3), (n,), (n,)]
-        assert not got.means2d.requires_grad
+        assert got.means2d.requires_grad == (does == "kernel_grad")
+        assert not got.radii.requires_grad and not got.valid.requires_grad
+        if does == "kernel_grad":
+            assert not launched_bwd
+            (got.means2d.sum() + got.conics.sum()).backward()
+            assert args[0].grad is not None and args[0].grad.shape == (n, 3)
+    assert Pr.project_gaussians.backward_launches - before[1] == len(launched_bwd) == int(
+        does == "kernel_grad")
