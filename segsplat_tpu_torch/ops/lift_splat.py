@@ -24,6 +24,8 @@ Each stage runs inside a span (``utils/profiling.annotate``),
 ``lift.projection``, ``lift.binning``, ``lift.tile_test`` and
 ``lift.accumulation``, so a profiler trace gives each stage's device time (the
 kernels launched inside the span); without a profiler a span is a flag read.
+``lift.binning`` counts the view's truncated slots as ``overflow``
+(``profiling.count``, a 0-dim device tensor read only by the span's reader).
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ import torch
 from segsplat_tpu_torch.ops.rasterize import (TILE, Projected, bin_gaussian_ranks,
                                               map_tile_chunks, tiles_to_image)
 from segsplat_tpu_torch.ops.voxelize import segment_sum
-from segsplat_tpu_torch.utils.profiling import annotate
+from segsplat_tpu_torch.utils.profiling import annotate, count
 
 # Tiles per chunk of the tile test. The JAX package's 64 was sized for TPU
 # memory; on the card 64 issues ~5 000 launches a view and leaves the device
@@ -196,6 +198,7 @@ def _splat_candidates(centers, voxel_ids, c2w, intrinsics, voxel_size, depth_max
         counts = torch.clamp_max(runs, K)
         # the per-tile K truncation, as rasterize's tile_overflow
         tile_overflow = torch.clamp_min(runs - K, 0).sum()
+        count("overflow", overflow + tile_overflow)
         slot = torch.arange(K, device=centers.device)
         widx = torch.clamp(offsets[:-1, None].long() + slot[None, :], 0,
                            rank_sorted.shape[0] - 1)                  # [T,K]

@@ -76,7 +76,8 @@ class LiftConfig:
     method: str = "splat"              # "splat" (ops/lift_splat) or "dda"
     #                                    (the kernel's exact transcription)
     splat_max_tiles_per_axis: int = 8
-    splat_max_per_tile: int = 128
+    splat_max_per_tile: int = 256      # a 0.04 m room seen across 2-3 m puts up
+    #                                    to 190 cubes behind one 16×16 tile
     splat_big_budget: int = 0          # dual-bin big-voxel budget (0 = V/8);
     #                                    overflow is surfaced as a [WARN]
 
@@ -168,6 +169,80 @@ def lift_grid(centers: np.ndarray, vs: float, origin: np.ndarray, shape, device)
     return grid, occ, occ_origin, snap_centers, snap_ids
 
 
+class ViewLifter:
+    """Stage 3 one view at a time, the lift of ``aggregate_voxel_features``:
+    set up once from a grid PLY's (centres, voxel_size, grid_origin,
+    grid_shape), the ray grid (``height`` × ``width``, the downsampled
+    camera's) and ``cfg``, on ``device``; ``lift`` adds one view's host
+    feature map into [V+1, C] float32 sums, int32 counts and the most slots a
+    view truncated, all in device memory; ``result`` reads them out.
+
+    A view runs in the span ``lift.view``: the fp16 map copied to the device
+    as stored (``lift.upload``: from pageable memory, so the host waits there
+    for the work queued before it), ``resize_features``, the permute to HWC,
+    the splat lift (``ops/lift_splat.lift_view_splat``, which counts the
+    view's truncated slots as ``overflow`` of ``lift.binning``) or the DDA
+    (its march bounded by the view's own longest ray), and the adds."""
+
+    def __init__(self, centers: np.ndarray, voxel_size: float, origin: np.ndarray, shape,
+                 channels: int, height: int, width: int, cfg: LiftConfig = LiftConfig(),
+                 device: str | torch.device = "cuda"):
+        self.cfg, self.channels, self.height, self.width = cfg, channels, height, width
+        self.device = device = torch.device(device)
+        self.f32 = dict(dtype=torch.float32, device=device)
+        (self.grid, self.occ, occ_origin, self.snap_centers,
+         self.snap_ids) = lift_grid(centers, voxel_size, origin, shape, device)
+        self.num_ids = len(centers) + 1
+        self.inc = float(voxel_size) * cfg.ray_increment_factor
+        self.vs_t = torch.tensor(voxel_size, **self.f32)
+        self.inc_t = torch.tensor(self.inc, **self.f32)
+        self.occ_origin_t = torch.as_tensor(occ_origin, **self.f32)
+        self.sums, self.counts, self.overflow = self.zeros()
+
+    def zeros(self):
+        """A fresh (sums, counts, overflow) triple, as ``lift`` adds into."""
+        return (torch.zeros((self.num_ids, self.channels), **self.f32),
+                torch.zeros((self.num_ids,), dtype=torch.int32, device=self.device),
+                torch.zeros((), dtype=torch.int64, device=self.device))
+
+    def lift(self, fmap_host: np.ndarray, c2w, intrinsics, into=None) -> None:
+        """One view's [C, h, w] host feature map (fp16 as stored), camera to
+        world [4, 4] and (fx, fy, cx, cy) of the ray grid, added into ``into``
+        (a ``zeros()`` triple; by default the lifter's own)."""
+        sums, counts, overflow = self.sums, self.counts, self.overflow
+        if into is not None:
+            sums, counts, overflow = into
+        cfg, W, H = self.cfg, self.width, self.height
+        with annotate("lift.view"):
+            with annotate("lift.upload"):
+                fmap = torch.from_numpy(fmap_host).to(self.device)
+            fmap = resize_features(fmap, H, W).permute(1, 2, 0)           # [H,W,C]
+            c2w = torch.as_tensor(c2w, **self.f32)
+            K = torch.as_tensor(intrinsics, **self.f32)
+            if cfg.method == "splat":
+                ds, dc, dof = lift_view_splat(
+                    self.snap_centers, self.snap_ids, c2w, K, self.vs_t, cfg.depth_min,
+                    cfg.depth_max, self.inc_t, fmap, self.num_ids, W, H,
+                    max_tiles_per_axis=cfg.splat_max_tiles_per_axis,
+                    max_per_tile=cfg.splat_max_per_tile,
+                    big_budget=cfg.splat_big_budget or None)
+                torch.maximum(overflow, dof, out=overflow)
+            else:
+                k = np.asarray(intrinsics, np.float64)
+                steps = default_max_steps(W, H, k[0], k[1], cfg.depth_min, cfg.depth_max,
+                                          self.inc, cx=k[2], cy=k[3])
+                hits = first_hit_voxels(self.occ, c2w, K, self.occ_origin_t, self.vs_t,
+                                        cfg.depth_min, cfg.depth_max, self.inc_t, W, H, steps)
+                ds, dc = scatter_features(fmap, hits, self.num_ids)
+            sums += ds
+            counts += dc
+
+    def result(self) -> Tuple[torch.Tensor, torch.Tensor, int]:
+        """(sums [V+1, C], counts [V+1], the most slots any view truncated);
+        row 0 holds no hit. Reading the overflow waits for the device."""
+        return self.sums, self.counts, int(self.overflow)
+
+
 def aggregate_voxel_features(voxel_ply: str, lseg_dir: str, camera_params: str,
                              out_dir: str, cfg: LiftConfig = LiftConfig(),
                              image_size: Optional[Tuple[int, int]] = None,
@@ -176,10 +251,11 @@ def aggregate_voxel_features(voxel_ply: str, lseg_dir: str, camera_params: str,
                              allow_random_weights: bool = False,
                              device: str | torch.device = "cuda") -> dict:
     """Run the multi-view lift on ``device`` (the card unless the caller asks
-    for the CPU, or this rank's device over ``mesh``); writes checkpoints and
-    the final artifacts into ``out_dir``. Returns {"sums", "counts" (tensors
-    on the device), "grid", "views_per_sec", "overflow" (the most slots any
-    view truncated), "artifact" (final .pt path; None on ranks but 0)}."""
+    for the CPU, or this rank's device over ``mesh``) through a
+    ``ViewLifter``; writes checkpoints and the final artifacts into
+    ``out_dir``. Returns {"sums", "counts" (tensors on the device), "grid",
+    "views_per_sec", "overflow" (the most slots any view truncated),
+    "artifact" (final .pt path; None on ranks but 0)}."""
     device = require_device(device)
     if mesh is not None and mesh.n_tensor > 1:
         raise ValueError(f"the pipeline lift splits views only, not a tensor axis of "
@@ -190,12 +266,6 @@ def aggregate_voxel_features(voxel_ply: str, lseg_dir: str, camera_params: str,
     centers, _, vs, origin, shape = read_voxel_grid_ply(voxel_ply)
     if vs is None:
         raise RuntimeError(f"{voxel_ply}: missing voxel_size header comment")
-    f32 = dict(dtype=torch.float32, device=device)
-    grid, occ, occ_origin, snap_centers, snap_ids = lift_grid(centers, vs, origin, shape,
-                                                              device)
-    num_ids = len(centers) + 1
-    print(f"[INFO] occupancy {tuple(occ.shape)}, {len(centers)} voxels @ {vs} "
-          f"(method={cfg.method})")
 
     weights_source = read_weights_source(lseg_dir)
     require_untainted(weights_source, allow_random_weights, f"feature dir {lseg_dir}")
@@ -229,43 +299,9 @@ def aggregate_voxel_features(voxel_ply: str, lseg_dir: str, camera_params: str,
               f"image_size given — lifting on the {H}x{W} feature grid; "
               f"intrinsics must describe THIS grid for rays to align")
 
-    inc = float(vs) * cfg.ray_increment_factor
-    # one step budget for all views: the smallest focals spread rays widest,
-    # and the farthest principal-point deviation sets the longest corner ray
-    fx_min = float(np.min(intr[:, 0])) if len(intr) else 1.0
-    fy_min = float(np.min(intr[:, 1])) if len(intr) else 1.0
-    cx_w = float(np.max(np.maximum(intr[:, 2], W - 1 - intr[:, 2]))) if len(intr) else None
-    cy_w = float(np.max(np.maximum(intr[:, 3], H - 1 - intr[:, 3]))) if len(intr) else None
-    steps = default_max_steps(W, H, fx_min, fy_min, cfg.depth_min, cfg.depth_max, inc,
-                              cx=cx_w, cy=cy_w)
-    vs_t, inc_t = torch.tensor(vs, **f32), torch.tensor(inc, **f32)
-    occ_origin_t = torch.as_tensor(occ_origin, **f32)
-
-    sums = torch.zeros((num_ids, C), **f32)
-    counts = torch.zeros((num_ids,), dtype=torch.int32, device=device)
-    overflow_max = torch.zeros((), dtype=torch.int64, device=device)
-
-    def lift_into(sums, counts, overflow, i):
-        """View i's sums, counts and overflow added into the accumulators."""
-        # the fp16 map goes to the device as stored and is upcast there
-        fmap = torch.from_numpy(load_feature_map(files[i])).to(device)
-        fmap = resize_features(fmap, H, W).permute(1, 2, 0)            # [H,W,C]
-        c2w = torch.as_tensor(c2ws[i], **f32)
-        K = torch.as_tensor(intr[i], **f32)
-        if cfg.method == "splat":
-            ds, dc, dof = lift_view_splat(
-                snap_centers, snap_ids, c2w, K, vs_t, cfg.depth_min, cfg.depth_max,
-                inc_t, fmap, num_ids, W, H,
-                max_tiles_per_axis=cfg.splat_max_tiles_per_axis,
-                max_per_tile=cfg.splat_max_per_tile,
-                big_budget=cfg.splat_big_budget or None)
-            torch.maximum(overflow, dof, out=overflow)
-        else:
-            hits = first_hit_voxels(occ, c2w, K, occ_origin_t, vs_t, cfg.depth_min,
-                                    cfg.depth_max, inc_t, W, H, steps)
-            ds, dc = scatter_features(fmap, hits, num_ids)
-        sums += ds
-        counts += dc
+    lifter = ViewLifter(centers, vs, origin, shape, C, H, W, cfg, device)
+    print(f"[INFO] occupancy {tuple(lifter.occ.shape)}, {len(centers)} voxels @ {vs} "
+          f"(method={cfg.method})")
 
     if writer:
         os.makedirs(out_dir, exist_ok=True)
@@ -277,30 +313,31 @@ def aggregate_voxel_features(voxel_ply: str, lseg_dir: str, camera_params: str,
         if sharded:
             # this rank's share of the chunk, then the chunk's totals over the
             # view ranks (the JAX package's psum, psum, pmax)
-            part = (torch.zeros_like(sums), torch.zeros_like(counts),
-                    torch.zeros_like(overflow_max))
+            part = lifter.zeros()
             lo, hi = shard_range(nb, mesh.n_view, mesh.view_index)
             for i in range(start + lo, start + hi):
-                lift_into(*part, i)
+                lifter.lift(load_feature_map(files[i]), c2ws[i], intr[i], into=part)
             for x, op in zip(part, (dist.ReduceOp.SUM, dist.ReduceOp.SUM,
                                     dist.ReduceOp.MAX)):
                 mesh.all_reduce(x, VIEW_AXIS, op=op)
-            sums += part[0]
-            counts += part[1]
-            torch.maximum(overflow_max, part[2], out=overflow_max)
+            lifter.sums += part[0]
+            lifter.counts += part[1]
+            torch.maximum(lifter.overflow, part[2], out=lifter.overflow)
         else:
             for i in range(start, start + nb):
-                lift_into(sums, counts, overflow_max, i)
+                lifter.lift(load_feature_map(files[i]), c2ws[i], intr[i])
         done += nb
         # fire when done crosses a multiple of checkpoint_every
         if writer and cfg.checkpoint_every and done < len(files) \
                 and (done // cfg.checkpoint_every > (done - nb) // cfg.checkpoint_every):
-            _write_artifacts(out_dir, done, sums, counts, centers, grid, vs, final=False)
-    artifact = (_write_artifacts(out_dir, done, sums, counts, centers, grid, vs, final=True)
+            _write_artifacts(out_dir, done, lifter.sums, lifter.counts, centers, lifter.grid,
+                             vs, final=False)
+    sums, counts, overflow = lifter.result()
+    artifact = (_write_artifacts(out_dir, done, sums, counts, centers, lifter.grid, vs,
+                                 final=True)
                 if writer else None)
     dt = time.perf_counter() - t0
     vps = done / dt if dt > 0 else float("inf")
-    overflow = int(overflow_max)
     if overflow > 0:
         print(f"[WARN] lift coverage overflow: up to {overflow} "
               f"truncated slots/view (big-voxel budget and/or per-tile "
@@ -308,7 +345,7 @@ def aggregate_voxel_features(voxel_ply: str, lseg_dir: str, camera_params: str,
               f"splat_max_per_tile; pixels past the cap lift the wrong "
               f"voxel silently otherwise")
     print(f"[INFO] lifted {done} views in {dt:.2f}s = {vps:.2f} views/s")
-    return {"sums": sums, "counts": counts, "grid": grid, "views_per_sec": vps,
+    return {"sums": sums, "counts": counts, "grid": lifter.grid, "views_per_sec": vps,
             "overflow": overflow, "artifact": artifact}
 
 

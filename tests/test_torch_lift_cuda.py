@@ -6,6 +6,12 @@ so it runs where the card is:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_lift_cuda.py
 
+The last case lifts one view of the benchmark's lift cell at full size
+(``benchmark/configs/officescene-room-lift.json``: 876×584 rays, 512
+channels, 91 520 voxels) through ``ViewLifter`` and holds it against the
+benchmark's plain reference within the cell's limits, with no slot
+truncated.
+
 Without a card every case skips."""
 
 import numpy as np
@@ -120,3 +126,36 @@ def test_resize_on_card_matches_cpu(src, dst):
     x = torch.as_tensor(np.random.default_rng(6).random((16,) + src).astype(np.float16))
     got = resize_features(x.cuda(), *dst).cpu()
     torch.testing.assert_close(got, resize_features(x, *dst), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_a_full_size_view_of_the_lift_cell_against_the_reference():
+    _need_card()
+    from benchmark.harness.cell import load_cell
+    from benchmark.reference import lift as reference
+    from segsplat_tpu_torch.pipeline.lift_features import LiftConfig, ViewLifter
+
+    cell = load_cell("lift-officescene")
+    cfg, lim = cell.config, cell.traffic["limits"]
+    s = cell.scene_module().draw(dict(cfg, maps=1), 2 ** 31 + 5, "cuda")
+    w, h, vs = cfg["width"], cfg["height"], cfg["cell_size"]
+    lifter = ViewLifter(s["centers"], vs, s["origin"],
+                        tuple(int(v) for v in s["cells"].max(axis=0) + 1), cfg["channels"],
+                        h, w, LiftConfig(depth_min=cfg["depth_min"], depth_max=cfg["depth_max"],
+                                         ray_increment_factor=cfg["ray_increment_factor"],
+                                         splat_max_tiles_per_axis=cfg["max_tiles_per_axis"],
+                                         splat_max_per_tile=cfg["max_per_tile"]), "cuda")
+    # a view across the corridor at the clutter, where the tiles run deepest
+    fmap, c2w = s["maps"][0], s["c2w"][138]
+    part = lifter.zeros()
+    lifter.lift(fmap, c2w, s["intrinsics"], into=part)
+    dev = torch.device("cuda")
+    hits = reference.march(reference.occupancy(torch.as_tensor(s["cells"], device=dev)),
+                           torch.as_tensor(s["origin"], device=dev), vs,
+                           torch.as_tensor(c2w, device=dev), s["intrinsics"], w, h,
+                           cfg["depth_min"], cfg["depth_max"], vs * cfg["ray_increment_factor"])
+    ref = reference.lift_view(reference.resize(torch.from_numpy(fmap).to(dev), h, w), hits,
+                              len(s["cells"]) + 1)
+    share, gap = cell.loop_module().compare(part[0], part[1], *ref, w * h)
+    assert int(part[2]) == 0 and int((part[1] > 0).sum()) > 5000
+    assert share <= lim["hit_mismatch_share"] and gap <= lim["sum_gap_max"], (share, gap)

@@ -83,9 +83,14 @@ def test_fabricate_writes_the_jax_scripts_bytes(tmp_path, monkeypatch):
 def runs(tmp_path_factory):
     """The twin at TINY on the CPU (4 views lifted, 4 rendered), then the JAX
     run_pipeline with the JAX script's arguments and --skip_render on the
-    twin's fabricated scene. The lift's returns of both are kept."""
+    twin's fabricated scene, its LiftConfig given the port's per-tile K (256
+    by default, the JAX package's 128). The lift's returns of both are kept."""
+    import functools
+
     import run_pipeline as jax_run_pipeline
     import segsplat_tpu.pipeline.lift_features as jax_lift
+
+    from segsplat_tpu_torch.pipeline.lift_features import LiftConfig
 
     root = tmp_path_factory.mktemp("officescene")
     lifts, plain_calls = {}, []
@@ -107,6 +112,8 @@ def runs(tmp_path_factory):
                    keep("port", run_pipeline.aggregate_voxel_features))
         mp.setattr(jax_lift, "aggregate_voxel_features",
                    keep("jax", jax_lift.aggregate_voxel_features))
+        mp.setattr(jax_lift, "LiftConfig", functools.partial(
+            jax_lift.LiftConfig, splat_max_per_tile=LiftConfig().splat_max_per_tile))
         mp.setattr(B, "blend_tiles_plain", counted)
         port = O.run(work, TINY, lift_views=4, render_views=4, device="cpu")
         jax_work = str(root / "jax")
