@@ -20,6 +20,14 @@ each candidate's partial sum, and one per-voxel sum over the T·K slots
 sort is stable, as ``jnp.argsort``, because ties decide which voxels form the
 dual bin's big set.
 
+A view's lift is two halves, ``lift_view_splat`` their composition: the
+geometry (``splat_geometry``: steps 1-3, each tile's best slot and hit
+mask), which reads no feature map and waits for nothing on the device, and
+the accumulation (``splat_accumulate``), which takes the features. So a
+caller can queue the geometry first and bring the map to the card while the
+device runs it (``pipeline/lift_features.ViewLifter``); the accumulation's
+``segment_sum`` waits for the device (``torch.bincount`` reads its ids' max).
+
 Each stage runs inside a span (``utils/profiling.annotate``),
 ``lift.projection``, ``lift.binning``, ``lift.tile_test`` and
 ``lift.accumulation``, so a profiler trace gives each stage's device time (the
@@ -36,7 +44,7 @@ from typing import Optional, Tuple
 import torch
 
 from segsplat_tpu_torch.ops.rasterize import (TILE, Projected, bin_gaussian_ranks,
-                                              map_tile_chunks, tiles_to_image)
+                                              tiles_to_image)
 from segsplat_tpu_torch.ops.voxelize import segment_sum
 from segsplat_tpu_torch.utils.profiling import annotate, count
 
@@ -134,8 +142,9 @@ def _bin_voxels_dual(means2d, radius, depth, valid, width: int, height: int,
 
     B = min(big_budget, n)
     sel_pos = torch.sort(-torch.where(val, span, -1), stable=True).indices[:B]  # depth ranks
-    selected = torch.zeros((n,), dtype=torch.bool, device=dev)
-    selected[sel_pos] = True
+    # index_fill_, not ``selected[sel_pos] = True``: a host scalar's copy to
+    # the device waits for the queued work
+    selected = torch.zeros((n,), dtype=torch.bool, device=dev).index_fill_(0, sel_pos, True)
     # voxels spanning more than m_small tiles that did not fit the budget: their
     # coverage is cut, and lift_view_splat reports the count
     overflow = ((span >= m_small) & val & ~selected).sum().to(torch.int32)
@@ -172,11 +181,10 @@ def _splat_candidates(centers, voxel_ids, c2w, intrinsics, voxel_size, depth_max
     cam_pos = c2w[:3, 3]
     # w2c = [Rᵀ | -Rᵀ·c]; the translation as XLA's dot forms it, term by term
     Rt = R_c2w.T
-    w2c = torch.zeros((4, 4), dtype=torch.float32, device=centers.device)
+    w2c = torch.eye(4, dtype=torch.float32, device=centers.device)
     w2c[:3, :3] = Rt
     w2c[:3, 3] = ((-Rt[:, 0]) * cam_pos[0] + (-Rt[:, 1]) * cam_pos[1]
                   + (-Rt[:, 2]) * cam_pos[2])
-    w2c[3, 3] = 1.0
 
     half = voxel_size * 0.5
     means2d, radius, depth, valid = _project_voxels(centers, half, w2c, intrinsics,
@@ -228,8 +236,9 @@ def _make_tile_best(cand: dict, intrinsics, depth_min: float, depth_max: float,
     ox, oy, oz = cam_pos[0], cam_pos[1], cam_pos[2]
     side = 2.0 * half
     slots = torch.arange(K, device=dev)
-    d_min = torch.tensor(depth_min, dtype=torch.float32, device=dev)
-    d_max = torch.tensor(depth_max, dtype=torch.float32, device=dev)
+    # filled on the device: a host scalar's copy would wait for the queued work
+    d_min = torch.full((), depth_min, dtype=torch.float32, device=dev)
+    d_max = torch.full((), depth_max, dtype=torch.float32, device=dev)
 
     def safe_inv(d):
         tiny = torch.where(d < 0, -1e-9, 1e-9)
@@ -285,6 +294,35 @@ def _make_tile_best(cand: dict, intrinsics, depth_min: float, depth_max: float,
     return tile_best
 
 
+def splat_geometry(centers: torch.Tensor,     # [V,3] world voxel centres
+                   voxel_ids: torch.Tensor,   # [V] int32 1-based ids
+                   c2w: torch.Tensor, intrinsics: torch.Tensor,
+                   voxel_size: torch.Tensor,
+                   depth_min: float, depth_max: float,
+                   ray_increment: torch.Tensor,
+                   width: int, height: int,
+                   max_tiles_per_axis: int = 4,
+                   max_per_tile: int = 64,
+                   tile_chunk: int = TILE_CHUNK,
+                   pair_cap: Optional[int] = None,
+                   dual_bin: bool = True,
+                   big_budget: Optional[int] = None) -> dict:
+    """The half of a view's splat lift that reads no feature map: the voxel
+    projection, the binning and the tile test. Returns ``_splat_candidates``'
+    dict with ``chunks``, each tile chunk's (tile ids [C], best slot [C, 256],
+    any hit [C, 256], candidate ids [C, K]), and the ray grid and K that
+    ``splat_accumulate`` reads. Nothing here waits for the device."""
+    K = max_per_tile
+    geo = _splat_candidates(centers, voxel_ids, c2w, intrinsics, voxel_size, depth_max,
+                            width, height, max_tiles_per_axis, K, pair_cap, dual_bin,
+                            big_budget)
+    tile_best = _make_tile_best(geo, intrinsics, depth_min, depth_max, ray_increment, K)
+    tile_ids = torch.arange(geo["tx_n"] * geo["ty_n"], device=centers.device)
+    geo.update(chunks=[(c,) + tile_best(c) for c in tile_ids.split(tile_chunk)],
+               width=width, height=height, K=K)
+    return geo
+
+
 def first_hit_voxels_splat(centers: torch.Tensor,     # [V,3] world voxel centres
                            voxel_ids: torch.Tensor,   # [V] int32 1-based ids
                            c2w: torch.Tensor, intrinsics: torch.Tensor,
@@ -304,20 +342,56 @@ def first_hit_voxels_splat(centers: torch.Tensor,     # [V,3] world voxel centre
     returns only the hit image, so a big-budget overflow would go unseen. The
     per-tile ``max_per_tile`` cap is likewise invisible from the hit image;
     ``lift_view_splat`` reports both."""
-    K = max_per_tile
-    cand = _splat_candidates(centers, voxel_ids, c2w, intrinsics, voxel_size, depth_max,
-                             width, height, max_tiles_per_axis, K, pair_cap, dual_bin,
-                             big_budget)
-    tile_best = _make_tile_best(cand, intrinsics, depth_min, depth_max, ray_increment, K)
-    tx_n, ty_n = cand["tx_n"], cand["ty_n"]
+    geo = splat_geometry(centers, voxel_ids, c2w, intrinsics, voxel_size, depth_min,
+                         depth_max, ray_increment, width, height, max_tiles_per_axis,
+                         max_per_tile, tile_chunk, pair_cap, dual_bin, big_budget)
+    tx_n, ty_n = geo["tx_n"], geo["ty_n"]
+    out = torch.cat([torch.where(any_hit, ids.gather(1, best), 0)
+                     for _, best, any_hit, ids in geo["chunks"]])
+    return tiles_to_image(out.reshape(tx_n * ty_n, TILE, TILE), ty_n, tx_n, height, width)
+
+
+def splat_accumulate(geo: dict, features_hwc: torch.Tensor,   # [H,W,C] float
+                     num_ids: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The half of a view's splat lift that reads its feature map: each tile
+    of ``splat_geometry``'s chunks contracts its pixels' one-hot hit
+    assignment [K, 256] with its feature block [256, CH] (``torch.bmm``), and
+    one per-voxel sum over the T·K slots merges the candidates' partials.
+    Returns ``lift_view_splat``'s triple."""
+    K, width, height = geo["K"], geo["width"], geo["height"]
+    tx_n, ty_n = geo["tx_n"], geo["ty_n"]
     num_tiles = tx_n * ty_n
+    CH = features_hwc.shape[-1]
+    dev = features_hwc.device
+    PX = TILE * TILE
 
-    def tile_hits(tile_ids):
-        best, any_hit, ids = tile_best(tile_ids)
-        return (torch.where(any_hit, ids.gather(1, best), 0),)
-
-    out, = map_tile_chunks(tile_hits, num_tiles, tile_chunk, centers.device)
-    return tiles_to_image(out.reshape(num_tiles, TILE, TILE), ty_n, tx_n, height, width)
+    with annotate("lift.accumulation"):
+        fpad = torch.nn.functional.pad(features_hwc.to(torch.float32),
+                                       (0, 0, 0, tx_n * TILE - width, 0, ty_n * TILE - height))
+        ftiles = (fpad.reshape(ty_n, TILE, tx_n, TILE, CH).transpose(1, 2)
+                  .reshape(num_tiles, PX, CH))
+        pix = torch.arange(TILE, device=dev)
+        pix_xi, pix_yi = pix.repeat(TILE), pix.repeat_interleave(TILE)    # [256]
+        slots = torch.arange(K, device=dev)
+        parts, cnts = [], []
+        for tile_ids, best, any_hit, _ in geo["chunks"]:              # [C,256]
+            tx = (tile_ids % tx_n) * TILE
+            ty = torch.div(tile_ids, tx_n, rounding_mode="floor") * TILE
+            inb = ((pix_xi[None] + tx[:, None] < width)
+                   & (pix_yi[None] + ty[:, None] < height))          # [C,256]
+            sel = any_hit & inb
+            oh = ((slots[None, :, None] == best[:, None, :])
+                  & sel[:, None, :]).to(torch.float32)                # [C,K,256]
+            parts.append(torch.bmm(oh, ftiles[tile_ids]))             # [C,K,CH]
+            cnts.append(oh.sum(dim=2).to(torch.int32))                # [C,K]
+        seg = geo["wid"].reshape(-1)                                  # [T·K]
+        sums = segment_sum(torch.cat(parts).reshape(-1, CH), seg, num_ids)
+        counts = segment_sum(torch.cat(cnts).reshape(-1), seg, num_ids)
+        # missed pixels are absent here, so row 0 is zeroed for
+        # scatter_features' contract
+        sums[0] = 0.0
+        counts[0] = 0
+    return sums, counts, geo["bin_overflow"] + geo["tile_overflow"]
 
 
 def lift_view_splat(centers: torch.Tensor, voxel_ids: torch.Tensor,
@@ -334,10 +408,8 @@ def lift_view_splat(centers: torch.Tensor, voxel_ids: torch.Tensor,
                     dual_bin: bool = True,
                     big_budget: Optional[int] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """First hit and feature accumulation of one view, fused per tile: each
-    tile contracts its pixels' one-hot hit assignment [K, 256] with its feature
-    block [256, CH] (``torch.bmm``), and one per-voxel sum over the T·K slots
-    merges the candidates' partials. The terms are those of
+    """First hit and feature accumulation of one view: ``splat_geometry``,
+    then ``splat_accumulate`` on ``features_hwc``. The terms are those of
     ``first_hit_voxels_splat`` + ``scatter_features``, grouped by (tile,
     candidate) instead of raster order.
 
@@ -345,47 +417,7 @@ def lift_view_splat(centers: torch.Tensor, voxel_ids: torch.Tensor,
     0-dim): ``overflow`` adds both truncations of this view, big voxels past
     dual_bin's ``big_budget`` and per-tile candidate runs past
     ``max_per_tile``; 0 means no coverage was dropped."""
-    K = max_per_tile
-    CH = features_hwc.shape[-1]
-    dev = centers.device
-    cand = _splat_candidates(centers, voxel_ids, c2w, intrinsics, voxel_size, depth_max,
-                             width, height, max_tiles_per_axis, K, pair_cap, dual_bin,
-                             big_budget)
-    tile_best = _make_tile_best(cand, intrinsics, depth_min, depth_max, ray_increment, K)
-    tx_n, ty_n = cand["tx_n"], cand["ty_n"]
-    num_tiles = tx_n * ty_n
-    PX = TILE * TILE
-
-    with annotate("lift.accumulation"):
-        fpad = torch.nn.functional.pad(features_hwc.to(torch.float32),
-                                       (0, 0, 0, tx_n * TILE - width, 0, ty_n * TILE - height))
-        ftiles = (fpad.reshape(ty_n, TILE, tx_n, TILE, CH).transpose(1, 2)
-                  .reshape(num_tiles, PX, CH))
-
-    pix = torch.arange(TILE, device=dev)
-    pix_xi, pix_yi = pix.repeat(TILE), pix.repeat_interleave(TILE)    # [256]
-    slots = torch.arange(K, device=dev)
-
-    def tile_partials(tile_ids):
-        best, any_hit, _ = tile_best(tile_ids)                       # [C,256]
-        with annotate("lift.accumulation"):
-            tx = (tile_ids % tx_n) * TILE
-            ty = torch.div(tile_ids, tx_n, rounding_mode="floor") * TILE
-            inb = ((pix_xi[None] + tx[:, None] < width)
-                   & (pix_yi[None] + ty[:, None] < height))          # [C,256]
-            sel = any_hit & inb
-            oh = ((slots[None, :, None] == best[:, None, :])
-                  & sel[:, None, :]).to(torch.float32)                # [C,K,256]
-            part = torch.bmm(oh, ftiles[tile_ids])                    # [C,K,CH]
-            return part, oh.sum(dim=2).to(torch.int32)                # [C,K]
-
-    parts, cnts = map_tile_chunks(tile_partials, num_tiles, tile_chunk, dev)
-    with annotate("lift.accumulation"):
-        seg = cand["wid"].reshape(-1)                                 # [T·K]
-        sums = segment_sum(parts.reshape(-1, CH), seg, num_ids)
-        counts = segment_sum(cnts.reshape(-1), seg, num_ids)
-        # missed pixels are absent here, so row 0 is zeroed for
-        # scatter_features' contract
-        sums[0] = 0.0
-        counts[0] = 0
-    return sums, counts, cand["bin_overflow"] + cand["tile_overflow"]
+    geo = splat_geometry(centers, voxel_ids, c2w, intrinsics, voxel_size, depth_min,
+                         depth_max, ray_increment, width, height, max_tiles_per_axis,
+                         max_per_tile, tile_chunk, pair_cap, dual_bin, big_budget)
+    return splat_accumulate(geo, features_hwc, num_ids)

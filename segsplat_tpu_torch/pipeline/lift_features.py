@@ -4,12 +4,16 @@ cuda_project_image_to_sparse_voxel/aggregate_voxel_features_onthefly.py).
 
   * the occupancy is built once (ops/voxelize.occupancy_from_grid: the round()
     snap and 1-based ids of build_sparse_occupancy.py),
-  * view by view, the fp16 feature map goes to the device, is upcast and
-    resized there (bilinear with half-pixel centres, antialiased when it
-    shrinks, as ``jax.image.resize``; the reference's cv2.INTER_LINEAR per
-    channel), lifted to its first-hit voxels (``method="splat"``,
-    ops/lift_splat, or ``"dda"``, ops/lift) and summed into [V+1, C]
-    accumulators in device memory, with the same bits on every run,
+  * view by view (``ViewLifter``), the map-free part of the lift is queued
+    first (the splat's projection, binning and tile test, ops/lift_splat, or
+    the DDA's march, ops/lift, for ``method="splat"`` or ``"dda"``); then the
+    fp16 feature map goes to the device (on the card through pinned memory
+    on a copy stream of its own, ``MapStage``, while the device runs that
+    part), is upcast and resized there (bilinear with half-pixel centres,
+    antialiased when it shrinks, as ``jax.image.resize``; the reference's
+    cv2.INTER_LINEAR per channel), lifted to its first-hit voxels and summed
+    into [V+1, C] accumulators in device memory, with the same bits on every
+    run,
   * checkpoints whenever the views done cross a multiple of
     ``checkpoint_every``, and the final ``ALL_nonzero_voxel_features`` artifact,
     keep the reference's file contract ({xyz, avg_feats fp16, voxel_coords},
@@ -57,10 +61,10 @@ from segsplat_tpu_torch.io.ply import read_voxel_grid_ply, write_voxel_grid_ply
 from segsplat_tpu_torch.io.provenance import (read_weights_source, require_untainted,
                                               write_provenance)
 from segsplat_tpu_torch.ops.lift import default_max_steps, first_hit_voxels, scatter_features
-from segsplat_tpu_torch.ops.lift_splat import lift_view_splat
+from segsplat_tpu_torch.ops.lift_splat import splat_accumulate, splat_geometry
 from segsplat_tpu_torch.ops.voxelize import occupancy_from_grid
 from segsplat_tpu_torch.parallel.mesh import VIEW_AXIS, Mesh, shard_range
-from segsplat_tpu_torch.utils.profiling import annotate
+from segsplat_tpu_torch.utils.profiling import annotate, count
 from segsplat_tpu_torch.utils.system import require_device
 
 
@@ -169,6 +173,54 @@ def lift_grid(centers: np.ndarray, vs: float, origin: np.ndarray, shape, device)
     return grid, occ, occ_origin, snap_centers, snap_ids
 
 
+class MapStage:
+    """A host map's way to the card: the host copies the caller's (pageable)
+    array into pinned memory, and the copy from there into one device buffer
+    is queued on a copy stream of its own, so the transfer runs while the
+    device runs the work queued before on the compute stream. The device
+    buffer is made on first use, sized from the map, and made again when a
+    map's shape or dtype differs from the last one's (the old one is freed on
+    the compute stream, which has waited for its transfers).
+
+    The pinned memory is PyTorch's caching host allocator's (``pin_memory``):
+    the transfer records an event on the copy stream, and the allocator hands
+    the block out again only once that event is done. Events order the rest,
+    with no ``record_stream``: the copy stream waits for ``map_read``, which
+    ``read()`` records on the compute stream once the map has been read,
+    before it overwrites the device buffer; the compute stream waits for the
+    copy stream before anything it queues after ``upload`` reads the buffer.
+    On the H100's host a 199 MB map goes whole: copied in slabs, each queued
+    as it is done, the host's copy ran slower by more than the transfer the
+    slabs would hide (PERF.md §6)."""
+
+    def __init__(self, device: torch.device):
+        self.device, self.dev = device, None
+        self.stream = torch.cuda.Stream(device)
+        self.map_read = torch.cuda.Event()
+
+    def upload(self, fmap_host: np.ndarray) -> torch.Tensor:
+        """The map in the device buffer, for work queued next on the compute
+        stream. Returns once the host has read ``fmap_host``."""
+        src = torch.from_numpy(fmap_host)
+        compute = torch.cuda.current_stream(self.device)
+        if self.dev is None or self.dev.shape != src.shape or self.dev.dtype != src.dtype:
+            self.dev = torch.empty(src.shape, dtype=src.dtype, device=self.device)
+            # the compute stream's allocator may hand out a block that work
+            # still queued there uses: the copy stream writes it after that
+            self.stream.wait_stream(compute)
+        host = src.pin_memory()
+        self.stream.wait_event(self.map_read)
+        with torch.cuda.stream(self.stream):
+            self.dev.copy_(host, non_blocking=True)
+        compute.wait_stream(self.stream)
+        return self.dev
+
+    def read(self) -> None:
+        """Mark the device buffer read by the work queued so far on the
+        compute stream."""
+        self.map_read.record(torch.cuda.current_stream(self.device))
+
+
 class ViewLifter:
     """Stage 3 one view at a time, the lift of ``aggregate_voxel_features``:
     set up once from a grid PLY's (centres, voxel_size, grid_origin,
@@ -177,12 +229,22 @@ class ViewLifter:
     feature map into [V+1, C] float32 sums, int32 counts and the most slots a
     view truncated, all in device memory; ``result`` reads them out.
 
-    A view runs in the span ``lift.view``: the fp16 map copied to the device
-    as stored (``lift.upload``: from pageable memory, so the host waits there
-    for the work queued before it), ``resize_features``, the permute to HWC,
-    the splat lift (``ops/lift_splat.lift_view_splat``, which counts the
-    view's truncated slots as ``overflow`` of ``lift.binning``) or the DDA
-    (its march bounded by the view's own longest ray), and the adds."""
+    A view runs in the span ``lift.view``, in this order: the camera's
+    tensors (on the card through pinned memory, so their copies wait for
+    nothing); the part that reads no map, queued first (the splat's
+    ``ops/lift_splat.splat_geometry``, which counts the view's truncated
+    slots as ``overflow`` of ``lift.binning``, or the DDA's
+    ``first_hit_voxels``, its march bounded by the view's own longest ray);
+    the map's upload (``lift.upload``); then ``resize_features``, the permute
+    to HWC, the accumulation (``splat_accumulate`` or ``scatter_features``)
+    and the adds. On the card a host ``numpy`` map goes through a
+    ``MapStage`` (count ``staged`` of ``lift.upload``), so the host's copy
+    into pinned memory and the transfer run while the device runs the
+    geometry; the stage's device buffer is marked read after the resize.
+    Elsewhere (the CPU, or a map already on the device) the map is taken as
+    it is. Each view's map crosses to the card whole, every view, and
+    ``lift`` returns once the host has read it, so the caller may overwrite
+    it then."""
 
     def __init__(self, centers: np.ndarray, voxel_size: float, origin: np.ndarray, shape,
                  channels: int, height: int, width: int, cfg: LiftConfig = LiftConfig(),
@@ -197,6 +259,7 @@ class ViewLifter:
         self.vs_t = torch.tensor(voxel_size, **self.f32)
         self.inc_t = torch.tensor(self.inc, **self.f32)
         self.occ_origin_t = torch.as_tensor(occ_origin, **self.f32)
+        self.stage = MapStage(device) if device.type == "cuda" else None
         self.sums, self.counts, self.overflow = self.zeros()
 
     def zeros(self):
@@ -204,6 +267,14 @@ class ViewLifter:
         return (torch.zeros((self.num_ids, self.channels), **self.f32),
                 torch.zeros((self.num_ids,), dtype=torch.int32, device=self.device),
                 torch.zeros((), dtype=torch.int64, device=self.device))
+
+    def _camera(self, x) -> torch.Tensor:
+        """A camera array as float32 on the device; from the host to the card
+        through pinned memory, a copy that waits for no queued work."""
+        t = torch.as_tensor(x, dtype=torch.float32)
+        if t.device.type == "cpu" and self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
 
     def lift(self, fmap_host: np.ndarray, c2w, intrinsics, into=None) -> None:
         """One view's [C, h, w] host feature map (fp16 as stored), camera to
@@ -213,26 +284,36 @@ class ViewLifter:
         if into is not None:
             sums, counts, overflow = into
         cfg, W, H = self.cfg, self.width, self.height
+        staged = self.stage is not None and isinstance(fmap_host, np.ndarray)
         with annotate("lift.view"):
-            with annotate("lift.upload"):
-                fmap = torch.from_numpy(fmap_host).to(self.device)
-            fmap = resize_features(fmap, H, W).permute(1, 2, 0)           # [H,W,C]
-            c2w = torch.as_tensor(c2w, **self.f32)
-            K = torch.as_tensor(intrinsics, **self.f32)
+            c2w_t, K = self._camera(c2w), self._camera(intrinsics)
             if cfg.method == "splat":
-                ds, dc, dof = lift_view_splat(
-                    self.snap_centers, self.snap_ids, c2w, K, self.vs_t, cfg.depth_min,
-                    cfg.depth_max, self.inc_t, fmap, self.num_ids, W, H,
+                geo = splat_geometry(
+                    self.snap_centers, self.snap_ids, c2w_t, K, self.vs_t, cfg.depth_min,
+                    cfg.depth_max, self.inc_t, W, H,
                     max_tiles_per_axis=cfg.splat_max_tiles_per_axis,
                     max_per_tile=cfg.splat_max_per_tile,
                     big_budget=cfg.splat_big_budget or None)
-                torch.maximum(overflow, dof, out=overflow)
             else:
                 k = np.asarray(intrinsics, np.float64)
                 steps = default_max_steps(W, H, k[0], k[1], cfg.depth_min, cfg.depth_max,
                                           self.inc, cx=k[2], cy=k[3])
-                hits = first_hit_voxels(self.occ, c2w, K, self.occ_origin_t, self.vs_t,
+                hits = first_hit_voxels(self.occ, c2w_t, K, self.occ_origin_t, self.vs_t,
                                         cfg.depth_min, cfg.depth_max, self.inc_t, W, H, steps)
+            with annotate("lift.upload"):
+                if staged:
+                    fmap = self.stage.upload(fmap_host)
+                    count("staged", 1)
+                else:
+                    fmap = torch.as_tensor(fmap_host, device=self.device)
+            fmap = resize_features(fmap, H, W)
+            if staged:
+                self.stage.read()
+            fmap = fmap.permute(1, 2, 0)                                  # [H,W,C]
+            if cfg.method == "splat":
+                ds, dc, dof = splat_accumulate(geo, fmap, self.num_ids)
+                torch.maximum(overflow, dof, out=overflow)
+            else:
                 ds, dc = scatter_features(fmap, hits, self.num_ids)
             sums += ds
             counts += dc

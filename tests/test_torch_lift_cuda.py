@@ -6,11 +6,14 @@ so it runs where the card is:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_lift_cuda.py
 
-The last case lifts one view of the benchmark's lift cell at full size
+One case lifts one view of the benchmark's lift cell at full size
 (``benchmark/configs/officescene-room-lift.json``: 876×584 rays, 512
 channels, 91 520 voxels) through ``ViewLifter`` and holds it against the
 benchmark's plain reference within the cell's limits, with no slot
-truncated.
+truncated. The staged upload (``MapStage``) gives the bits of the map
+copied as it is, view after view through reused buffers, whatever the
+caller writes into its array once ``lift`` has returned; and the view's
+geometry half waits for nothing on the card.
 
 Without a card every case skips."""
 
@@ -159,3 +162,96 @@ def test_a_full_size_view_of_the_lift_cell_against_the_reference():
     share, gap = cell.loop_module().compare(part[0], part[1], *ref, w * h)
     assert int(part[2]) == 0 and int((part[1] > 0).sum()) > 5000
     assert share <= lim["hit_mismatch_share"] and gap <= lim["sum_gap_max"], (share, gap)
+
+
+ROOM = dict(points=1200, layout_seed=0, density_eps=0.08, density_min_neighbors=0,
+            cell_size=0.3, views=10, native_w=128, native_h=96, fx_native=100.0,
+            downsample=0.5)
+
+
+def _room_lifter(device, channels):
+    from benchmark.harness.cell import BENCH_DIR, load_module
+    from segsplat_tpu_torch.pipeline.lift_features import LiftConfig, ViewLifter
+
+    scene = load_module(BENCH_DIR / "scenes" / "room_lift.py")
+    cells, origin, centers = scene.voxels(ROOM)
+    c2w, intr = scene.cameras(ROOM)
+    lifter = ViewLifter(centers, ROOM["cell_size"], origin, tuple(cells.max(0) + 1),
+                        channels, H, W, LiftConfig(splat_max_per_tile=64), device)
+    return lifter, c2w, intr
+
+
+@pytest.mark.cuda
+def test_the_staged_upload_gives_the_bits_of_the_map_copied_as_it_is():
+    """Ten views cycle three fp16 maps through one caller array, overwritten
+    with noise once each ``lift`` returns, then a float32 map of another
+    shape and an fp16 map again: every view's sums, counts and overflow
+    equal the map copied to the card as it is, resized and lifted by
+    ``lift_view_splat``; ``lift.upload`` counts ``staged`` once a view on the
+    card and never on the CPU."""
+    _need_card()
+    from segsplat_tpu_torch.ops.lift_splat import lift_view_splat
+    from segsplat_tpu_torch.utils import profiling
+
+    C = 64
+    lifter, c2w, intr = _room_lifter("cuda", C)
+    rng = np.random.default_rng(8)
+    maps = [rng.standard_normal((C, 360, 540)).astype(np.float16) for _ in range(3)]
+    # then a map of another shape and dtype, and the first shape again: the
+    # stage's device buffer is made anew twice
+    other = rng.standard_normal((C, 200, 300)).astype(np.float32)
+    callers = [np.empty_like(maps[0])] * 10 + [other.copy(), np.empty_like(maps[0])]
+    cfg, f32 = lifter.cfg, dict(dtype=torch.float32, device="cuda")
+    profiling.reset()
+    profiling.enable()
+    try:
+        for v, caller in enumerate(callers):
+            m = other if v == 10 else maps[v % 3]
+            caller[...] = m
+            got = lifter.zeros()
+            lifter.lift(caller, c2w[v % len(c2w)], intr, into=got)
+            caller[...] = rng.standard_normal(caller.shape).astype(caller.dtype)
+            fmap = resize_features(torch.from_numpy(m).cuda(), H, W)
+            ref = lift_view_splat(lifter.snap_centers, lifter.snap_ids,
+                                  torch.as_tensor(c2w[v % len(c2w)], **f32),
+                                  torch.as_tensor(intr, **f32),
+                                  lifter.vs_t, cfg.depth_min, cfg.depth_max, lifter.inc_t,
+                                  fmap.permute(1, 2, 0), lifter.num_ids, W, H,
+                                  max_tiles_per_axis=cfg.splat_max_tiles_per_axis,
+                                  max_per_tile=cfg.splat_max_per_tile)
+            assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), v
+            assert int(got[2]) == int(ref[2]) and int(got[1].sum()) > 0
+        uploads = [r for r in profiling.records() if r.name == "lift.upload"]
+        assert len(uploads) == 12 and all(r.counts.get("staged") == 1 for r in uploads)
+        profiling.reset()
+        cpu, _, _ = _room_lifter("cpu", C)
+        cpu.lift(maps[0], c2w[0], intr)
+        uploads = [r for r in profiling.records() if r.name == "lift.upload"]
+        assert len(uploads) == 1 and "staged" not in uploads[0].counts
+    finally:
+        profiling.disable()
+        profiling.reset()
+
+
+@pytest.mark.cuda
+def test_the_view_geometry_waits_for_nothing_on_the_card():
+    """The camera's tensors and ``splat_geometry`` make no synchronising call
+    (``torch.cuda.set_sync_debug_mode("error")``), so the map's upload
+    starts while the card runs them."""
+    _need_card()
+    from segsplat_tpu_torch.ops.lift_splat import splat_geometry
+
+    lifter, c2w, intr = _room_lifter("cuda", 8)
+    cfg = lifter.cfg
+    for _ in range(2):                     # the second time with warm caches
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            c, k = lifter._camera(c2w[1]), lifter._camera(intr)
+            geo = splat_geometry(lifter.snap_centers, lifter.snap_ids, c, k, lifter.vs_t,
+                                 cfg.depth_min, cfg.depth_max, lifter.inc_t, W, H,
+                                 max_tiles_per_axis=cfg.splat_max_tiles_per_axis,
+                                 max_per_tile=cfg.splat_max_per_tile)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert bool(torch.cat([h for _, _, h, _ in geo["chunks"]]).any())

@@ -3,7 +3,8 @@ against the JAX package's on the same seeded inputs, on the CPU: the dual
 binning's order, rank_sorted, offsets and overflow exact (with ties in depth
 and span, an overflowing big budget, and both fall-backs to the single-pass
 bin), hit images exact, ``lift_view_splat``'s counts and overflow exact and
-sums at rtol/atol 1e-5; and against the port's own DDA (≥ 97 % of pixels) and
+sums at rtol/atol 1e-5, also as ``splat_geometry`` then ``splat_accumulate``;
+and against the port's own DDA (≥ 97 % of pixels) and
 ``first_hit_voxels_splat`` + ``scatter_features``."""
 
 import jax.numpy as jnp
@@ -115,28 +116,37 @@ def test_splat_agrees_with_the_ports_dda(view):
     assert (dda == splat).float().mean() > 0.97
 
 
-@pytest.mark.parametrize("view,scale", [(1, 1.0), (0, 0.6), (2, 0.6)])
-def test_lift_view_splat_matches_jax(view, scale):
+@pytest.mark.parametrize("view,scale,split", [
+    pytest.param(1, 1.0, False, id="1-1.0"), pytest.param(0, 0.6, False, id="0-0.6"),
+    pytest.param(2, 0.6, False, id="2-0.6"), pytest.param(1, 1.0, True, id="1-1.0-split"),
+    pytest.param(0, 0.6, True, id="0-0.6-split"), pytest.param(2, 0.6, True, id="2-0.6-split")])
+def test_lift_view_splat_matches_jax(view, scale, split):
     """Close-up cameras (scale 0.6, m = 6, K = 128 on a 64×48 image) give
-    multi-tile footprints for the dual bin's big set."""
+    multi-tile footprints for the dual bin's big set. Split: the view's
+    ``splat_geometry`` once, then ``splat_accumulate`` on two maps, each held
+    against JAX's ``lift_view_splat``."""
     w, h = (64, 48) if scale != 1.0 else (W, H)
     intr = np.array([70.0, 70.0, w / 2, h / 2], np.float32) if scale != 1.0 else INTR
     jax_args, port_args = _args(view, w, h, intr, scale)
     C = 24
-    feats = np.random.default_rng(view).random((h, w, C)).astype(np.float32)
+    rng = np.random.default_rng(view)
+    maps = [rng.random((h, w, C)).astype(np.float32) for _ in range(2 if split else 1)]
     num_ids = int(port_args[1].max()) + 1
     kw = dict(max_tiles_per_axis=6 if scale != 1.0 else 4,
               max_per_tile=128 if scale != 1.0 else 64, tile_chunk=4)
     # a big budget of a quarter of the voxels: the selection by span matters
     for dual in (dict(dual_bin=True, big_budget=num_ids // 4), dict(dual_bin=False)):
-        rs, rc, rof = JS.lift_view_splat(*jax_args[:8], jnp.asarray(feats), num_ids,
-                                         *jax_args[8:], **dual, **kw)
-        s, c, of = PS.lift_view_splat(*port_args[:8], _t(feats), num_ids, *port_args[8:],
-                                      **dual, **kw)
-        assert s.dtype == torch.float32 and c.dtype == torch.int32
-        np.testing.assert_array_equal(c.numpy(), np.asarray(rc))
-        np.testing.assert_allclose(s.numpy(), np.asarray(rs), rtol=1e-5, atol=1e-5)
-        assert int(of) == int(rof) and int(c.sum()) > 0
+        geo = PS.splat_geometry(*port_args, **dual, **kw) if split else None
+        for feats in maps:
+            rs, rc, rof = JS.lift_view_splat(*jax_args[:8], jnp.asarray(feats), num_ids,
+                                             *jax_args[8:], **dual, **kw)
+            s, c, of = (PS.splat_accumulate(geo, _t(feats), num_ids) if split else
+                        PS.lift_view_splat(*port_args[:8], _t(feats), num_ids,
+                                           *port_args[8:], **dual, **kw))
+            assert s.dtype == torch.float32 and c.dtype == torch.int32
+            np.testing.assert_array_equal(c.numpy(), np.asarray(rc))
+            np.testing.assert_allclose(s.numpy(), np.asarray(rs), rtol=1e-5, atol=1e-5)
+            assert int(of) == int(rof) and int(c.sum()) > 0
     assert int(of) == 0
     # the fused sums equal the hit image scattered, and the same bits twice
     hits = PS.first_hit_voxels_splat(*port_args, **kw)
@@ -150,7 +160,8 @@ def test_lift_view_splat_matches_jax(view, scale):
 
 def test_truncation_is_reported_as_jax_reports_it():
     """A per-tile K of 8, a tiny big budget and a pair cap: the overflow and
-    the truncated hits equal JAX's."""
+    the truncated hits equal JAX's, also through ``splat_geometry`` then
+    ``splat_accumulate`` on two maps, with either binning."""
     jax_args, port_args = _args(0, 64, 48, np.array([70.0, 70.0, 32, 24], np.float32), 0.6)
     feats = np.random.default_rng(5).random((48, 64, 4)).astype(np.float32)
     num_ids = int(port_args[1].max()) + 1
@@ -161,7 +172,19 @@ def test_truncation_is_reported_as_jax_reports_it():
     assert int(of) == int(rof) > 0
     np.testing.assert_array_equal(c.numpy(), np.asarray(rc))
     np.testing.assert_allclose(s.numpy(), np.asarray(rs), rtol=1e-5, atol=1e-5)
+    # split, with either binning: the geometry once, the accumulation on two maps
+    other = np.random.default_rng(6).random((48, 64, 4)).astype(np.float32)
+    for dual_bin in (True, False):
+        geo = PS.splat_geometry(*port_args, dual_bin=dual_bin, **kw)
+        for f in (feats, other):
+            rs, rc, rof = JS.lift_view_splat(*jax_args[:8], jnp.asarray(f), num_ids,
+                                             *jax_args[8:], dual_bin=dual_bin, **kw)
+            s, c, of = PS.splat_accumulate(geo, _t(f), num_ids)
+            assert int(of) == int(rof) > 0
+            np.testing.assert_array_equal(c.numpy(), np.asarray(rc))
+            np.testing.assert_allclose(s.numpy(), np.asarray(rs), rtol=1e-5, atol=1e-5)
     capped = dict(max_tiles_per_axis=4, max_per_tile=64, tile_chunk=4, pair_cap=500)
     np.testing.assert_array_equal(
         PS.first_hit_voxels_splat(*port_args, **capped).numpy(),
         np.asarray(JS.first_hit_voxels_splat(*jax_args, **capped)))
+

@@ -161,6 +161,7 @@ def test_a_view_records_its_spans_and_overflow(room):
             "lift.tile_test", "lift.accumulation"} <= set(names)
     assert names["lift.upload"].parent == "lift.view" == names["lift.resize"].parent
     assert names["lift.binning"].counts["overflow"] == int(lifter.overflow) > 0
+    assert "staged" not in names["lift.upload"].counts      # the CPU takes the map as it is
 
 
 def test_the_scene_copies_the_programs_room():
