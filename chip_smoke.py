@@ -747,14 +747,13 @@ def write_model_dir(root: str, n_views: int = 4):
 
 def view0_blend_inputs(src: str, model: str, iteration: int, sem: str):
     """View 0's blend inputs as ``render_semantic_views`` builds them (m = 6,
-    K = 256, its pair cap, bg 0): the scene, its Gaussians and the semantics
+    K = 256, no pair cap, bg 0): the scene, its Gaussians and the semantics
     loaded again on the card. Returns (scene, logits [capacity, P] on the card,
     camera, BlendInputs, bg, K, the indexed variant's arguments)."""
     import torch
 
     from segsplat_tpu_torch.ops.rasterize import build_blend_inputs
-    from segsplat_tpu_torch.pipeline.render_semantics import (PAIR_CAP_MAX,
-                                                              attach_logits_for_table)
+    from segsplat_tpu_torch.pipeline.render_semantics import attach_logits_for_table
     from segsplat_tpu_torch.render import _semantic_inputs
     from segsplat_tpu_torch.scene import Scene, to_device_camera
 
@@ -767,9 +766,8 @@ def view0_blend_inputs(src: str, model: str, iteration: int, sem: str):
     Kc = cam.intrinsics()
     proj = project_checked(xyz, scaling, rotation, cam.world_view_transform(), Kc[0, 0],
                            Kc[1, 1], Kc[0, 2], Kc[1, 2], cam.width, cam.height)
-    cap = min(table.capacity * m * m, PAIR_CAP_MAX)
-    bi = build_blend_inputs(proj, payload, opac, cam.width, cam.height, m, K, pair_cap=cap)
-    iargs = indexed_inputs(proj, payload, opac, cam.width, cam.height, m, K, bg, pair_cap=cap)
+    bi = build_blend_inputs(proj, payload, opac, cam.width, cam.height, m, K)
+    iargs = indexed_inputs(proj, payload, opac, cam.width, cam.height, m, K, bg)
     return scene, logits, cam, bi, bg, K, iargs
 
 
